@@ -1,0 +1,207 @@
+"""Core layer ops with TF/Keras semantics, as functions on NHWC tensors.
+
+Port of ``sggan_tpu/ops/layers.py``.  Parameters are dicts (or
+``nn.ParameterDict``s) with the JAX names ``w`` and ``b``, with kernels in
+torch layout (``utils/bridge.py``): conv ``(cout, cin, kh, kw)``,
+conv-transpose ``(cin, cout, kh, kw)``.
+
+Activations are NHWC at every boundary.  In memory that is channels_last,
+so ``x.permute(0, 3, 1, 2)`` is the NCHW view the convs take without a
+copy, and cuDNN returns channels_last, which permutes back to contiguous
+NHWC.
+
+Dtype policy as in the JAX package: convs cast input and kernel to the
+compute dtype and return it; bf16 convs accumulate in f32 (cuDNN's and
+XLA's default).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Mapping, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+Stride = Union[int, Tuple[int, int]]
+Pad = Union[int, Sequence[Tuple[int, int]]]
+
+
+def _pair(s: Stride) -> Tuple[int, int]:
+    return (s, s) if isinstance(s, int) else tuple(s)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(y: torch.Tensor) -> torch.Tensor:
+    # a no-op for the channels_last outputs the convs give
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+# ----------------------------------------------------------------------
+# initializers (Keras defaults, drawn from an explicit torch.Generator)
+# ----------------------------------------------------------------------
+
+def glorot_uniform(shape: Sequence[int], generator: torch.Generator,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Keras glorot_uniform for a kernel of TF ``shape``: fans from the
+    last two axes times the receptive field (keras _compute_fans)."""
+    rf = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    fan_in, fan_out = rf * shape[-2], rf * shape[-1]
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(tuple(shape), generator=generator, dtype=dtype)
+    return u * (2 * limit) - limit
+
+
+def conv2d_init(kh: int, kw: int, cin: int, cout: int,
+                generator: torch.Generator, use_bias: bool = True,
+                dtype=torch.float32) -> dict:
+    w = glorot_uniform((kh, kw, cin, cout), generator, dtype)
+    p = {"w": w.permute(3, 2, 0, 1).contiguous()}
+    if use_bias:
+        p["b"] = torch.zeros(cout, dtype=dtype)
+    return p
+
+
+def conv2d_transpose_init(kh: int, kw: int, cin: int, cout: int,
+                          generator: torch.Generator, use_bias: bool = True,
+                          dtype=torch.float32) -> dict:
+    # drawn in TF Conv2DTranspose layout (kh, kw, cout, cin), as the JAX
+    # package draws it, then moved to torch's (cin, cout, kh, kw)
+    w = glorot_uniform((kh, kw, cout, cin), generator, dtype)
+    p = {"w": w.permute(3, 2, 0, 1).contiguous()}
+    if use_bias:
+        p["b"] = torch.zeros(cout, dtype=dtype)
+    return p
+
+
+# ----------------------------------------------------------------------
+# convolutions
+# ----------------------------------------------------------------------
+
+def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """TF SAME: output ceil(size / s), the extra pad going after."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _add_bias(y: torch.Tensor, params: Mapping, bias: bool, cd) -> torch.Tensor:
+    if bias and "b" in params:
+        y = y + params["b"].to(cd)
+    return y
+
+
+def conv2d(params: Mapping, x: torch.Tensor, stride: Stride = 1,
+           padding: str = "SAME", compute_dtype=None,
+           bias: bool = True) -> torch.Tensor:
+    """NHWC conv with TF 'SAME'/'VALID' padding.
+
+    TF SAME pads asymmetrically when the total is odd (stride 2 and an
+    odd kernel on an even size: (0, 1)), which ``F.conv2d(padding=...)``
+    cannot express; such pads go through ``F.pad`` before a VALID conv.
+
+    bias=False skips the add for convs that feed instance norm (the
+    per-channel shift is removed exactly by the norm); ``b`` stays in the
+    parameters for layout parity."""
+    cd = compute_dtype or x.dtype
+    w = params["w"].to(cd)
+    sh, sw = _pair(stride)
+    xc = _nchw(x.to(cd))
+    pad: Union[int, Tuple[int, int]] = 0
+    if padding == "SAME":
+        kh, kw = w.shape[2], w.shape[3]
+        (ht, hb) = _same_pads(x.shape[1], kh, sh)
+        (wl, wr) = _same_pads(x.shape[2], kw, sw)
+        if ht == hb and wl == wr:
+            pad = (ht, wl)
+        else:
+            xc = F.pad(xc, (wl, wr, ht, hb))
+    elif padding != "VALID":
+        raise ValueError(f"padding={padding!r} — must be 'SAME' or 'VALID'")
+    y = F.conv2d(xc, w, stride=(sh, sw), padding=pad)
+    return _add_bias(_nhwc(y), params, bias, cd)
+
+
+def conv2d_transpose(params: Mapping, x: torch.Tensor, stride: Stride = 1,
+                     padding: str = "SAME", compute_dtype=None,
+                     bias: bool = True) -> torch.Tensor:
+    """TF ``Conv2DTranspose``: the adjoint of the forward conv with the
+    same stride and padding.  SAME gives ``in * stride``: the full
+    transposed conv, cropped by the forward conv's SAME pads (for k=3,
+    s=2 that drops the last row and column; ``padding=1,
+    output_padding=1`` would crop the wrong side)."""
+    cd = compute_dtype or x.dtype
+    w = params["w"].to(cd)
+    sh, sw = _pair(stride)
+    kh, kw = w.shape[2], w.shape[3]
+    if kh < sh or kw < sw:
+        raise ValueError(f"kernel {(kh, kw)} smaller than stride {(sh, sw)}")
+    y = F.conv_transpose2d(_nchw(x.to(cd)), w, stride=(sh, sw))
+    if padding == "SAME":
+        h, wd = x.shape[1] * sh, x.shape[2] * sw
+        ht = _same_pads(h, kh, sh)[0]
+        wl = _same_pads(wd, kw, sw)[0]
+        y = y[:, :, ht:ht + h, wl:wl + wd]
+    elif padding != "VALID":
+        raise ValueError(f"padding={padding!r} — must be 'SAME' or 'VALID'")
+    return _add_bias(_nhwc(y), params, bias, cd)
+
+
+# ----------------------------------------------------------------------
+# activations / padding
+# ----------------------------------------------------------------------
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x, 0)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
+@functools.lru_cache(maxsize=64)
+def _reflect_index(n: int, lo: int, hi: int,
+                   device: torch.device) -> torch.Tensor:
+    if not (0 <= lo < n and 0 <= hi < n):
+        raise ValueError(f"reflect pad ({lo}, {hi}) needs a size > pad, "
+                         f"got {n}")
+    i = torch.arange(-lo, n + hi).abs()
+    return torch.where(i >= n, 2 * (n - 1) - i, i).to(device)
+
+
+def _reflect_pad(x: torch.Tensor, ht: int, hb: int, wl: int,
+                 wr: int) -> torch.Tensor:
+    # One gather into a new NHWC tensor.  F.pad(mode="reflect") would give
+    # the CUDA convs an NCHW-contiguous tensor: cuDNN then transposes in
+    # and out of NHWC around every reflect conv.
+    hi = _reflect_index(x.shape[1], ht, hb, x.device)
+    wi = _reflect_index(x.shape[2], wl, wr, x.device)
+    return x[:, hi[:, None], wi]
+
+
+def reflect_pad(x: torch.Tensor, pad: Pad) -> torch.Tensor:
+    """tf.pad(..., "REFLECT") on the spatial axes of NHWC.  ``pad`` is an
+    int or the four (lo, hi) pairs of NHWC, whose N and C pairs must be
+    zero."""
+    if isinstance(pad, int):
+        return _reflect_pad(x, pad, pad, pad, pad)
+    (n0, n1), (ht, hb), (wl, wr), (c0, c1) = pad
+    if n0 or n1 or c0 or c1:
+        raise ValueError(f"reflect_pad pads only H and W, got {pad}")
+    return _reflect_pad(x, ht, hb, wl, wr)
+
+
+def conv2d_reflect(params: Mapping, x: torch.Tensor, compute_dtype=None,
+                   bias: bool = True) -> torch.Tensor:
+    """``conv2d(params, reflect_pad(x, k // 2), 1, "VALID")``, the
+    reference's reflect-padded conv (odd kernels only)."""
+    k = params["w"].shape[2]
+    if k % 2 != 1:
+        raise ValueError(f"conv2d_reflect needs an odd kernel, got k={k}")
+    cd = compute_dtype or x.dtype
+    return conv2d(params, reflect_pad(x.to(cd), k // 2), 1, "VALID", cd,
+                  bias)

@@ -1,0 +1,101 @@
+"""Port parity: sggan_tpu_torch.ops.layers against sggan_tpu.ops.layers on
+the CPU, f32, same numpy inputs and kernels (atol 1e-5: both sides sum
+in f32, in different orders).
+
+Pins the two TF-padding traps of the port: stride-2 SAME conv pads
+(0, 1), which F.conv2d(padding=1) gets wrong, and stride-2 SAME
+conv-transpose crops the END of the full output, which
+F.conv_transpose2d(padding=1, output_padding=1) gets wrong."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from sggan_tpu.ops import layers as jl  # noqa: E402
+from sggan_tpu_torch.ops import layers as tl  # noqa: E402
+from sggan_tpu_torch.utils.bridge import params_from_jax  # noqa: E402
+
+ATOL = 1e-5
+
+
+def _data(seed, x_shape, w_shape):
+    r = np.random.default_rng(seed)
+    x = r.standard_normal(x_shape).astype(np.float32)
+    w = (r.standard_normal(w_shape) * 0.2).astype(np.float32)
+    b = r.standard_normal(w_shape[-1]).astype(np.float32)
+    return x, {"w": w, "b": b}
+
+
+def _close(got, ref):
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("hw", [(9, 7), (8, 10)])
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("k", [3, 4])
+def test_conv2d(k, stride, padding, hw):
+    x, p = _data(0, (2, *hw, 3), (k, k, 3, 5))
+    ref = jl.conv2d(p, jnp.asarray(x), stride, padding)
+    got = tl.conv2d(params_from_jax(p), torch.from_numpy(x), stride, padding)
+    assert got.is_contiguous()
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("hw", [(5, 7), (4, 6)])
+@pytest.mark.parametrize("k,stride,padding", [
+    (3, 2, "SAME"), (4, 2, "SAME"), (3, 1, "SAME"), (3, 2, "VALID")])
+def test_conv2d_transpose(k, stride, padding, hw):
+    # TF Conv2DTranspose layout (kh, kw, cout, cin)
+    x, p = _data(1, (2, *hw, 6), (k, k, 4, 6))
+    p["b"] = p["b"][:4]
+    ref = jl.conv2d_transpose(p, jnp.asarray(x), stride, padding)
+    got = tl.conv2d_transpose(params_from_jax(p), torch.from_numpy(x),
+                              stride, padding)
+    if padding == "SAME":
+        assert got.shape == (2, hw[0] * stride, hw[1] * stride, 4)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("pad", [1, 3, ((0, 0), (2, 1), (0, 3), (0, 0))])
+def test_reflect_pad(pad):
+    x = np.random.default_rng(2).standard_normal((2, 7, 6, 3)) \
+        .astype(np.float32)
+    ref = jl.reflect_pad(jnp.asarray(x), pad)
+    got = tl.reflect_pad(torch.from_numpy(x), pad)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_reflect_pad_rejects_pad_not_smaller_than_size():
+    with pytest.raises(ValueError, match="size > pad"):
+        tl.reflect_pad(torch.zeros(1, 3, 8, 2), 3)
+    with pytest.raises(ValueError, match="only H and W"):
+        tl.reflect_pad(torch.zeros(1, 4, 4, 2),
+                       ((0, 0), (1, 1), (1, 1), (1, 0)))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("k", [3, 7])
+def test_conv2d_reflect(k, bias):
+    x, p = _data(3, (2, 10, 9, 4), (k, k, 4, 5))
+    ref = jl.conv2d_reflect(p, jnp.asarray(x), bias=bias)
+    got = tl.conv2d_reflect(params_from_jax(p), torch.from_numpy(x),
+                            bias=bias)
+    _close(got, ref)
+
+
+def test_glorot_uniform_bounds_and_layouts():
+    g = torch.Generator().manual_seed(0)
+    conv = tl.conv2d_init(3, 3, 16, 32, g)
+    tconv = tl.conv2d_transpose_init(3, 3, 16, 32, g)
+    assert conv["w"].shape == (32, 16, 3, 3)       # (cout, cin, kh, kw)
+    assert tconv["w"].shape == (16, 32, 3, 3)      # (cin, cout, kh, kw)
+    limit = np.sqrt(6.0 / (9 * 16 + 9 * 32))
+    for w in (conv["w"], tconv["w"]):
+        a = w.abs().max().item()
+        assert limit * 0.95 < a <= limit
+    assert not conv["b"].any()
