@@ -6,18 +6,24 @@ the module of the same path there, and the tests hold each against it on
 the same weights and inputs.  This package imports ``torch`` and never
 ``jax``.
 
-Ported so far: the serving path of the ResNet generator.
+Ported so far: the serving path of the ResNet generator and the sggan
+train step.
 
-    config    — the reference CLI and ``Config``, shared with sggan_tpu
-                (framework-free; imported, not copied)
-    ops       — TF-semantics conv / conv-transpose / reflect pad, instance
-                norm with its hand-written CUDA kernel (``cuda_in``,
-                ``csrc/instance_norm.cu``) and the nvcc build (``_build``)
-    models    — ``generator_resnet`` as an ``nn.Module`` whose parameter
-                names follow the JAX parameter tree
-    train     — ``evaluate``: the inference half (input convention,
-                compute dtype, sharpening)
-    utils     — ``bridge``: JAX parameter trees <-> ``state_dict``
+    config    — the reference CLI and ``Config``: the port's own copy,
+                held to the JAX one by a test
+    ops       — TF-semantics conv / conv-transpose / reflect pad, Keras
+                leaky_relu, the loss filters (``deriv``), instance norm as
+                an autograd Function with its hand-written CUDA kernels,
+                forward and backward (``cuda_in``, ``csrc/instance_norm.cu``)
+                and the nvcc build (``_build``)
+    models    — ``generator_resnet`` and ``discriminator`` as
+                ``nn.Module``s whose parameter names follow the JAX trees
+    losses    — every criterion and loss of the reference
+    train     — ``evaluate`` (the inference half), ``pool`` (the (fake,
+                mask) image pool with explicit draws) and ``step`` (the
+                train step with Adam and the EMA)
+    utils     — ``bridge``: JAX parameter trees and train states <->
+                the port's
     serve     — the HTTP translate service
 
 Layout: public functions take and return NHWC tensors, like the JAX

@@ -1,5 +1,6 @@
-"""Model zoo of the port: so far the ResNet generator."""
+"""Model zoo of the port: the ResNet generator and the semantic
+discriminator."""
 
-from . import generator_resnet
+from . import discriminator, generator_resnet
 
-__all__ = ["generator_resnet"]
+__all__ = ["discriminator", "generator_resnet"]

@@ -1,10 +1,12 @@
 from .layers import (conv2d, conv2d_init, conv2d_reflect, conv2d_transpose,
-                     conv2d_transpose_init, glorot_uniform, reflect_pad, relu,
-                     tanh)
-from .norm import instance_norm, instance_norm_init, instance_norm_ref
+                     conv2d_transpose_init, glorot_uniform, leaky_relu,
+                     reflect_pad, relu, tanh)
+from .norm import (instance_norm, instance_norm_bwd_ref, instance_norm_init,
+                   instance_norm_ref)
 
 __all__ = [
     "conv2d", "conv2d_init", "conv2d_reflect", "conv2d_transpose",
-    "conv2d_transpose_init", "glorot_uniform", "reflect_pad", "relu", "tanh",
-    "instance_norm", "instance_norm_init", "instance_norm_ref",
+    "conv2d_transpose_init", "glorot_uniform", "leaky_relu", "reflect_pad",
+    "relu", "tanh", "instance_norm", "instance_norm_bwd_ref",
+    "instance_norm_init", "instance_norm_ref",
 ]

@@ -159,6 +159,13 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
 
 
+def leaky_relu(x: torch.Tensor, alpha: float = 0.3) -> torch.Tensor:
+    """Keras LeakyReLU: default alpha 0.3, not torch's 0.01.  alpha is
+    rounded to x's dtype first, as JAX rounds the weakly typed scalar."""
+    a = torch.tensor(alpha, dtype=x.dtype).item()
+    return torch.where(x >= 0, x, x * a)
+
+
 def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
 
@@ -169,8 +176,11 @@ def _reflect_index(n: int, lo: int, hi: int,
     if not (0 <= lo < n and 0 <= hi < n):
         raise ValueError(f"reflect pad ({lo}, {hi}) needs a size > pad, "
                          f"got {n}")
-    i = torch.arange(-lo, n + hi).abs()
-    return torch.where(i >= n, 2 * (n - 1) - i, i).to(device)
+    # a normal tensor even when first asked for under inference_mode: the
+    # cached index is reused by forwards that autograd records
+    with torch.inference_mode(False):
+        i = torch.arange(-lo, n + hi).abs()
+        return torch.where(i >= n, 2 * (n - 1) - i, i).to(device)
 
 
 def _reflect_pad(x: torch.Tensor, ht: int, hb: int, wl: int,

@@ -4,14 +4,16 @@ Port of ``sggan_tpu/ops/norm.py``: per-sample, per-channel moments over
 the spatial plane, eps 1e-3, affine gamma/beta, then an optional relu or
 leaky_relu (Keras alpha 0.3).  Not ``nn.InstanceNorm2d``: its eps is 1e-5.
 
-``instance_norm`` runs the hand-written CUDA kernel (``cuda_in``) on a
-CUDA tensor, and the plain version ``instance_norm_ref`` only on a CPU
-tensor.  There is no fallback from one to the other.
+``instance_norm`` is a ``torch.autograd.Function`` whose backward follows
+the JAX package's custom VJP (``norm._in_fused_bwd``).  On a CUDA tensor
+both directions run the hand-written kernels (``cuda_in``); on a CPU
+tensor they run the plain versions ``instance_norm_ref`` and
+``instance_norm_bwd_ref``.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -25,26 +27,98 @@ def instance_norm_init(c: int, dtype=torch.float32) -> dict:
             "beta": torch.zeros(c, dtype=dtype)}
 
 
-def instance_norm_ref(x: torch.Tensor, gamma: torch.Tensor,
-                      beta: torch.Tensor, eps: float = IN_EPS,
-                      act: Optional[str] = None,
-                      alpha: float = 0.3) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel, following ``norm._in_fused``:
-    f32 sum and sum of squares, var = max(E[x^2] - mean^2, 0), output in
-    ``x.dtype``."""
+def _act(y: torch.Tensor, act: Optional[str], alpha: float) -> torch.Tensor:
+    if act == "relu":
+        return torch.clamp_min(y, 0)
+    if act == "leaky_relu":
+        return torch.where(y >= 0, y, alpha * y)
+    return y
+
+
+def _ref_forward(x, gamma, beta, eps, act, alpha):
+    """(y, mean, rstd) with the moments as (N, C) f32: f32 sum and sum of
+    squares, var = max(E[x^2] - mean^2, 0), as ``norm._in_fused``."""
     cuda_in.check_act(act)
     xf = x.float()
     n = x.shape[1] * x.shape[2]
     mean = xf.sum((1, 2), keepdim=True) / n
     var = torch.clamp_min((xf * xf).sum((1, 2), keepdim=True) / n
                           - mean * mean, 0.0)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * gamma.float() + beta.float()
-    if act == "relu":
-        y = torch.clamp_min(y, 0)
-    elif act == "leaky_relu":
-        y = torch.where(y >= 0, y, alpha * y)
-    return y.to(x.dtype)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mean) * rstd
+    y = _act(y * gamma.float() + beta.float(), act, alpha)
+    return y.to(x.dtype), mean[:, 0, 0], rstd[:, 0, 0]
+
+
+def instance_norm_ref(x: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, eps: float = IN_EPS,
+                      act: Optional[str] = None,
+                      alpha: float = 0.3) -> torch.Tensor:
+    """Plain PyTorch twin of the forward kernel, output in ``x.dtype``."""
+    return _ref_forward(x, gamma, beta, eps, act, alpha)[0]
+
+
+def instance_norm_bwd_ref(x: torch.Tensor, dy: torch.Tensor,
+                          gamma: torch.Tensor, beta: torch.Tensor,
+                          mean: torch.Tensor, rstd: torch.Tensor,
+                          act: Optional[str] = None, alpha: float = 0.3
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Plain PyTorch twin of the backward kernel, line by line
+    ``norm._in_fused_bwd``: the act gate recomputed from x, one reduction
+    of (dy, dy * xhat) per (n, c), then dgamma, dbeta and dx.  ``mean`` and
+    ``rstd`` are the forward's (N, C) f32 moments."""
+    cuda_in.check_act(act)
+    mean, rstd = mean[:, None, None, :], rstd[:, None, None, :]
+    xf = x.float()
+    dyf = dy.float()
+    gf = gamma.float()
+    xhat = (xf - mean) * rstd
+    if act is not None:
+        pre = xhat * gf + beta.float()
+        if act == "relu":
+            dyf = torch.where(pre > 0, dyf, 0.0)
+        else:
+            dyf = torch.where(pre >= 0, dyf, alpha * dyf)
+    n = x.shape[1] * x.shape[2]
+    s_dy = dyf.sum((1, 2))
+    s_dyx = (dyf * xhat).sum((1, 2))
+    dgamma = s_dyx.sum(0).to(gamma.dtype)
+    dbeta = s_dy.sum(0).to(beta.dtype)
+    m_dy = (s_dy / n)[:, None, None, :]
+    m_dyx = (s_dyx / n)[:, None, None, :]
+    dx = (rstd * gf) * (dyf - m_dy - xhat * m_dyx)
+    return dx.to(x.dtype), dgamma, dbeta
+
+
+class _InstanceNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, act, alpha):
+        save = any(ctx.needs_input_grad[:3])
+        if x.device.type == "cpu":
+            y, mean, rstd = _ref_forward(x, gamma, beta, eps, act, alpha)
+        elif save:
+            y, mean, rstd = cuda_in.instance_norm_cuda(
+                x, gamma, beta, eps, act, alpha, save_stats=True)
+        else:
+            return cuda_in.instance_norm_cuda(x, gamma, beta, eps, act,
+                                              alpha)
+        if save:
+            ctx.save_for_backward(x, gamma, beta, mean, rstd)
+            ctx.act, ctx.alpha = act, alpha
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        if x.device.type == "cpu":
+            grads = instance_norm_bwd_ref(x, dy, gamma, beta, mean, rstd,
+                                          ctx.act, ctx.alpha)
+        else:
+            grads = cuda_in.instance_norm_bwd_cuda(
+                x, dy.contiguous(), gamma, beta, mean, rstd, ctx.act,
+                ctx.alpha)
+        return (*grads, None, None, None)
 
 
 def instance_norm(params: Mapping, x: torch.Tensor, act: Optional[str] = None,
@@ -52,7 +126,5 @@ def instance_norm(params: Mapping, x: torch.Tensor, act: Optional[str] = None,
     """Instance norm with optional fused activation; x is NHWC.
 
     act: None | 'relu' | 'leaky_relu'."""
-    gamma, beta = params["gamma"], params["beta"]
-    if x.device.type == "cpu":
-        return instance_norm_ref(x, gamma, beta, eps, act, alpha)
-    return cuda_in.instance_norm_cuda(x, gamma, beta, eps, act, alpha)
+    return _InstanceNorm.apply(x, params["gamma"], params["beta"], eps, act,
+                               alpha)

@@ -1,0 +1,92 @@
+"""Image pool of (fake, mask) entries, port of ``sggan_tpu/train/pool.py``.
+
+Per item, in batch order: while the pool fills, store the item and pass it
+through; once full, with p = 0.5 return a uniformly random stored entry
+and put the item in its slot, else pass the item through (CycleGAN's rule,
+reference utils.py:36-53).  An entry is a dict of arrays (here fake and
+mask) stored and swapped together, so a historical fake is judged against
+the mask it was generated under.
+
+The random draws are explicit (``pool_draws``): jax.random streams cannot
+be reproduced in torch, so a test feeds both packages the same draws.
+Every decision depends only on the draws and the running count, so it is
+made on the host, item by item in the JAX order (``filling``,
+``write_idx``, ``use_hist``, ``do_write``), and the device does one gather
+per leaf for the output and one for the new buffer: no host sync.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, NamedTuple, Tuple
+
+import torch
+
+
+class PoolState(NamedTuple):
+    buffer: Dict[str, torch.Tensor]  # each (slots, *item_shape)
+    count: int                       # entries stored, at most slots
+
+
+class PoolDraws(NamedTuple):
+    u: torch.Tensor    # (B,) uniforms in [0, 1): history if u > 0.5
+    idx: torch.Tensor  # (B,) int64 slots in [0, slots)
+
+
+def pool_init(max_size: int, item_shapes: Mapping[str, Tuple[int, ...]],
+              dtype=torch.float32, device="cuda") -> PoolState:
+    """Zeroed buffers of max(max_size, 1) slots per leaf."""
+    n = max(max_size, 1)
+    buf = {k: torch.zeros((n, *s), dtype=dtype, device=device)
+           for k, s in item_shapes.items()}
+    return PoolState(buf, 0)
+
+
+def pool_draws(generator: torch.Generator, b: int,
+               max_size: int) -> PoolDraws:
+    """The draws of one update of ``b`` items, on the CPU."""
+    u = torch.rand(b, generator=generator)
+    idx = torch.randint(0, max(max_size, 1), (b,), generator=generator)
+    return PoolDraws(u, idx)
+
+
+def _plan(slots: int, count: int, draws: PoolDraws,
+          b: int) -> Tuple[List[int], List[int], int]:
+    """Rows of the table [buffer; items] that form the output and the new
+    buffer, and the new count."""
+    src = list(range(slots))  # row of the table that each slot now holds
+    out = []
+    u, idx = draws.u.tolist(), draws.idx.tolist()
+    for i in range(b):
+        filling = count < slots
+        write_idx = count if filling else int(idx[i])
+        use_hist = not filling and u[i] > 0.5
+        out.append(src[write_idx] if use_hist else slots + i)
+        if filling or use_hist:  # do_write
+            src[write_idx] = slots + i
+        count = min(count + int(filling), slots)
+    return out, src, count
+
+
+def _index(rows: List[int], device: torch.device) -> torch.Tensor:
+    t = torch.tensor(rows, dtype=torch.int64)
+    if device.type == "cuda":  # pinned, so the copy does not sync the host
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def pool_update(state: PoolState, items: Mapping[str, torch.Tensor],
+                draws: PoolDraws) -> Tuple[PoolState, Dict[str, torch.Tensor]]:
+    """items: dict of (B, *item_shape) with the buffer's keys.  Returns
+    (new state, output items), both in the buffer's dtype (items are cast
+    on entry)."""
+    first = next(iter(state.buffer.values()))
+    slots, device = first.shape[0], first.device
+    b = next(iter(items.values())).shape[0]
+    out_rows, buf_rows, count = _plan(slots, state.count, draws, b)
+    out_i, buf_i = _index(out_rows, device), _index(buf_rows, device)
+    new_buf, out = {}, {}
+    for k, buf in state.buffer.items():
+        table = torch.cat([buf, items[k].to(buf.dtype)])
+        out[k] = table.index_select(0, out_i)
+        new_buf[k] = table.index_select(0, buf_i)
+    return PoolState(new_buf, count), out

@@ -1,0 +1,288 @@
+"""The two-optimizer GAN train step, port of ``sggan_tpu/train/step.py``.
+
+Reference semantics (model.py:169-200): one generator forward; the
+semantic discriminator judges (fake, mask); the generator's gradient
+flows through a *frozen* discriminator (``torch.autograd.grad`` over the
+generator's parameters only, so nothing reaches the discriminator's);
+the fake, detached, goes through the image pool with its mask; one
+discriminator call over ``[seg_a; pooled fake]`` gives the discriminator
+loss and its gradient; then one Adam update per net and the optional EMA.
+
+Ported: the sggan branch (``--loss_mode sggan``, the full SG-GAN objective
+with the (fake, mask) pool) and the p2p and simple branches that share its
+body, with the ResNet generator.  Not ported yet, each raising
+``NotImplementedError`` that names its ROADMAP item: the U-Net and pix2pix
+nets, ``--compat_fake_history``, ``--remat``, the cycle mode and data
+parallelism (``axis_name``).
+
+Adam is optax's ``scale_by_adam`` (betas (beta1, 0.999), eps 1e-7, the
+Keras default, not optax's 1e-8) with the learning rate applied outside the
+update, ``p -= lr * m_hat / (sqrt(v_hat) + eps)``, and one step count per
+optimizer.  Every parameter gets a gradient: the conv biases that feed an
+instance norm are unused (the norm removes them exactly) and get zeros,
+so the Adam state has optax's layout.
+
+TF32: under ``--compute_dtype float32`` the step runs its convolutions in
+IEEE f32, turning cuDNN's TF32 (on by default in PyTorch) off for the
+step's duration and restoring it after: f32 mode is the reference's
+precision, and tests hold it to the JAX step.  bf16 mode computes its
+convs in bf16 and is not affected.
+
+The random draws are explicit: the pool's come in as ``PoolDraws``
+(``pool.pool_draws``).  The step keeps its losses on the device: it makes
+no host sync.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import losses
+from ..models.discriminator import Discriminator
+from ..models.generator_resnet import GeneratorResnet
+from .pool import PoolDraws, PoolState, pool_init, pool_update
+
+ADAM_EPS = 1e-7
+ADAM_B2 = 0.999
+
+
+class AdamState(NamedTuple):
+    """optax ``ScaleByAdamState``: moments keyed by parameter name."""
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+class TrainState(NamedTuple):
+    gen_params: GeneratorResnet  # the nets hold their parameters
+    gen_bn: dict                 # {} for IN models
+    disc_params: Discriminator
+    disc_bn: dict
+    g_opt: AdamState
+    d_opt: AdamState
+    pool: PoolState
+    step: int
+    ema: Optional[Dict[str, torch.Tensor]] = None  # f32 shadow of gen
+
+
+def lr_schedule(cfg, epoch: int) -> float:
+    """Reference model.py:205 (override) / model.py:223 (commented decay)."""
+    if cfg.compat_lr_override:
+        return 1e-3
+    if epoch < cfg.epoch_step:
+        return cfg.lr
+    denom = max(cfg.epoch - cfg.epoch_step, 1)
+    return cfg.lr * (cfg.epoch - epoch) / denom
+
+
+def _dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def _require_ported(cfg, axis_name=None) -> None:
+    todo = None
+    if cfg.use_pix2pix or not cfg.use_resnet:
+        todo = (f"the {'pix2pix' if cfg.use_pix2pix else 'U-Net'} nets "
+                "(ROADMAP Queue 1: U-Net generator and p2p serving)")
+    elif cfg.loss_mode == "cycle":
+        todo = "loss_mode cycle (ROADMAP Queue 1: train/cycle.py)"
+    elif cfg.loss_mode == "p2p" and cfg.compat_fake_history:
+        todo = ("--compat_fake_history (ROADMAP Queue 1: "
+                "--compat_fake_history and --dropout_mode)")
+    elif cfg.remat:
+        todo = "--remat (ROADMAP Queue 1: --remat)"
+    elif axis_name is not None or cfg.mesh_data > 1 or cfg.mesh_space > 1:
+        todo = "data and spatial parallelism (ROADMAP Queue 1: parallel)"
+    if todo:
+        raise NotImplementedError(f"{todo} is not ported yet; pass "
+                                  "--use_resnet and one of --loss_mode "
+                                  "sggan/p2p/simple on one device")
+
+
+def adam_init(net: torch.nn.Module) -> AdamState:
+    zeros = {k: torch.zeros_like(p) for k, p in net.named_parameters()}
+    return AdamState(0, zeros, {k: z.clone() for k, z in zeros.items()})
+
+
+def init_state(cfg, generator: torch.Generator,
+               device="cuda") -> TrainState:
+    """Fresh nets drawn on the CPU from ``generator`` (generator first,
+    then discriminator), zero Adam state and an empty pool, on
+    ``device``."""
+    _require_ported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "visible")
+    h, w = cfg.image_size
+    gen = GeneratorResnet(ngf=cfg.ngf, input_nc=cfg.input_nc,
+                          output_nc=cfg.output_nc, generator=generator)
+    disc = Discriminator(ndf=cfg.ndf, input_nc=cfg.input_nc,
+                         n_class=cfg.segment_class, image_size=(h, w),
+                         generator=generator)
+    gen, disc = gen.to(device), disc.to(device)
+    # pooled entries only feed discriminator forwards, which cast to the
+    # compute dtype: a buffer in that dtype loses nothing
+    if cfg.loss_mode == "sggan":
+        shapes = {"fake": (h, w, cfg.output_nc),
+                  "mask": (*cfg.mask_hw, cfg.segment_class)}
+        pool = pool_init(cfg.max_size, shapes, _dtype(cfg), device)
+    else:
+        pool = pool_init(1, {"fake": (h, w, cfg.output_nc)}, _dtype(cfg),
+                         device)
+    ema = ({k: p.detach().clone() for k, p in gen.named_parameters()}
+           if cfg.gen_ema > 0 else None)
+    return TrainState(gen, {}, disc, {}, adam_init(gen), adam_init(disc),
+                      pool, 0, ema)
+
+
+@contextlib.contextmanager
+def _conv_precision(cd: torch.dtype):
+    prev = torch.backends.cudnn.allow_tf32
+    if cd == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _grads(loss: torch.Tensor,
+           net: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    names, params = zip(*net.named_parameters())
+    # unused parameters (the IN-fed conv biases) get zeros, not None
+    return dict(zip(names, torch.autograd.grad(loss, params,
+                                               materialize_grads=True)))
+
+
+def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
+                     draws: Optional[PoolDraws]):
+    """The step's forward and backward, without the updates.
+
+    Returns ``(metrics, gen grads, disc grads, new pool)``; the grads are
+    keyed by parameter name.  ``state`` is not changed."""
+    cd = _dtype(cfg)
+    gen, disc = state.gen_params, state.disc_params
+    real_a = batch["real_a"].float()
+    seg_a = batch["seg_a"].float()
+    mask_a = batch["mask_a"]
+    with _conv_precision(cd):
+        fake = gen(real_a, cd)
+        da_fake = disc(fake, mask_a, cd)
+        if cfg.loss_mode == "sggan":
+            g_loss = losses.gen_loss_sggan(
+                da_fake, real_a, fake, seg_a, use_lsgan=cfg.use_lsgan,
+                l1_lambda=cfg.L1_lambda, lg_lambda=cfg.Lg_lambda,
+                l1_target=cfg.sggan_l1_target)
+        elif cfg.loss_mode == "simple":
+            g_loss = losses.gen_loss_simple(
+                da_fake, fake, seg_a, alpha_recip=1.0 / cfg.ratio_gan2seg)
+        else:
+            g_loss = losses.gen_loss_p2p(da_fake, fake, seg_a)
+        g_grads = _grads(g_loss, gen)
+
+        fake_sg, mask_for_d, new_pool = fake.detach(), mask_a, state.pool
+        if cfg.loss_mode == "sggan" and cfg.max_size > 0:
+            new_pool, pooled = pool_update(
+                state.pool, {"fake": fake_sg, "mask": mask_a}, draws)
+            fake_sg, mask_for_d = pooled["fake"], pooled["mask"]
+        # one call over [real; fake]: instance norm is per sample, so this
+        # equals two calls, with the convs at twice the batch
+        both = disc(torch.cat([seg_a, fake_sg]),
+                    torch.cat([mask_a, mask_for_d]), cd)
+        n = seg_a.shape[0]
+        da_real, da_fake_s = both[:n], both[n:]
+        if cfg.loss_mode == "sggan":
+            d_loss = losses.disc_loss_sggan(da_real, da_fake_s,
+                                            use_lsgan=cfg.use_lsgan)
+        elif cfg.loss_mode == "simple":
+            d_loss = losses.disc_loss_simple(da_real, da_fake_s)
+        else:
+            d_loss = losses.disc_loss_p2p(da_real, da_fake_s)
+        d_grads = _grads(d_loss, disc)
+    metrics = {"gen_loss": g_loss.detach(), "disc_loss": d_loss.detach()}
+    return metrics, g_grads, d_grads, new_pool
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    # 1 - decay ** count in f32, as optax computes it
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
+@torch.no_grad()
+def adam_update(net: torch.nn.Module, opt: AdamState,
+                grads: Dict[str, torch.Tensor], lr: float,
+                beta1: float) -> AdamState:
+    """One optax ``scale_by_adam`` update, then ``p += -lr * update``, in
+    place on ``net``'s parameters; returns the new state.  The order of
+    operations is optax's."""
+    names = list(opt.mu)
+    params = dict(net.named_parameters())
+    p = [params[k] for k in names]
+    g = [grads[k] for k in names]
+    mu = torch._foreach_mul(g, 1 - beta1)
+    torch._foreach_add_(mu, torch._foreach_mul([opt.mu[k] for k in names],
+                                               beta1))
+    nu = torch._foreach_mul(torch._foreach_mul(g, g), 1 - ADAM_B2)
+    torch._foreach_add_(nu, torch._foreach_mul([opt.nu[k] for k in names],
+                                               ADAM_B2))
+    count = opt.count + 1
+    mu_hat = torch._foreach_div(mu, _bias_correction(beta1, count))
+    den = torch._foreach_sqrt(torch._foreach_div(
+        nu, _bias_correction(ADAM_B2, count)))
+    torch._foreach_add_(den, ADAM_EPS)
+    upd = torch._foreach_div(mu_hat, den)
+    torch._foreach_mul_(upd, -float(np.float32(lr)))
+    torch._foreach_add_(p, upd)
+    return AdamState(count, dict(zip(names, mu)), dict(zip(names, nu)))
+
+
+@torch.no_grad()
+def _ema_update(cfg, ema, gen: torch.nn.Module):
+    """ema <- d * ema + (1 - d) * params, in f32, after the Adam step."""
+    if ema is None or not cfg.gen_ema:
+        return ema
+    d = np.float32(cfg.gen_ema)
+    params = dict(gen.named_parameters())
+    e = list(ema.values())
+    torch._foreach_mul_(e, float(d))
+    torch._foreach_add_(e, torch._foreach_mul(
+        [params[k].float() for k in ema], float(np.float32(1) - d)))
+    return ema
+
+
+def build_step_fn(cfg, axis_name: Optional[str] = None):
+    """The step: ``(state, batch, lr, pool_draws) -> (state, metrics)``.
+
+    batch: {"real_a": (B,H,W,3) [0,1] float, "seg_a": (B,H,W,3),
+    "mask_a": (B,hm,wm,n_class) one-hot}; ``pool_draws`` from
+    ``pool.pool_draws(generator, B, cfg.max_size)`` (unused, may be None,
+    outside the sggan mode or with ``max_size`` 0).  The nets' parameters
+    and the EMA are updated in place; metrics are device scalars."""
+    _require_ported(cfg, axis_name)
+
+    def step_fn(state: TrainState, batch, lr: float,
+                pool_draws: Optional[PoolDraws]):
+        metrics, g_grads, d_grads, pool = losses_and_grads(
+            cfg, state, batch, pool_draws)
+        g_opt = adam_update(state.gen_params, state.g_opt, g_grads, lr,
+                            cfg.beta1)
+        d_opt = adam_update(state.disc_params, state.d_opt, d_grads, lr,
+                            cfg.beta1)
+        new_state = state._replace(
+            g_opt=g_opt, d_opt=d_opt, pool=pool, step=state.step + 1,
+            ema=_ema_update(cfg, state.ema, state.gen_params))
+        return new_state, metrics
+
+    return step_fn
+
+
+def make_train_step(cfg):
+    """The single-device step.  PyTorch runs it eagerly, with nothing to
+    jit or donate (the step updates in place), so this is
+    ``build_step_fn(cfg)``."""
+    return build_step_fn(cfg)

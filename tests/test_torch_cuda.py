@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA instance-norm kernel against its plain
-version, the wrapper's refusals, and the generator's CUDA forward against
-its CPU forward.  Every test needs an NVIDIA GPU and skips without one.
+"""The port on the card: the CUDA instance-norm kernels (forward, its
+saved moments, backward) against their plain versions, the wrappers'
+refusals, the generator's CUDA forward and one train step's gradients
+against the CPU.  Every test needs an NVIDIA GPU and skips without one.
 
 Imports torch and numpy only, so it runs where JAX is absent:
 
@@ -58,6 +59,67 @@ def test_kernel_matches_plain(dev, shape, act, dtype):
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64), (3, 64, 40, 5),
+                                   (2, 33, 17, 64), (2, 1, 5, 8)])
+def test_forward_saves_the_plain_moments(dev, shape, dtype):
+    x, g, b = _inputs(shape, dev, dtype)
+    y, mean, rstd = cuda_in.instance_norm_cuda(x, g, b, 1e-3, "relu",
+                                               save_stats=True)
+    _, mean_ref, rstd_ref = tnorm._ref_forward(x, g, b, 1e-3, "relu", 0.3)
+    torch.cuda.synchronize()
+    assert mean.shape == rstd.shape == (shape[0], shape[-1])
+    torch.testing.assert_close(mean, mean_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(y, tnorm.instance_norm_ref(x, g, b, 1e-3,
+                                                          "relu"),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", [(3, 64, 40, 5), (2, 33, 17, 64),
+                                   (2, 1, 5, 8), (2, 8, 4, 256)])
+def test_backward_kernel_matches_plain(dev, shape, act, dtype):
+    """dx in x's dtype at tests/test_pallas.py's gradient tolerance (f32)
+    or 2e-2 of max |dx| (bf16); dgamma, dbeta at rel 1e-4."""
+    x, g, b = _inputs(shape, dev, dtype)
+    dy = torch.from_numpy(np.random.default_rng(4).standard_normal(shape)
+                          .astype(np.float32)).to(dev, dtype)
+    _, mean, rstd = tnorm._ref_forward(x, g, b, 1e-3, act, 0.3)
+    before = cuda_in.bwd_launches
+    dx, dg, db = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd, act)
+    assert cuda_in.bwd_launches == before + 1
+    rdx, rdg, rdb = tnorm.instance_norm_bwd_ref(x, dy, g, b, mean, rstd, act)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dg.dtype == db.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, rdx, rtol=1e-4, atol=1e-5)
+    else:
+        scale = rdx.float().abs().max().item()
+        assert (dx.float() - rdx.float()).abs().max().item() <= 2e-2 * scale
+    for got, ref in ((dg, rdg), (db, rdb)):
+        assert (got - ref).abs().max().item() <= 1e-4 * max(
+            ref.abs().max().item(), 1e-3)
+
+
+def test_autograd_runs_both_kernels(dev):
+    x, g, b = _inputs((2, 16, 8, 32), dev, torch.float32)
+    x.requires_grad_(True)
+    g.requires_grad_(True)
+    f0, b0 = cuda_in.launches, cuda_in.bwd_launches
+    y = tnorm.instance_norm({"gamma": g, "beta": b}, x, act="leaky_relu")
+    dx, dg = torch.autograd.grad(y.square().sum(), (x, g))
+    assert (cuda_in.launches, cuda_in.bwd_launches) == (f0 + 1, b0 + 1)
+    xc, gc = x.detach().cpu().requires_grad_(True), g.detach().cpu() \
+        .requires_grad_(True)
+    yc = tnorm.instance_norm({"gamma": gc, "beta": b.cpu()}, xc,
+                             act="leaky_relu")
+    rdx, rdg = torch.autograd.grad(yc.square().sum(), (xc, gc))
+    torch.testing.assert_close(dx.cpu(), rdx, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dg.cpu(), rdg, rtol=1e-4, atol=1e-4)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     x, g, b = _inputs((1, 8, 8, 16), dev, torch.float32)
     with pytest.raises(ValueError, match="contiguous NHWC"):
@@ -68,6 +130,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cuda_in.instance_norm_cuda(x, g.bfloat16(), b)
     with pytest.raises(ValueError, match="beta"):
         cuda_in.instance_norm_cuda(x, g, b[:8])
+    mean = torch.zeros(1, 16, device=dev)
+    with pytest.raises(ValueError, match="dy must match"):
+        cuda_in.instance_norm_bwd_cuda(x, x.bfloat16(), g, b, mean, mean)
+    with pytest.raises(ValueError, match="rstd"):
+        cuda_in.instance_norm_bwd_cuda(x, x, g, b, mean, mean[:, :8])
 
 
 def test_generator_cuda_forward_matches_cpu(dev, monkeypatch):
@@ -85,3 +152,40 @@ def test_generator_cuda_forward_matches_cpu(dev, monkeypatch):
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
     assert got16.dtype == torch.float32 and torch.isfinite(got16).all()
     assert (got16.float().cpu() - ref).abs().max().item() < 0.25
+
+
+def test_train_step_cuda_matches_cpu(dev, monkeypatch):
+    """One f32 sggan step's losses and gradients, card (kernels) vs CPU
+    (plain versions), from the same seeded state, batch and pool draws."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import pool, step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = Config(image_height=32, image_width=64, ngf=4, ndf=4,
+                 segment_class=8, batch_size=2, max_size=2,
+                 compute_dtype="float32", loss_mode="sggan", use_resnet=True)
+    r = np.random.default_rng(0)
+    batch = {"real_a": r.uniform(size=(2, 32, 64, 3)),
+             "seg_a": r.uniform(size=(2, 32, 64, 3)),
+             "mask_a": np.eye(8)[r.integers(0, 8, (2, 4, 8))]}
+    batch = {k: torch.from_numpy(v.astype(np.float32)) for k, v in
+             batch.items()}
+    draws = pool.pool_draws(torch.Generator().manual_seed(1), 2, 2)
+    out = {}
+    for d in ("cpu", dev):
+        state = step.init_state(cfg, torch.Generator().manual_seed(0), d)
+        f0, b0 = cuda_in.launches, cuda_in.bwd_launches
+        out[str(d)] = step.losses_and_grads(
+            cfg, state, {k: v.to(d) for k, v in batch.items()}, draws)
+        if d == dev:  # 23 generator INs, 4 per D call at 32x64 (chain [2])
+            assert cuda_in.launches - f0 == 31
+            assert cuda_in.bwd_launches - b0 == 31
+    (m_c, g_c, d_c, _), (m_g, g_g, d_g, _) = out["cpu"], out["cuda"]
+    for k in m_c:
+        assert abs(m_g[k].item() - m_c[k].item()) <= 1e-4 * abs(m_c[k].item())
+    for ref, got in ((g_c, g_g), (d_c, d_g)):
+        assert ref.keys() == got.keys()
+        for k in ref:
+            scale = ref[k].abs().max().item()
+            assert (got[k].cpu() - ref[k]).abs().max().item() \
+                <= 1e-3 * scale + 1e-7, k

@@ -27,12 +27,23 @@ from sggan_tpu_torch.utils.bridge import params_from_jax, params_to_jax  # noqa:
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "resnet.npy")
 
 
-@pytest.fixture(scope="module")
-def golden_case():
-    """The params and input of test_golden._case("resnet")."""
+def _golden_draws():
     p = jgen.init(jax.random.PRNGKey(42), ngf=8)
     x = jax.random.uniform(jax.random.PRNGKey(7), (1, 32, 32, 3))
-    return p, np.asarray(x)
+    return p, x
+
+
+@pytest.fixture(scope="module")
+def golden_case():
+    """The params and input of test_golden._case("resnet").  XLA's LLVM
+    passes spend ~10 s on the threefry draws here; without them the draws
+    are the same and the glorot scaling differs by at most 1 ulp, far
+    inside the golden tolerance (the parity tests feed both sides the same
+    params)."""
+    p, x = jax.jit(_golden_draws).lower().compile(
+        {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True})()
+    return jax.tree.map(np.array, p), np.array(x)
 
 
 def _port(p):

@@ -46,6 +46,42 @@ def test_conv2d(k, stride, padding, hw):
     _close(got, ref)
 
 
+@pytest.mark.parametrize("hw,stride", [((15, 31), 2), ((7, 15), 2),
+                                       ((3, 7), 1)])
+def test_conv2d_valid_at_the_discriminator_chain_sizes(hw, stride):
+    """The 256x512 discriminator's VALID chain: (32,64) -> (15,31) ->
+    (7,15) -> (3,7) -> (1,5), odd sizes at stride 2."""
+    x, p = _data(3, (2, *hw, 8), (3, 3, 8, 8))
+    ref = jl.conv2d(p, jnp.asarray(x), stride, "VALID")
+    got = tl.conv2d(params_from_jax(p), torch.from_numpy(x), stride, "VALID",
+                    bias=False)
+    assert got.shape == ((2, (hw[0] - 3) // stride + 1,
+                          (hw[1] - 3) // stride + 1, 8))
+    _close(got + torch.from_numpy(p["b"]), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_leaky_relu_is_keras(dtype):
+    x = np.linspace(-3, 3, 25, dtype=np.float32).reshape(1, 5, 5, 1)
+    ref = jl.leaky_relu(jnp.asarray(x).astype(dtype))
+    got = tl.leaky_relu(torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(ref, np.float32))
+    assert got.float()[0, 0, 0, 0].item() == pytest.approx(-0.9, rel=1e-2)
+
+
+def test_reflect_pad_index_cached_under_inference_mode_trains():
+    """A forward under inference_mode caches the pad's index; a later
+    forward that autograd records must be able to use it."""
+    x = torch.rand(1, 6, 5, 2)
+    with torch.inference_mode():
+        tl.reflect_pad(x, 1)
+    w = torch.ones(2, requires_grad=True)
+    (tl.reflect_pad(x * w, 1).sum()).backward()
+    assert w.grad.shape == (2,)
+
+
 @pytest.mark.parametrize("hw", [(5, 7), (4, 6)])
 @pytest.mark.parametrize("k,stride,padding", [
     (3, 2, "SAME"), (4, 2, "SAME"), (3, 1, "SAME"), (3, 2, "VALID")])

@@ -1,18 +1,24 @@
-"""Port parity: the plain instance norm (the CUDA kernel's twin) against
-the JAX package's XLA path and its Pallas kernel (interpret mode, as
-tests/test_pallas.py runs it).  Tolerances are tests/test_pallas.py's:
-f32 1e-5, bf16 2e-2.  The CUDA kernel itself is held against the plain
-version on the card by tests/test_torch_cuda.py."""
+"""Port parity: the plain instance norm (the CUDA kernels' twins) against
+the JAX package's XLA path, its Pallas kernel (interpret mode, as
+tests/test_pallas.py runs it) and its custom VJP (``jax.vjp`` of
+``sggan_tpu.ops.norm.instance_norm`` reaches ``_in_fused_bwd``).
+Tolerances are tests/test_pallas.py's: forward f32 1e-5, bf16 2e-2;
+gradients f32 rtol 1e-4 / atol 1e-5.  The CUDA kernels themselves are held
+against the plain versions on the card by tests/test_torch_cuda.py."""
+
+import functools
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from sggan_tpu.ops import pallas_in  # noqa: E402
+from sggan_tpu.ops import norm as jnorm  # noqa: E402
 from sggan_tpu.ops.norm import _instance_norm_xla  # noqa: E402
 from sggan_tpu_torch.ops import cuda_in  # noqa: E402
 from sggan_tpu_torch.ops import norm as tnorm  # noqa: E402
@@ -97,3 +103,94 @@ def test_split_rows_covers_the_plane(n, s, c):
     assert rows * n_split >= s > rows * (n_split - 1)  # no empty split
     assert rows >= min(s, cuda_in._MIN_ROWS)
 
+
+GRAD_SHAPES = SHAPES + [(2, 1, 5, 8)]  # H*W = 5: the D chain's last site
+GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _jax_vjp(x, gamma, beta, dy, act):
+    def f(x, g, b):
+        return jnorm.instance_norm({"gamma": g, "beta": b}, x, act=act)
+    _, vjp = jax.vjp(f, x, gamma, beta)
+    return vjp(dy)
+
+
+_JAX_VJP = {act: jax.jit(functools.partial(_jax_vjp, act=act))
+            for act in ACTS}
+
+
+def _grad_inputs(shape, dtype, seed=5):
+    x, gamma, beta = _inputs(shape, seed)
+    dy = np.random.default_rng(seed + 1).standard_normal(shape) \
+        .astype(np.float32)
+    td = getattr(torch, dtype)
+    return (x, gamma, beta, dy,
+            torch.from_numpy(x).to(td), torch.from_numpy(dy).to(td))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
+def test_backward_matches_jax_custom_vjp(shape, act, dtype):
+    """dx, dgamma, dbeta of the port's autograd Function (on the CPU: the
+    plain backward) against jax.vjp of the JAX package's instance norm."""
+    x, gamma, beta, dy, xt, dyt = _grad_inputs(shape, dtype)
+    ref = _JAX_VJP[act](jnp.asarray(x).astype(dtype), jnp.asarray(gamma),
+                        jnp.asarray(beta), jnp.asarray(dy).astype(dtype))
+    xt.requires_grad_(True)
+    g = torch.from_numpy(gamma).requires_grad_(True)
+    b = torch.from_numpy(beta).requires_grad_(True)
+    y = tnorm.instance_norm({"gamma": g, "beta": b}, xt, act=act)
+    got = torch.autograd.grad(y, (xt, g, b), dyt)
+    assert got[0].dtype == xt.dtype
+    assert got[1].dtype == got[2].dtype == torch.float32
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(r, np.float32),
+                                   **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64), (2, 1, 5, 8)])
+def test_backward_ref_matches_autograd_of_forward_ref(shape, act):
+    x, gamma, beta, dy, xt, dyt = _grad_inputs(shape, "float32", seed=7)
+    xt.requires_grad_(True)
+    g = torch.from_numpy(gamma).requires_grad_(True)
+    b = torch.from_numpy(beta).requires_grad_(True)
+    y = tnorm.instance_norm_ref(xt, g, b, 1e-3, act, 0.3)
+    ref = torch.autograd.grad(y, (xt, g, b), dyt)
+    _, mean, rstd = tnorm._ref_forward(xt.detach(), g, b, 1e-3, act, 0.3)
+    got = tnorm.instance_norm_bwd_ref(xt.detach(), dyt, g.detach(),
+                                      b.detach(), mean, rstd, act, 0.3)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+
+
+def test_function_saves_only_when_grad_is_needed_and_counts_nothing():
+    x, gamma, beta, dy, xt, dyt = _grad_inputs((2, 4, 4, 8), "float32")
+    g, b = torch.from_numpy(gamma), torch.from_numpy(beta)
+    f0, b0 = cuda_in.launches, cuda_in.bwd_launches
+    y = tnorm.instance_norm({"gamma": g, "beta": b}, xt, act="relu")
+    assert y.grad_fn is None
+    xg = xt.clone().requires_grad_(True)
+    y = tnorm.instance_norm({"gamma": g, "beta": b}, xg, act="relu")
+    saved = y.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == [(2, 4, 4, 8), (8,), (8,),
+                                               (2, 8), (2, 8)]
+    assert all(t.dtype == torch.float32 for t in saved)
+    (dx,) = torch.autograd.grad(y, xg, dyt)
+    _, mean, rstd = tnorm._ref_forward(xt, g, b, 1e-3, "relu", 0.3)
+    np.testing.assert_array_equal(
+        dx.numpy(), tnorm.instance_norm_bwd_ref(xt, dyt, g, b, mean, rstd,
+                                                "relu")[0].numpy())
+    assert (cuda_in.launches, cuda_in.bwd_launches) == (f0, b0)
+
+
+def test_backward_wrapper_refuses_cpu_tensor():
+    x = torch.zeros(1, 4, 4, 8)
+    g, b, m = torch.ones(8), torch.zeros(8), torch.zeros(1, 8)
+    before = cuda_in.bwd_launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_in.instance_norm_bwd_cuda(x, x, g, b, m, m)
+    assert cuda_in.bwd_launches == before

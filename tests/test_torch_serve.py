@@ -47,13 +47,33 @@ def _post(port, body):
 @pytest.fixture(scope="module")
 def jax_service(tmp_path_factory):
     """The JAX service at the test config (fresh init from data_seed: no
-    checkpoint) and its generator weights as a state_dict."""
+    checkpoint) and its generator weights as a state_dict.
+
+    The service's Trainer draws its init eagerly, one XLA program per
+    threefry draw, each through XLA's LLVM passes: ~30 s on one core.
+    Here the same init runs as one program without those passes, which
+    gives the same draws; the weights are read from that one init."""
+    import jax
+
     from sggan_tpu import serve as jsrv
-    from sggan_tpu.train.trainer import Trainer
+    from sggan_tpu.train import step as jstep
+    from sggan_tpu.train import trainer as jtrainer
+
+    states = []
+
+    def init_state(cfg, key, **kw):
+        init = jax.jit(lambda k: jstep.init_state(cfg, k, **kw))
+        states.append(init.lower(key).compile(
+            {"xla_backend_optimization_level": 0,
+             "xla_llvm_disable_expensive_passes": True})(key))
+        return states[-1]
 
     cfg = _cfg(tmp_path_factory.mktemp("serve"))
-    sd = params_from_jax(Trainer(cfg.replace(phase="test")).state.gen_params)
-    return cfg, jsrv._Service(cfg), sd
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrainer, "init_state", init_state)
+        svc = jsrv._Service(cfg)
+    assert len(states) == 1 and svc.loaded is False
+    return cfg, svc, params_from_jax(states[0].gen_params)
 
 
 def test_http_service_serves_jax_pixels(jax_service):
@@ -117,18 +137,32 @@ def test_cuda_device_without_gpu_is_an_error(tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """The card's machine has no JAX: the port (and so chip_smoke.py)
-    must run a forward through the service without importing it."""
+    must serve a forward and take a train step without importing it or
+    any module of the JAX package."""
     code = f"""
 import sys
 import numpy as np
+import torch
 from sggan_tpu_torch import serve
 from sggan_tpu_torch.config import Config
+from sggan_tpu_torch.train import pool, step
 cfg = Config(dataset_dir={str(tmp_path)!r}, image_height=16, image_width=16,
              ngf=2, compute_dtype="float32", use_resnet=True)
 svc = serve._Service(cfg, device="cpu")
 y = svc._fn(np.full((1, 16, 16, 3), 0.5, np.float32))
 assert y.shape == (1, 16, 16, 3) and np.isfinite(y).all()
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+cfg = cfg.replace(image_height=32, image_width=32, ngf=4, ndf=4,
+                  segment_class=4, loss_mode="sggan", max_size=2)
+g = torch.Generator().manual_seed(0)
+state = step.init_state(cfg, g, device="cpu")
+batch = {{"real_a": torch.rand(1, 32, 32, 3, generator=g),
+          "seg_a": torch.rand(1, 32, 32, 3, generator=g),
+          "mask_a": torch.eye(4)[torch.randint(0, 4, (1, 4, 4), generator=g)]}}
+state, m = step.build_step_fn(cfg)(state, batch, 1e-3,
+                                   pool.pool_draws(g, 1, 2))
+assert state.step == 1 and all(np.isfinite(v.item()) for v in m.values())
+bad = sorted(m for m in sys.modules if m in ("jax", "sggan_tpu")
+             or m.startswith(("jax.", "sggan_tpu.")))
 assert not bad, bad
 print("ok")
 """
