@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``sggan_tpu_torch``).
 
-Drives the port's two paths on one NVIDIA GPU at full width, with random
+Drives the port's three paths on one NVIDIA GPU at full width, with random
 weights from a seed: the serving path (the ResNet generator, ngf 64, at
-256x512 behind the HTTP service) and the sggan train step (ResNet
-generator, semantic discriminator ndf 64, 34 classes, pool 50, bf16,
-batch 16).  Run from the repository root:
+256x512 behind the HTTP service), the sggan train step (ResNet generator,
+semantic discriminator ndf 64, 34 classes, pool 50, bf16, batch 16) and
+the fused conv3x3 + instance norm table (``sggan_tpu_torch.perf_conv_in``
+at the resblock shape and the wide encoder shape, bf16, batch 16).  Run
+from the repository root:
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure:
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build the instance-norm kernel (csrc/instance_norm.cu) with nvcc;
+  2. build both kernel sources (csrc/instance_norm.cu, csrc/conv3_in.cu)
+     with nvcc, side by side;
   3. the kernel against its plain PyTorch version on the card, at the
      four (shape, act) pairs of the generator's 23 instance-norm sites,
      batch 1 and 16, f32 and bf16;
@@ -37,7 +40,21 @@ Phases, each of which raises on failure:
      step;
   10. timings: step time, img/s and peak memory at batch 16 and 24; both
      kernels at every site of the step against their plain versions and
-     PyTorch's F.instance_norm; a torch.profiler breakdown of one step.
+     PyTorch's F.instance_norm; a torch.profiler breakdown of one step;
+  11. the fused conv3x3 + instance norm kernel (K2) against its plain
+     PyTorch twin: y, y16, mean and rsig for three activations, f32 and
+     bf16, at small shapes (both conv routes, ragged tiles) and at the two
+     full shapes; two calls must agree bitwise;
+  12. the gradients of K2's autograd Function (dx, dw, dgamma, dbeta)
+     against its plain route at the same shapes, with one K2 launch and
+     one K1 backward launch per call;
+  13. the generator's first resblock at full width (16, 64, 128, 256)
+     composed from two K2 calls against ``GeneratorResnet._res_block``,
+     forward and the gradient to x, bf16 and f32, both timed;
+  14. the K2 table (main path): ``perf_conv_in`` at both full shapes,
+     K2 against the unfused library path, forward and forward+backward;
+     a profiler listing of the K2 forward, which must hold no library
+     convolution and no pad gather.
 
 Prints a JSON line of the kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing neither,
@@ -54,6 +71,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -80,6 +98,17 @@ B_TRAIN, N_STEPS, N_CLASS = 16, 12, 34
 LAUNCHES_PER_STEP = 37  # 23 generator + 7 (D for the gen loss) + 7 (D call)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 in the tensor cores
+# K2 (N, H, W, Cin, Cout): the JAX tests' three, an odd plane and a Cin
+# that is no multiple of 16 (scalar route in every dtype), then two that
+# the tensor-core route takes in bf16, one of them ragged in rows, columns
+# and the Cout tile; then the two full shapes of the table
+K2_SMALL = [(2, 8, 16, 8, 8), (1, 16, 8, 16, 8), (1, 64, 8, 8, 16),
+            (2, 7, 9, 5, 6), (1, 9, 33, 24, 40), (2, 16, 16, 16, 16),
+            (1, 20, 37, 32, 80)]
+K2_FULL = [(16, 64, 128, 256, 256), (16, 256, 512, 64, 64)]
+K2_ACTS = (None, "relu", "leaky_relu")
+K2_ITERS = 10
 
 
 def step_sites():
@@ -354,16 +383,349 @@ def time_sites(card: str, dev) -> dict:
     return tot
 
 
+# ----------------------------------------------------------------------
+# K2: the fused reflect-pad conv3x3 + instance norm
+# ----------------------------------------------------------------------
+
+def k2_inputs(shape, dtype, dev, seed):
+    """x ~ N(0, 1), an f32 kernel ~ N(0, 1 / (9 cin)) in the port's (cout,
+    cin, 3, 3) layout, gamma near 1 and beta near 0, from a seed."""
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, h, w, cin), generator=g, device=dev).to(dtype)
+    wk = torch.randn((cout, cin, 3, 3), generator=g, device=dev) \
+        / (9 * cin) ** 0.5
+    gamma = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
+    beta = 0.1 * torch.randn(cout, generator=g, device=dev)
+    return x, wk, gamma, beta
+
+
+def k2_bound(shape, dtype, backward: bool = False) -> tuple:
+    """(least ms, what bounds it) of one K2 forward, or backward: every
+    input read once and every output written once at HBM rate, or the
+    convs' operations at the peak rate of the dtype's route (bf16 tensor
+    cores, f32 plain FMAs).  Forward: x, the f32 kernel, gamma, beta in;
+    y, y16, mean, rsig out; one conv.  Backward: x, the kernel, y16, dy,
+    gamma, beta, mean, rsig in; dx, dw, dgamma, dbeta out; dgrad and
+    wgrad, each the forward conv's operations."""
+    n, h, w, cin, cout = shape
+    sz = torch.finfo(dtype).bits // 8
+    if backward:
+        by = (n * h * w * (2 * cin + 2 * cout) * sz
+              + 4 * (2 * 9 * cin * cout + 4 * cout + 2 * n * cout))
+    else:
+        by = (n * h * w * (cin + 2 * cout) * sz
+              + 4 * (9 * cin * cout + 2 * cout + 2 * n * cout))
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_bytes = by / HBM_BYTES_PER_S
+    t_ops = (2 if backward else 1) * 2 * 9 * cin * cout * n * h * w / peak
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else \
+        "operations"
+
+
+def k2_tols(dtype, full: bool) -> dict:
+    """abs + rel limits of y, y16 and the moments against the plain twin.
+    f32 at the small shapes: tests/test_pallas_conv_in.py's 2e-5.  f32 at
+    full width: 1e-4, sums of 2,304 terms in another order than cuDNN's
+    (the run prints what it found).  bf16: y 5e-2, since one bf16 ulp of
+    y16 from another summation order before the single rounding is up to
+    2^-8 of a value near 4 sigma after normalizing; y16 itself within one
+    ulp (2^-7 rel); moments 2e-3."""
+    if dtype == torch.bfloat16:
+        return {"y": 5e-2, "y16": 2.0 ** -7, "mean": 2e-3, "rsig": 2e-3}
+    t = 1e-4 if full else 2e-5
+    return {"y": t, "y16": t, "mean": t, "rsig": t}
+
+
+def k2_forward_vs_plain(dev) -> dict:
+    """Phase 11.  Returns the largest |y - plain y| per dtype."""
+    from sggan_tpu_torch.ops import cuda_conv_in as cci
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for full, shapes in ((False, K2_SMALL), (True, K2_FULL)):
+        for si, shape in enumerate(shapes):
+            for dtype in (torch.float32, torch.bfloat16):
+                tols = k2_tols(dtype, full)
+                x, wk, g, b = k2_inputs(shape, dtype, dev, seed=si)
+                tc = (dtype == torch.bfloat16 and shape[3] % 16 == 0
+                      and shape[4] % 16 == 0)
+                route = "tensor_core" if tc else "scalar"
+                worst = dict.fromkeys(tols, 0.0)
+                for act in K2_ACTS:
+                    before = cci.route_launches[route]
+                    got = cci.conv3_in_cuda(x, wk, g, b, 1e-3, act, 0.3)
+                    again = cci.conv3_in_cuda(x, wk, g, b, 1e-3, act, 0.3)
+                    if cci.route_launches[route] != before + 2:
+                        raise AssertionError(f"K2 did not take the {route} "
+                                             "route")
+                    ref = cci.conv3_in_ref(x, wk, g, b, 1e-3, act, 0.3)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                        raise AssertionError("two K2 calls differ bitwise")
+                    for (name, tol), a, r in zip(tols.items(), got, ref):
+                        if a.dtype != r.dtype or a.shape != r.shape:
+                            raise AssertionError(f"K2 {name}: {a.dtype} "
+                                                 f"{tuple(a.shape)}")
+                        d = (a.float() - r.float()).abs()
+                        worst[name] = max(worst[name], d.max().item())
+                        if (d > tol + tol * r.float().abs()).any():
+                            raise AssertionError(
+                                f"K2 {name} disagrees with its plain twin at "
+                                f"{shape} act={act} {dtype}: max abs diff "
+                                f"{d.max().item():.3g}, tol {tol:.3g}")
+                    del got, again, ref
+                errs[dtype] = max(errs[dtype], worst["y"])
+                print(f"  {shape} {str(dtype)[6:]} {route}, acts "
+                      f"{K2_ACTS}: max abs diff "
+                      + ", ".join(f"{k} {v:.3g} (tol {tols[k]:.3g} abs + rel)"
+                                  for k, v in worst.items())
+                      + "; bitwise repeatable")
+                del x
+            torch.cuda.empty_cache()
+    return errs
+
+
+def k2_plain_bwd(x, wk, g, b, y16, mean, rsig, dy, act):
+    """The plain route of ``conv3_in``'s backward on any device: K1's
+    plain backward twin on y16, then the library dgrad and wgrad."""
+    from sggan_tpu_torch.ops import cuda_conv_in as cci
+    from sggan_tpu_torch.ops.norm import instance_norm_bwd_ref
+    d_y16, dg, db = instance_norm_bwd_ref(y16, dy, g, b, mean, rsig, act, 0.3)
+    return (*cci.conv_grads(x, wk, d_y16), dg, db)
+
+
+def k2_backward_vs_plain(dev) -> dict:
+    """Phase 12.  dx, dw, dgamma, dbeta of ``conv3_in`` on the card against
+    (a) the plain backward fed the kernel's own saved y16, mean and rsig,
+    as the Function feeds K1's backward kernel, at every shape; (b) the
+    fully plain route (plain twin forward, plain backward) on the card
+    and the Function on the CPU, at the small shapes.  (a) and (b) are
+    held to 2e-4 of each tensor's largest in f32 (the JAX test's 2e-4) and
+    2e-2 in bf16 (d_y16 and dx are rounded to bf16).  At full width (b)
+    on the card is held only to 2e-2 in norm: the two forwards' y16 differ
+    in the last bits, which gates the few of 33 million elements whose
+    pre-activation is that near 0 the other way, and each such element
+    moves its gradient by its whole dy.  Returns the largest
+    |dx - plain dx| of (a) per dtype."""
+    from sggan_tpu_torch.ops import cuda_conv_in as cci
+    from sggan_tpu_torch.ops import cuda_in
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    names = ("dx", "dw", "dgamma", "dbeta")
+
+    def worst(got, ref, norm=False):
+        out = {}
+        for name, a, r in zip(names, got, ref):
+            a, r = a.float(), r.to(dev).float()
+            if a.shape != r.shape:
+                raise AssertionError(f"K2 {name} shape {tuple(a.shape)}")
+            if norm:
+                out[name] = ((a - r).norm() / r.norm().clamp_min(1e-30)).item()
+            else:
+                out[name] = (a - r).abs().max().item() / max(
+                    r.abs().max().item(), 1e-30)
+        return out
+
+    for full, shapes in ((False, K2_SMALL), (True, K2_FULL)):
+        for si, shape in enumerate(shapes):
+            for dtype in (torch.float32, torch.bfloat16):
+                tol = 2e-4 if dtype == torch.float32 else 2e-2
+                x, wk, g, b = k2_inputs(shape, dtype, dev, seed=10 + si)
+                gd = torch.Generator(device=dev).manual_seed(20 + si)
+                dy = torch.randn((*shape[:3], shape[4]), generator=gd,
+                                 device=dev).to(dtype)
+                for act in K2_ACTS:
+                    leaves = [t.detach().requires_grad_(True)
+                              for t in (x, wk, g, b)]
+                    before = cci.launches, cuda_in.bwd_launches
+                    y = cci.conv3_in(*leaves, act=act)
+                    saved = [t.detach() for t in y.grad_fn.saved_tensors]
+                    got = torch.autograd.grad(y, leaves, dy)
+                    if (cci.launches, cuda_in.bwd_launches) != (
+                            before[0] + 1, before[1] + 1):
+                        raise AssertionError("conv3_in did not run one K2 "
+                                             "and one K1 backward launch")
+                    if got[0].dtype != dtype or got[1].dtype != wk.dtype:
+                        raise AssertionError("K2 gradient dtypes")
+                    fed_ref = k2_plain_bwd(*saved, dy, act)
+                    fed = worst(got, fed_ref)
+                    errs[dtype] = max(errs[dtype], (
+                        got[0].float() - fed_ref[0].float()).abs().max()
+                        .item())
+                    _, y16, mean, rsig = cci.conv3_in_ref(x, wk, g, b, 1e-3,
+                                                          act, 0.3)
+                    plain = k2_plain_bwd(x, wk, g, b, y16, mean, rsig, dy,
+                                         act)
+                    if full:
+                        indep = worst(got, plain, norm=True)
+                        limit, what = STEP_NORM_REL, "|diff| / |g|"
+                    else:
+                        cl = [t.detach().cpu().requires_grad_(True)
+                              for t in (x, wk, g, b)]
+                        cpu = torch.autograd.grad(cci.conv3_in(*cl, act=act),
+                                                  cl, dy.cpu())
+                        indep = {k: max(v, w) for (k, v), w in zip(
+                            worst(got, plain).items(),
+                            worst(got, cpu).values())}
+                        limit, what = tol, "max |diff| / max |g|"
+                    torch.cuda.synchronize()
+                    print(f"  {shape} act={act} {str(dtype)[6:]}: fed the "
+                          "kernel's saved tensors, max |diff| / max |g| "
+                          + ", ".join(f"{k} {v:.3g}" for k, v in fed.items())
+                          + f" (tol {tol}); plain route throughout, {what} "
+                          + ", ".join(f"{k} {v:.3g}" for k, v in indep.items())
+                          + f" (tol {limit})")
+                    if max(fed.values()) > tol or max(indep.values()) > limit:
+                        raise AssertionError("K2 gradients disagree with "
+                                             "the plain route")
+                    del y, got, saved, fed_ref, plain, y16, leaves
+                del x, dy
+            torch.cuda.empty_cache()
+    return errs
+
+
+def k2_resblock(card: str, dev) -> dict:
+    """Phase 13.  The activation that enters the generator's first
+    resblock at 256x512, b=16, through x + K2(act=None)(K2(act=relu)(x))
+    with r1's parameters, against ``GeneratorResnet._res_block``."""
+    from sggan_tpu_torch.models.generator_resnet import GeneratorResnet
+    from sggan_tpu_torch.ops import conv2d, conv2d_reflect, instance_norm
+    from sggan_tpu_torch.ops import cuda_conv_in as cci
+
+    gen = GeneratorResnet(ngf=NGF, generator=torch.Generator().manual_seed(0))
+    gen = gen.to(dev)
+    r1 = gen.r1
+    gx = torch.Generator().manual_seed(1)
+    img = torch.round(torch.rand(B_TRAIN, H, W, 3, generator=gx) * 255.0)
+    img = img.to(dev)
+
+    def k2_block(x):
+        h = cci.conv3_in(x, r1["conv1"]["w"], r1["in1"]["gamma"],
+                         r1["in1"]["beta"], act="relu")
+        return x + cci.conv3_in(h, r1["conv2"]["w"], r1["in2"]["gamma"],
+                                r1["in2"]["beta"], act=None)
+
+    out = {}
+    for cd in (torch.bfloat16, torch.float32):
+        with torch.no_grad():
+            x = conv2d_reflect(gen.c1, img.to(cd), cd, bias=False)
+            x = instance_norm(gen.c1_in, x, act="relu")
+            x = conv2d(gen.c2, x, 2, "SAME", cd, bias=False)
+            x = instance_norm(gen.c2_in, x, act="relu")
+            x = conv2d(gen.c3, x, 2, "SAME", cd, bias=False)
+            x = instance_norm(gen.c3_in, x, act="relu")
+        if tuple(x.shape) != (B_TRAIN, H // 4, W // 4, 4 * NGF):
+            raise AssertionError(f"resblock input {tuple(x.shape)}")
+        gd = torch.Generator(device=dev).manual_seed(2)
+        dy = torch.randn(x.shape, generator=gd, device=dev).to(cd)
+
+        def fwd_bwd(block):
+            # gradients to x and to r1's parameters (its conv biases are
+            # dead: an instance norm follows)
+            xl = x.detach().requires_grad_(True)
+            y = block(xl)
+            return y.detach(), torch.autograd.grad(
+                y, [xl, *r1.parameters()], dy, allow_unused=True)[0]
+
+        before = cci.launches
+        y_k, dx_k = fwd_bwd(k2_block)
+        if cci.launches != before + 2:
+            raise AssertionError("the K2 resblock did not launch K2 twice")
+        y_r, dx_r = fwd_bwd(lambda t: gen._res_block(r1, t, cd))
+        torch.cuda.synchronize()
+        fwd_err = (y_k.float() - y_r.float()).abs().max().item()
+        scale = y_r.float().abs().max().item()
+        g_err = (dx_k.float() - dx_r.float()).abs().max().item()
+        g_scale = dx_r.float().abs().max().item()
+        g_norm = ((dx_k.float() - dx_r.float()).norm()
+                  / dx_r.float().norm()).item()
+        # forward: f32 at the generator's card-vs-CPU limit; bf16 two ulps
+        # of the largest output (y16 may differ by an ulp in each of the
+        # two stages, then the skip sum is rounded).  Gradient to x: the
+        # two paths' conv outputs differ in the last bits, so the relu
+        # gates the few of 33 million elements whose pre-activation is
+        # that near 0 the other way, and each moves dx around it by its
+        # whole dy (phase 12 shows the same between K2 and its own plain
+        # route).  So dx is held in norm, f32 2e-3 and bf16 2e-2, and
+        # pointwise only to the train step's 0.1 of the largest element
+        if cd == torch.float32:
+            f_tol, n_tol = SLICE_ATOL, 2e-3
+        else:
+            f_tol, n_tol = 2 * 2.0 ** -8 * scale, STEP_NORM_REL
+        print(f"  {str(cd)[6:]}: forward max abs diff {fwd_err:.3g} (max |y| "
+              f"{scale:.3g}, tol {f_tol:.3g}); dx |diff| / |dx| {g_norm:.3g} "
+              f"(tol {n_tol}), max abs diff {g_err:.3g} (max |dx| "
+              f"{g_scale:.3g}, tol {STEP_MAX_REL} of it)")
+        if not (y_k.dtype == cd and y_k.shape == y_r.shape
+                and torch.isfinite(y_k.float()).all()
+                and fwd_err <= f_tol and g_norm <= n_tol
+                and g_err <= STEP_MAX_REL * g_scale):
+            raise AssertionError("the K2 resblock disagrees with _res_block")
+        key = str(cd)[6:]
+        with torch.no_grad():
+            out[key, "k2_fwd"] = cuda_ms(lambda: k2_block(x), 5, warmup=2)
+            out[key, "lib_fwd"] = cuda_ms(
+                lambda: gen._res_block(r1, x, cd), 5, warmup=2)
+        out[key, "k2_fwdbwd"] = cuda_ms(lambda: fwd_bwd(k2_block), 5,
+                                        warmup=2)
+        out[key, "lib_fwdbwd"] = cuda_ms(
+            lambda: fwd_bwd(lambda t: gen._res_block(r1, t, cd)), 5, warmup=2)
+        print(f"  [{card}] resblock (16,64,128,256) {key}: forward K2 "
+              f"{out[key, 'k2_fwd']:.3f} ms, _res_block "
+              f"{out[key, 'lib_fwd']:.3f} ms; forward + gradient to x and "
+              f"parameters K2 {out[key, 'k2_fwdbwd']:.3f} ms, _res_block "
+              f"{out[key, 'lib_fwdbwd']:.3f} ms")
+        del x, dy, y_k, y_r, dx_k, dx_r
+        torch.cuda.empty_cache()
+    return out
+
+
+K2_CATEGORIES = [("K2 conv pass", ("k2_conv",)),
+                 ("K2 moments", ("k2_moments",)),
+                 ("K2 normalize pass", ("k2_normalize",)),
+                 ("weight packing", ("copy", "elementwise"))]
+# what the K2 forward must not contain: a library convolution or matrix
+# product, or the reflect pad's gather
+K2_FORBIDDEN = ("cudnn", "xmma", "gemm", "cutlass", "conv", "implicit",
+                "index", "gather")
+
+
+def k2_profile(card: str, dev, wall_ms: float) -> None:
+    """Device kernels of the K2 forward at the resblock shape (profiler
+    over 3 calls); raises if one is a library convolution or a gather."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sggan_tpu_torch.ops import cuda_conv_in as cci
+    x, wk, g, b = k2_inputs(K2_FULL[0], torch.bfloat16, dev, seed=0)
+    with torch.no_grad():
+        cci.conv3_in(x, wk, g, b, act="relu")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                cci.conv3_in(x, wk, g, b, act="relu")
+            torch.cuda.synchronize()
+    print_breakdown(prof, 3, wall_ms, f"[{card}] profiler, K2 forward "
+                    f"{K2_FULL[0]} bf16", K2_CATEGORIES)
+    names = [e.key for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not any("k2_conv_tc" in k for k in names):
+        raise AssertionError("the profiler saw no K2 conv kernel")
+    bad = [k for k in names if "k2_" not in k
+           and any(t in k.lower() for t in K2_FORBIDDEN)]
+    if bad:
+        raise AssertionError(f"library kernels inside the K2 forward: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     from PIL import Image
 
+    from sggan_tpu_torch import perf_conv_in
     from sggan_tpu_torch import serve as srv
     from sggan_tpu_torch.config import Config
     from sggan_tpu_torch.models.generator_resnet import GeneratorResnet
-    from sggan_tpu_torch.ops import _build, cuda_in
+    from sggan_tpu_torch.ops import _build, cuda_conv_in, cuda_in
     from sggan_tpu_torch.ops import norm as tnorm
     from sggan_tpu_torch.ops.norm import instance_norm_ref
     from sggan_tpu_torch.train import pool as tpool
@@ -380,12 +742,16 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    lib, log = _build.build("instance_norm")
-    print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s "
-          f"({'compiled' if log else 'already built'})")
-    for line in log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "spill" in line):
-            print("  " + line.strip())
+    names = ("instance_norm", "conv3_in")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc each, together
+        built = list(pool.map(_build.build, names))
+    print(f"built {', '.join(lib.name for lib, _ in built)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, (lib, log) in zip(names, built):
+        print(f"  {name}: {'compiled' if log else 'already built'}")
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                print("    " + line.strip())
 
     phase("3 kernel vs plain")
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -742,6 +1108,98 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1 = time_sites(card, dev)
 
+    # f32 twins and library paths in full f32 from here on: cuDNN would
+    # take TF32 (three decimal digits) for f32 convolutions by default
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase("11 K2 forward vs plain (the twin's f32 conv with TF32 off)")
+    k2_errs = k2_forward_vs_plain(dev)
+
+    phase("12 K2 backward vs plain")
+    k2_bwd_errs = k2_backward_vs_plain(dev)
+
+    phase("13 the resblock at full width through K2")
+    k2_block_ms = k2_resblock(card, dev)
+
+    phase("14 the K2 table (main path)")
+    # the main path's counts start here
+    cuda_conv_in.launches = 0
+    cuda_conv_in.route_launches.update(tensor_core=0, scalar=0)
+    cuda_in.launches = cuda_in.bwd_launches = 0
+    print(card)
+    table = perf_conv_in.main([str(K2_ITERS)])
+    k2_launches = cuda_conv_in.launches
+    print(f"  main path: K2 launches {k2_launches} "
+          f"({cuda_conv_in.route_launches}), K1 forward {cuda_in.launches} "
+          f"(the unfused path), K1 backward {cuda_in.bwd_launches} (both)")
+    # per shape: the check, then warm-up 3 + iterations, forward and
+    # forward+backward; the unfused path runs K1 forward as often, and
+    # both backwards run K1's
+    per_shape = 1 + 2 * (3 + K2_ITERS)
+    if (k2_launches != len(K2_FULL) * per_shape
+            or cuda_conv_in.route_launches["tensor_core"] != k2_launches
+            or cuda_in.launches != k2_launches
+            or cuda_in.bwd_launches != len(K2_FULL) * 2 * (3 + K2_ITERS)):
+        raise AssertionError("the table did not go through the K2 and K1 "
+                             "kernels as often as it calls them")
+    rows = {tuple(r["shape"]): r for r in table["rows"]}
+    if table["compute_dtype"] != "bfloat16" or set(rows) != set(K2_FULL):
+        raise AssertionError("the table is not the two full bf16 shapes")
+    for shape, r in rows.items():
+        bms, by = k2_bound(shape, torch.bfloat16)
+        r["bound_ms"], r["bound_by"] = bms, by
+        r["bwd_bound_ms"], r["bwd_bound_by"] = k2_bound(
+            shape, torch.bfloat16, backward=True)
+        # the scalar route at the same shape: f32, plain FMAs
+        x, wk, g, b = k2_inputs(shape, torch.float32, dev, seed=0)
+        r["fwd_k2_f32_ms"] = cuda_ms(lambda: cuda_conv_in.conv3_in_cuda(
+            x, wk, g, b, 1e-3, "relu", 0.3), 3, warmup=1)
+        del x
+        torch.cuda.empty_cache()
+        print(f"  [{card}] K2 {shape} bf16: forward {r['fwd_k2_ms']:.3f} ms "
+              f"(unfused {r['fwd_unfused_ms']:.3f}, pad + cuDNN conv "
+              f"{r['fwd_conv_reflect_ms']:.3f}, cuDNN conv alone "
+              f"{r['fwd_conv_only_ms']:.3f}, bound {bms:.3f} by {by}); "
+              f"forward+backward {r['fwdbwd_k2_ms']:.3f} ms (unfused "
+              f"{r['fwdbwd_unfused_ms']:.3f}; the backward's bound "
+              f"{r['bwd_bound_ms']:.3f} by {r['bwd_bound_by']}); max |K2 - "
+              f"unfused| {r['max_abs_diff']:.3g}; f32 scalar route forward "
+              f"{r['fwd_k2_f32_ms']:.3f} ms (bound "
+              f"{k2_bound(shape, torch.float32)[0]:.3f})")
+    res = rows[K2_FULL[0]]
+    k2_profile(card, dev, res["fwd_k2_ms"])
+    x, wk, g, b = k2_inputs(K2_FULL[0], torch.bfloat16, dev, seed=0)
+    with torch.no_grad():
+        k2_plain_ms = cuda_ms(lambda: cuda_conv_in.conv3_in_ref(
+            x, wk, g, b, 1e-3, "relu", 0.3), 2, warmup=1)
+    print(f"  [{card}] K2 plain twin {K2_FULL[0]} bf16: {k2_plain_ms:.3f} ms")
+    del x
+
+    def k2_times(r):
+        return {"ms": r["fwd_k2_ms"], "library_ms": r["fwd_unfused_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "f32_ms": r["fwd_k2_f32_ms"],
+                "fwdbwd_ms": r["fwdbwd_k2_ms"],
+                "fwdbwd_library_ms": r["fwdbwd_unfused_ms"],
+                "bwd_bound_ms": r["bwd_bound_ms"],
+                "bwd_bound_by": r["bwd_bound_by"]}
+
+    k2 = {"name": "conv3_in_fwd", "route": "cuda",
+          "source": "sggan_tpu_torch/csrc/conv3_in.cu",
+          "replaces": "sggan_tpu/ops/pallas_conv_in.py:267",
+          "launches": k2_launches,
+          "max_abs_err": max(k2_errs.values()),
+          "max_abs_err_f32": k2_errs[torch.float32],
+          "max_abs_err_dx": max(k2_bwd_errs.values()),
+          **k2_times(res), "plain_ms": k2_plain_ms,
+          "ms_is": "one call at (16,64,128,256->256), bf16, relu, CUDA "
+                   "events; library_ms is the unfused path (pad gather + "
+                   "cuDNN conv + K1); 'wide' holds the same at "
+                   "(16,256,512,64->64)",
+          "wide": k2_times(rows[K2_FULL[1]]),
+          "resblock_fwd_ms": k2_block_ms["bfloat16", "k2_fwd"],
+          "resblock_fwd_library_ms": k2_block_ms["bfloat16", "lib_fwd"]}
+
     def entry(name, d, replaces, launches, errs_d):
         return {"name": name, "route": "cuda",
                 "source": "sggan_tpu_torch/csrc/instance_norm.cu",
@@ -761,7 +1219,8 @@ def main() -> int:
     bwd = entry("instance_norm_bwd", "bwd", "sggan_tpu/ops/norm.py:97",
                 train_bwd, bwd_errs)
     bwd["replaces_pallas_vjp"] = "sggan_tpu/ops/pallas_in.py:141"
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    print(card)
+    print(json.dumps({"kernels": [fwd, bwd, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -205,6 +205,22 @@ def reflect_pad(x: torch.Tensor, pad: Pad) -> torch.Tensor:
     return _reflect_pad(x, ht, hb, wl, wr)
 
 
+def unpad_reflect_transpose(dy: torch.Tensor, lo: int, hi: int,
+                            axis: int) -> torch.Tensor:
+    """Adjoint of a reflect pad (lo, hi) of one axis: the core slice of
+    ``dy`` plus the two border strips, flipped, added onto the rows they
+    mirror (``layers._unpad_reflect_transpose`` of the JAX package).
+    Returns a new tensor; ``dy`` is not changed."""
+    n = dy.shape[axis] - lo - hi
+    core = dy.narrow(axis, lo, n).clone()
+    if lo:
+        core.narrow(axis, 1, lo).add_(dy.narrow(axis, 0, lo).flip(axis))
+    if hi:
+        core.narrow(axis, n - hi - 1, hi).add_(
+            dy.narrow(axis, lo + n, hi).flip(axis))
+    return core
+
+
 def conv2d_reflect(params: Mapping, x: torch.Tensor, compute_dtype=None,
                    bias: bool = True) -> torch.Tensor:
     """``conv2d(params, reflect_pad(x, k // 2), 1, "VALID")``, the

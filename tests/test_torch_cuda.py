@@ -1,7 +1,9 @@
 """The port on the card: the CUDA instance-norm kernels (forward, its
-saved moments, backward) against their plain versions, the wrappers'
-refusals, the generator's CUDA forward and one train step's gradients
-against the CPU.  Every test needs an NVIDIA GPU and skips without one.
+saved moments, backward) and the fused conv3x3 + instance norm kernel
+(both conv routes, and the gradients of its autograd Function) against
+their plain versions, the wrappers' refusals, the generator's CUDA forward
+and one train step's gradients against the CPU.  Every test needs an
+NVIDIA GPU and skips without one.
 
 Imports torch and numpy only, so it runs where JAX is absent:
 
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from sggan_tpu_torch.models.generator_resnet import GeneratorResnet  # noqa: E402
+from sggan_tpu_torch.ops import cuda_conv_in as cci  # noqa: E402
 from sggan_tpu_torch.ops import cuda_in  # noqa: E402
 from sggan_tpu_torch.ops import norm as tnorm  # noqa: E402
 
@@ -189,3 +192,113 @@ def test_train_step_cuda_matches_cpu(dev, monkeypatch):
             scale = ref[k].abs().max().item()
             assert (got[k].cpu() - ref[k]).abs().max().item() \
                 <= 1e-3 * scale + 1e-7, k
+
+
+# ----------------------------------------------------------------------
+# K2: fused reflect-pad conv3x3 + instance norm
+# ----------------------------------------------------------------------
+
+# (N, H, W, Cin, Cout): the JAX tests' three, an odd plane, a Cin that is
+# no multiple of 16, then shapes the tensor-core route takes in bf16 (one
+# ragged in rows, columns and the Cout tile; one whose Cin is 32 + 16)
+K2_SHAPES = [(2, 8, 16, 8, 8), (1, 16, 8, 16, 8), (1, 64, 8, 8, 16),
+             (2, 7, 9, 5, 6), (1, 9, 33, 24, 40), (2, 16, 16, 16, 16),
+             (1, 20, 37, 32, 80), (1, 8, 8, 48, 32)]
+
+
+def _k2_inputs(shape, dev, dtype, seed=0):
+    n, h, w, cin, cout = shape
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.standard_normal((n, h, w, cin))
+                         .astype(np.float32)).to(dev, dtype)
+    wk = torch.from_numpy((r.standard_normal((cout, cin, 3, 3))
+                           / np.sqrt(9 * cin)).astype(np.float32)).to(dev)
+    g = torch.from_numpy((1 + 0.1 * r.standard_normal(cout))
+                         .astype(np.float32)).to(dev)
+    b = torch.from_numpy((0.1 * r.standard_normal(cout))
+                         .astype(np.float32)).to(dev)
+    return x, wk, g, b
+
+
+def _k2_route(shape, dtype):
+    tc = dtype == torch.bfloat16 and shape[3] % 16 == 0 and shape[4] % 16 == 0
+    return "tensor_core" if tc else "scalar"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_conv3_in_kernel_matches_plain(dev, monkeypatch, shape, act, dtype):
+    """y, y16, mean, rsig of the kernel against the plain twin (its f32
+    conv with TF32 off): f32 at tests/test_pallas_conv_in.py's 2e-5, bf16
+    at its 5e-2, y16 within one bf16 ulp; two calls agree bitwise."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, wk, g, b = _k2_inputs(shape, dev, dtype)
+    route = _k2_route(shape, dtype)
+    before = cci.launches, cci.route_launches[route]
+    got = cci.conv3_in_cuda(x, wk, g, b, 1e-3, act, 0.3)
+    assert (cci.launches, cci.route_launches[route]) \
+        == (before[0] + 1, before[1] + 1)
+    again = cci.conv3_in_cuda(x, wk, g, b, 1e-3, act, 0.3)
+    ref = cci.conv3_in_ref(x, wk, g, b, 1e-3, act, 0.3)
+    torch.cuda.synchronize()
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+    y, y16, mean, rsig = got
+    assert y.dtype == y16.dtype == dtype and y.shape == ref[0].shape
+    assert mean.shape == rsig.shape == (shape[0], shape[4])
+    if dtype == torch.float32:
+        tol, tol16, tolm = 2e-5, 2e-5, 2e-5
+    else:
+        tol, tol16, tolm = 5e-2, 2.0 ** -7, 2e-3
+    torch.testing.assert_close(y.float(), ref[0].float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(y16.float(), ref[1].float(), rtol=tol16,
+                               atol=tol16)
+    torch.testing.assert_close(mean, ref[2], rtol=tolm, atol=tolm)
+    torch.testing.assert_close(rsig, ref[3], rtol=tolm, atol=tolm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", [(2, 8, 8, 8, 8), (2, 7, 9, 5, 6),
+                                   (2, 16, 16, 16, 16), (1, 20, 37, 32, 80)])
+def test_conv3_in_function_gradients(dev, monkeypatch, shape, act, dtype):
+    """dx, dw, dgamma, dbeta of ``conv3_in`` on the card (the K2 kernel,
+    then K1's backward kernel) against the plain route on the same
+    tensors: f32 at 2e-4 of each tensor's largest, bf16 at 2e-2."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, wk, g, b = _k2_inputs(shape, dev, dtype, seed=3)
+    dy = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (*shape[:3], shape[4])).astype(np.float32)).to(dev, dtype)
+    leaves = [t.requires_grad_(True) for t in (x, wk, g, b)]
+    before = cci.launches, cuda_in.bwd_launches
+    y = cci.conv3_in(*leaves, act=act)
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (cci.launches, cuda_in.bwd_launches) \
+        == (before[0] + 1, before[1] + 1)
+    xd, wd, gd, bd = (t.detach() for t in leaves)
+    _, y16, mean, rsig = cci.conv3_in_ref(xd, wd, gd, bd, 1e-3, act, 0.3)
+    d_y16, dg, db = tnorm.instance_norm_bwd_ref(y16, dy, gd, bd, mean, rsig,
+                                                act, 0.3)
+    ref = (*cci.conv_grads(xd, wd, d_y16), dg, db)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for a, r, name in zip(got, ref, ("dx", "dw", "dgamma", "dbeta")):
+        scale = r.float().abs().max().item()
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+def test_conv3_in_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, wk, g, b = _k2_inputs((1, 8, 8, 16, 16), dev, torch.float32)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        cci.conv3_in_cuda(x.permute(0, 2, 1, 3), wk, g, b)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cci.conv3_in_cuda(x.half(), wk, g, b)
+    with pytest.raises(ValueError, match="gamma"):
+        cci.conv3_in_cuda(x, wk, g.bfloat16(), b)
+    with pytest.raises(ValueError, match="3, 3"):
+        cci.conv3_in_cuda(x, wk[:, :, :, :2], g, b)
+    with pytest.raises(ValueError, match="on cuda"):
+        cci.conv3_in_cuda(x, wk.cpu(), g, b)
