@@ -14,10 +14,12 @@ from the repository root:
 Phases, each of which raises on failure:
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build both kernel sources (csrc/instance_norm.cu, csrc/conv3_in.cu)
-     with nvcc, side by side;
+     with nvcc, side by side; registers, spills and static shared memory
+     of every kernel;
   3. the kernel against its plain PyTorch version on the card, at the
      four (shape, act) pairs of the generator's 23 instance-norm sites,
-     batch 1 and 16, f32 and bf16;
+     batch 1 and 16, f32 and bf16, with its plan; two calls bitwise
+     equal;
   4. the whole generator at 256x512: the f32 card forward (TF32 off)
      against the same module's f32 CPU forward, and the bf16 card forward;
   5. the HTTP service on the card: /healthz, four PNG translations (one
@@ -28,19 +30,23 @@ Phases, each of which raises on failure:
   7. both instance-norm kernels against their plain versions at the
      train step's sites (the generator's four at batch 16, the
      discriminator's seven, leaky_relu, at batch 16 and 32), f32 and bf16:
-     the forward's output and saved moments, then the backward fed the
-     kernel's own moments;
+     each site's plan (route, cluster, CTAs, clusters the card holds at
+     once), the forward's output and saved moments, then the backward fed
+     the kernel's own moments; two calls bitwise equal;
   8. one f32 sggan step, card (kernels, TF32 off) against CPU (plain
      versions) from the same seeded state, batch and pool draws: losses
      and every gradient, at the CPU tests' size (32x64, b=2) and at full
      width (256x512, b=1), where the card is also run with cuDNN off to
      show the gradients' f32 noise floor;
   9. the train step at full width, bf16, batch 16, >= 12 steps: finite
-     losses, and exactly 37 forward and 37 backward kernel launches per
-     step;
-  10. timings: step time, img/s and peak memory at batch 16 and 24; both
-     kernels at every site of the step against their plain versions and
-     PyTorch's F.instance_norm; a torch.profiler breakdown of one step;
+     losses, exactly 37 forward and 37 backward kernel calls per step,
+     each on the route its plan gives (16-byte routes only);
+  10. timings: step time, img/s and peak memory at batch 16 and 24; a
+     torch.profiler breakdown of one step, where no K1 kernel may fall
+     outside K1's categories; both kernels at every site of the step, by
+     CUDA events and by the profiler (device only), against their bound,
+     the routes the plan did not take, their plain versions and PyTorch's
+     F.instance_norm;
   11. the fused conv3x3 + instance norm kernel (K2) against its plain
      PyTorch twin: y, y16, mean and rsig for three activations, f32 and
      bf16, at small shapes (both conv routes, ragged tiles) and at the two
@@ -65,6 +71,8 @@ from __future__ import annotations
 
 import io
 import json
+import math
+import re
 import subprocess
 import sys
 import threading
@@ -129,6 +137,36 @@ def bound_ms(n, hwc, dtype_bytes, tensors, flops_per_elt):
                      flops_per_elt * elts / F32_FLOPS_PER_S)
 
 
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill stores and loads, static shared bytes)
+    of every entry function in nvcc's ``-Xptxas -v`` output."""
+    rows, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = short_kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"spills {m.group(1)}/{m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and kernel:
+            rows.append((kernel, int(m.group(1)), spills, int(m.group(2))))
+            kernel = None
+    return rows
+
+
+def short_kernel_name(mangled: str) -> str:
+    """``in_bwd_apply<bf16,8>`` from an Itanium-mangled kernel template."""
+    m = re.search(r"\d+((?:in|k2)_[a-z_0-9]+?)I(13__nv_bfloat16|f)"
+                  r"(?:Li(\d+)E)?", mangled)
+    if not m:
+        m = re.search(r"\d+((?:in|k2)_[a-z_0-9]+)", mangled)
+        return m.group(1) if m else mangled[:40]
+    t = "bf16" if m.group(2).endswith("bfloat16") else "f32"
+    return f"{m.group(1)}<{t}{',' + m.group(3) if m.group(3) else ''}>"
+
+
 def phase(name):
     print(f"== {name}", flush=True)
 
@@ -164,6 +202,18 @@ def site_inputs(n, hwc, dtype, dev, seed):
     return x, gamma, beta
 
 
+def plan_line(n, hwc, dtype, direction) -> str:
+    """The K1 plan of one site and, on the cluster route, how many of its
+    clusters the card holds at once."""
+    from sggan_tpu_torch.ops import cuda_in
+    p = cuda_in.plan(n, *hwc, dtype, direction)
+    if p.route != "cluster":
+        return f"{p.route} x{p.splits} splits, {p.ctas} CTAs"
+    return (f"cluster of {p.cluster}, {p.ctas} CTAs, {p.smem} B shared "
+            f"each, {cuda_in.max_active_clusters(p, direction, dtype)} "
+            "clusters at once")
+
+
 def png(arr: np.ndarray) -> bytes:
     from PIL import Image
     buf = io.BytesIO()
@@ -179,18 +229,20 @@ def post(port: int, body: bytes):
         return r.status, r.read()
 
 
-CATEGORIES = [("K1 instance norm", ("in_stats", "in_apply")),
+# K1's kernels by name: the cluster route's one kernel per direction, the
+# two-pass routes' stats and apply kernels (csrc/instance_norm.cu)
+K1_FWD_KERNELS = ("in_fwd_cluster", "in_stats", "in_apply")
+K1_BWD_KERNELS = ("in_bwd_cluster", "in_bwd_stats", "in_bwd_apply")
+CATEGORIES = [("K1 instance norm", K1_FWD_KERNELS),
               ("convolutions", ("xmma", "conv", "cutlass", "gemm")),
               ("reflect-pad gathers", ("index_elementwise",)),
               ("copies and casts", ("copy",)),
               ("residual adds", ("CUDAFunctor_add",))]
 
 
-def print_breakdown(prof, n_runs: int, wall_ms: float, title: str,
-                    categories) -> None:
-    """Device time per run from a torch.profiler trace of ``n_runs`` runs,
-    by category and by kernel, and the device idle share against the
-    event-timed ``wall_ms`` of one run."""
+def kernel_times(prof, n_runs: int) -> list:
+    """(device ms per run, launches per run, name) of every device kernel
+    in a torch.profiler trace of ``n_runs`` runs, the longest first."""
     kern = []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -198,7 +250,15 @@ def print_breakdown(prof, n_runs: int, wall_ms: float, title: str,
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0.0)
             kern.append((us / n_runs / 1e3, e.count // n_runs, e.key))
-    kern.sort(reverse=True)
+    return sorted(kern, reverse=True)
+
+
+def print_breakdown(prof, n_runs: int, wall_ms: float, title: str,
+                    categories) -> None:
+    """Device time per run from a torch.profiler trace of ``n_runs`` runs,
+    by category and by kernel, and the device idle share against the
+    event-timed ``wall_ms`` of one run."""
+    kern = kernel_times(prof, n_runs)
     total = sum(k[0] for k in kern)
     print(f"  {title}: device busy {total:.3f} ms of {wall_ms:.3f} ms wall "
           f"({100 * (1 - total / wall_ms):.1f}% idle)")
@@ -212,6 +272,9 @@ def print_breakdown(prof, n_runs: int, wall_ms: float, title: str,
           f"in {sum(k[1] for k in left)} launches")
     for ms, cnt, name in kern[:12]:
         print(f"      {ms:8.4f} ms  x{cnt:<4d} {name[:90]}")
+    stray = [k[2] for k in left if "::in_" in k[2]]
+    if stray:
+        raise AssertionError(f"K1 kernels outside K1's categories: {stray}")
 
 
 def profile_forward(gen, n: int, wall_ms: float, card: str) -> None:
@@ -232,8 +295,8 @@ def profile_forward(gen, n: int, wall_ms: float, card: str) -> None:
 
 
 STEP_CATEGORIES = [
-    ("K1 backward", ("in_bwd_stats", "in_bwd_apply")),
-    ("K1 forward", ("in_stats", "in_apply")),
+    ("K1 backward", K1_BWD_KERNELS),
+    ("K1 forward", K1_FWD_KERNELS),
     ("convolutions", ("xmma", "conv", "cutlass", "gemm", "cudnn")),
     ("reflect pads and their adjoints", ("index_elementwise",
                                          "indexing_backward", "index_put",
@@ -324,29 +387,47 @@ def library_in(x, gamma, beta, act):
     return y
 
 
-def time_sites(card: str, dev) -> dict:
+def time_sites(card: str, dev):
     """Both K1 kernels, their plain versions and PyTorch's instance norm at
-    every instance-norm site of one b=16 bf16 train step; returns the sums
-    over the step's 37 calls."""
+    every instance-norm site of one b=16 bf16 train step, the kernels by
+    CUDA events (wrapper included) and by the profiler (device only), and
+    the routes the plan did not take at each site by events.  Returns the
+    sums over the step's 37 calls and one row per site."""
     from sggan_tpu_torch.ops import cuda_in
     from sggan_tpu_torch.ops import norm as tnorm
+    from sggan_tpu_torch.perf_in import device_ms
     tot = {(d, k): 0.0 for d in ("fwd", "bwd") for k in (
-        "ms", "plain_ms", "bound_ms", "floor_ms", "library_ms")}
+        "ms", "device_ms", "plain_ms", "bound_ms", "floor_ms", "library_ms")}
+    rows = []
+    bf16 = torch.bfloat16
     for i, (n, hwc, act, calls) in enumerate(step_sites()):
-        x, g, b = site_inputs(n, hwc, torch.bfloat16, dev, seed=i)
-        dy = torch.randn(x.shape, device=dev).to(torch.bfloat16)
+        x, g, b = site_inputs(n, hwc, bf16, dev, seed=i)
+        dy = torch.randn(x.shape, device=dev).to(bf16)
         _, mean, rstd = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act,
                                                    save_stats=True)
         it = 20 if n * hwc[0] * hwc[1] < 2 ** 20 else 5
+
+        def fwd(p=None):
+            if p is None:
+                return cuda_in.instance_norm_cuda(x, g, b, 1e-3, act,
+                                                  save_stats=True)
+            return cuda_in._forward(x, g, b, 1e-3, act, 0.3, p)
+
+        def bwd(p=None):
+            if p is None:
+                return cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd,
+                                                      act)
+            return cuda_in._backward(x, dy, g, b, mean, rstd, act, 0.3, p)
+
         ms = {
-            ("fwd", "ms"): cuda_ms(lambda: cuda_in.instance_norm_cuda(
-                x, g, b, 1e-3, act, save_stats=True), it),
+            ("fwd", "ms"): cuda_ms(fwd, it),
+            ("fwd", "device_ms"): device_ms(fwd, it),
             ("fwd", "plain_ms"): cuda_ms(lambda: tnorm._ref_forward(
                 x, g, b, 1e-3, act, 0.3), it),
             ("fwd", "library_ms"): cuda_ms(lambda: library_in(x, g, b, act),
                                            it),
-            ("bwd", "ms"): cuda_ms(lambda: cuda_in.instance_norm_bwd_cuda(
-                x, dy, g, b, mean, rstd, act), it),
+            ("bwd", "ms"): cuda_ms(bwd, it),
+            ("bwd", "device_ms"): device_ms(bwd, it),
             ("bwd", "plain_ms"): cuda_ms(lambda: tnorm.instance_norm_bwd_ref(
                 x, dy, g, b, mean, rstd, act), it),
         }
@@ -356,31 +437,68 @@ def time_sites(card: str, dev) -> dict:
         ms["bwd", "library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             y, (xr, gr, br), dyp, retain_graph=True), it)
         # bound: each input read once, each output written once; floor:
-        # what the algorithm must move, since the sums need the whole
-        # plane before the first output (fwd 2R+1W, bwd 2x(x, dy) + dx)
+        # what a kernel that cannot hold the plane must move, since the sums
+        # need the whole plane before the first output (fwd 2R+1W, bwd
+        # 2x(x, dy) + dx)
         ms["fwd", "bound_ms"] = bound_ms(n, hwc, 2, 2, 8)
         ms["bwd", "bound_ms"] = bound_ms(n, hwc, 2, 3, 14)
         ms["fwd", "floor_ms"] = bound_ms(n, hwc, 2, 3, 8)
         ms["bwd", "floor_ms"] = bound_ms(n, hwc, 2, 5, 14)
         for key, v in ms.items():
             tot[key] += calls * v
+        row = {"n": n, "hwc": list(hwc), "act": act, "calls": calls,
+               **{f"{d}_{k}": v for (d, k), v in ms.items()}}
+        for d, fn in (("fwd", fwd), ("bwd", bwd)):
+            p = cuda_in.plan(n, *hwc, bf16, d)
+            row[f"{d}_route"] = p.route
+            row[f"{d}_cluster"] = p.cluster
+            for r in ("cluster", "stream", "scalar"):
+                if r == p.route:
+                    continue
+                try:
+                    alt = cuda_in.plan(n, *hwc, bf16, d, route=r)
+                except ValueError:  # no cluster holds this plane
+                    continue
+                row[f"{d}_{r}_ms"] = cuda_ms(lambda: fn(alt), it)
+                row[f"{d}_{r}_device_ms"] = device_ms(lambda: fn(alt), it)
+        rows.append(row)
+
+        def others(d):
+            return ", ".join(
+                f"{r} {row[f'{d}_{r}_ms']:.4f} / {row[f'{d}_{r}_device_ms']:.4f}"
+                for r in ("cluster", "stream", "scalar")
+                if f"{d}_{r}_ms" in row)
         print(f"  [{card}] K1 ({n},{','.join(map(str, hwc))}) act={act} "
-              f"bf16 x{calls}: fwd {ms['fwd', 'ms']:.4f} ms (plain "
-              f"{ms['fwd', 'plain_ms']:.4f}, F.instance_norm "
-              f"{ms['fwd', 'library_ms']:.4f}, bound "
-              f"{ms['fwd', 'bound_ms']:.4f}); bwd {ms['bwd', 'ms']:.4f} ms "
-              f"(plain {ms['bwd', 'plain_ms']:.4f}, autograd of "
-              f"F.instance_norm {ms['bwd', 'library_ms']:.4f}, bound "
-              f"{ms['bwd', 'bound_ms']:.4f})")
+              f"bf16 x{calls}:")
+        for d, lib in (("fwd", "F.instance_norm"),
+                       ("bwd", "autograd of F.instance_norm")):
+            print(f"    {d} {row[d + '_route']}"
+                  f"{' of ' + str(row[d + '_cluster']) if row[d + '_route'] == 'cluster' else ''}"
+                  f": {ms[d, 'ms']:.4f} ms events, {ms[d, 'device_ms']:.4f} "
+                  f"device (bound {ms[d, 'bound_ms']:.4f}, floor "
+                  f"{ms[d, 'floor_ms']:.4f}); other routes, events / device, "
+                  f"{others(d)}; "
+                  f"plain {ms[d, 'plain_ms']:.4f}, {lib} "
+                  f"{ms[d, 'library_ms']:.4f}")
         del x, dy, y, xr, mean, rstd
     torch.cuda.empty_cache()
     for d in ("fwd", "bwd"):
         print(f"  [{card}] K1 {d}, the 37 calls of one b=16 step: kernel "
-              f"{tot[d, 'ms']:.3f} ms, plain {tot[d, 'plain_ms']:.3f} ms, "
-              f"F.instance_norm {tot[d, 'library_ms']:.3f} ms, bound "
-              f"{tot[d, 'bound_ms']:.3f} ms, floor {tot[d, 'floor_ms']:.3f} "
-              "ms")
-    return tot
+              f"{tot[d, 'ms']:.3f} ms events, {tot[d, 'device_ms']:.3f} ms "
+              f"device, plain {tot[d, 'plain_ms']:.3f} ms, F.instance_norm "
+              f"{tot[d, 'library_ms']:.3f} ms, bound {tot[d, 'bound_ms']:.3f}"
+              f" ms, floor {tot[d, 'floor_ms']:.3f} ms")
+    return tot, rows
+
+
+def step_routes(direction: str) -> dict:
+    """K1 calls per route in one b=16 bf16 step, from the plan."""
+    from sggan_tpu_torch.ops import cuda_in
+    out = {}
+    for n, hwc, _, calls in step_sites():
+        r = cuda_in.plan(n, *hwc, torch.bfloat16, direction).route
+        out[r] = out.get(r, 0) + calls
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -649,7 +767,9 @@ def k2_resblock(card: str, dev) -> dict:
         if cd == torch.float32:
             f_tol, n_tol = SLICE_ATOL, 2e-3
         else:
-            f_tol, n_tol = 2 * 2.0 ** -8 * scale, STEP_NORM_REL
+            # one bf16 ulp of the largest output's binade: 2^(e - 7)
+            f_tol = 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+            n_tol = STEP_NORM_REL
         print(f"  {str(cd)[6:]}: forward max abs diff {fwd_err:.3g} (max |y| "
               f"{scale:.3g}, tol {f_tol:.3g}); dx |diff| / |dx| {g_norm:.3g} "
               f"(tol {n_tol}), max abs diff {g_err:.3g} (max |dx| "
@@ -749,9 +869,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     for name, (lib, log) in zip(names, built):
         print(f"  {name}: {'compiled' if log else 'already built'}")
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print("    " + line.strip())
+        for kernel, regs, spills, smem in ptxas_report(log):
+            print(f"    {kernel:34s} {regs:3d} registers, {spills}, "
+                  f"{smem} static shared bytes")
+    print("  K1 cluster route: dynamic shared bytes per CTA up to "
+          f"{cuda_in._SMEM_MAX} (the plan's limit), printed per site in "
+          "phase 7")
 
     phase("3 kernel vs plain")
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -760,21 +883,26 @@ def main() -> int:
             for i, (hwc, act) in enumerate(SITES):
                 x, g, b = site_inputs(n, hwc, dtype, dev, seed=i)
                 got = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act, 0.3)
+                again = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act, 0.3)
                 ref = instance_norm_ref(x, g, b, 1e-3, act, 0.3)
                 if got.dtype != dtype or got.shape != x.shape:
                     raise AssertionError(f"kernel output {got.dtype} "
                                          f"{tuple(got.shape)}")
+                if not torch.equal(got, again):
+                    raise AssertionError("two K1 forward calls differ "
+                                         "bitwise")
                 d = (got.float() - ref.float()).abs()
                 tol = TOL[dtype]
                 n_bad = int((d > tol + tol * ref.float().abs()).sum())
                 err = d.max().item()
                 errs[dtype] = max(errs[dtype], err)
                 print(f"  ({n},{','.join(map(str, hwc))}) act={act} "
-                      f"{str(dtype)[6:]}: max abs diff {err:.3g} "
-                      f"(tol {tol} abs + rel), {n_bad} outside")
+                      f"{str(dtype)[6:]} {plan_line(n, hwc, dtype, 'fwd')}: "
+                      f"max abs diff {err:.3g} (tol {tol} abs + rel), "
+                      f"{n_bad} outside; bitwise repeatable")
                 if n_bad:
                     raise AssertionError("kernel disagrees with plain IN")
-                del x, got, ref, d
+                del x, got, again, ref, d
     torch.cuda.empty_cache()
 
     phase("4 whole generator at 256x512, ngf 64")
@@ -941,6 +1069,11 @@ def main() -> int:
             # the forward as the train step calls it: output and moments
             y, mean, rstd = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act,
                                                        0.3, save_stats=True)
+            again = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act, 0.3,
+                                               save_stats=True)
+            if not all(torch.equal(a, c) for a, c in zip((y, mean, rstd),
+                                                         again)):
+                raise AssertionError("two K1 forward calls differ bitwise")
             ry, rmean, rrstd = tnorm._ref_forward(x, g, b, 1e-3, act, 0.3)
             if y.dtype != dtype or mean.shape != (n, hwc[-1]):
                 raise AssertionError(f"forward output {y.dtype}, moments "
@@ -957,8 +1090,10 @@ def main() -> int:
                         (rstd - rrstd).abs().max().item())
             errs[dtype] = max(errs[dtype], f_err)
             print(f"  ({n},{','.join(map(str, hwc))}) act={act} "
-                  f"{str(dtype)[6:]}: fwd y/mean/rstd max abs diff "
-                  f"{f_err:.3g}, {n_bad} outside")
+                  f"{str(dtype)[6:]}: fwd {plan_line(n, hwc, dtype, 'fwd')}"
+                  f"; bwd {plan_line(n, hwc, dtype, 'bwd')}")
+            print(f"    fwd y/mean/rstd max abs diff {f_err:.3g}, {n_bad} "
+                  "outside; bitwise repeatable")
             if n_bad:
                 raise AssertionError("forward kernel or its moments "
                                      "disagree with plain")
@@ -968,6 +1103,11 @@ def main() -> int:
             # each flip moves its whole plane's dx by ~|dy| / (H * W)
             dx, dg, db = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean,
                                                         rstd, act)
+            again = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd,
+                                                   act)
+            if not all(torch.equal(a, c) for a, c in zip((dx, dg, db),
+                                                         again)):
+                raise AssertionError("two K1 backward calls differ bitwise")
             rdx, rdg, rdb = tnorm.instance_norm_bwd_ref(x, dy, g, b, mean,
                                                         rstd, act)
             if dx.dtype != dtype or dx.shape != x.shape:
@@ -985,13 +1125,12 @@ def main() -> int:
                       (db - rdb).abs().max().item()
                       / max(rdb.abs().max().item(), 1e-30))
             bwd_errs[dtype] = max(bwd_errs[dtype], err)
-            print(f"  ({n},{','.join(map(str, hwc))}) act={act} "
-                  f"{str(dtype)[6:]}: bwd dx max abs diff {err:.3g} "
-                  f"(max |dx| {scale:.3g}), {n_bad} outside; dgamma/dbeta "
-                  f"max rel diff {e_g:.3g} (tol 1e-4)")
+            print(f"    bwd dx max abs diff {err:.3g} (max |dx| "
+                  f"{scale:.3g}), {n_bad} outside; dgamma/dbeta max rel "
+                  f"diff {e_g:.3g} (tol 1e-4); bitwise repeatable")
             if n_bad or e_g > 1e-4:
                 raise AssertionError("backward kernel disagrees with plain")
-            del x, dy, y, ry, dy_, dx, rdx, d
+            del x, dy, y, ry, dy_, dx, rdx, d, again
     torch.cuda.empty_cache()
 
     phase("8 train step f32, card vs CPU")
@@ -1045,7 +1184,9 @@ def main() -> int:
     batch = train_batch(cfg, B_TRAIN, dev, seed=5)
     step_fn = tstep.build_step_fn(cfg)
     draw_gen = torch.Generator().manual_seed(6)
-    cuda_in.launches = cuda_in.bwd_launches = 0  # the main path starts here
+    # the main path starts here
+    cuda_in.launches = cuda_in.bwd_launches = 0
+    cuda_in.route_launches.update(dict.fromkeys(cuda_in.route_launches, 0))
     step_losses = []
     for _ in range(N_STEPS):
         state, m = step_fn(state, batch, 1e-3, tpool.pool_draws(
@@ -1065,6 +1206,15 @@ def main() -> int:
                              "backward kernel launches per step")
     if not torch.isfinite(step_losses).all() or state.step != N_STEPS:
         raise AssertionError("train step losses not finite")
+    routes = {d: {r: cuda_in.route_launches[d, r] // N_STEPS
+                  for r in ("cluster", "stream", "scalar")
+                  if cuda_in.route_launches[d, r]} for d in ("fwd", "bwd")}
+    print(f"  K1 calls per step by route: {routes} (planned "
+          f"{ {d: step_routes(d) for d in ('fwd', 'bwd')} })")
+    for d in ("fwd", "bwd"):
+        if routes[d] != step_routes(d) or "scalar" in routes[d]:
+            raise AssertionError(f"the step's K1 {d} calls did not take the "
+                                 "planned 16-byte routes")
 
     phase("10 train step timings")
     step_ms = {}
@@ -1106,7 +1256,7 @@ def main() -> int:
                             "bf16 train step", STEP_CATEGORIES)
     del state, batch, holder
     torch.cuda.empty_cache()
-    k1 = time_sites(card, dev)
+    k1, k1_sites = time_sites(card, dev)
 
     # f32 twins and library paths in full f32 from here on: cuDNN would
     # take TF32 (three decimal digits) for f32 convolutions by default
@@ -1210,8 +1360,23 @@ def main() -> int:
                 "bound_ms": k1[d, "bound_ms"], "bound_by": "bytes",
                 "floor_ms": k1[d, "floor_ms"],
                 "library_ms": k1[d, "library_ms"],
+                "device_ms": k1[d, "device_ms"],
+                "routes": routes[d],
+                "sites": [{"site": [r["n"], *r["hwc"]], "calls": r["calls"],
+                           "route": r[f"{d}_route"],
+                           "cluster": r[f"{d}_cluster"],
+                           "ms": r[f"{d}_ms"],
+                           "device_ms": r[f"{d}_device_ms"],
+                           "bound_ms": r[f"{d}_bound_ms"],
+                           **{k[len(d) + 1:]: v for k, v in r.items()
+                              if k.startswith(d + "_") and k.endswith("_ms")
+                              and k.split("_")[1] in (
+                                  "cluster", "stream", "scalar")}}
+                          for r in k1_sites],
                 "ms_is": "sum over the 37 instance-norm calls of one b=16 "
-                         "bf16 train step, per site with CUDA events"}
+                         "bf16 train step, per site with CUDA events "
+                         "(wrapper included); device_ms the same from "
+                         "torch.profiler; routes: calls per step"}
 
     fwd = entry("instance_norm_fwd", "fwd", "sggan_tpu/ops/pallas_in.py:107",
                 train_fwd, errs)

@@ -2,22 +2,31 @@
 
 Forward: replaces ``sggan_tpu/ops/pallas_in.py::instance_norm_pallas``.
 Backward: replaces ``sggan_tpu/ops/norm.py::_in_fused_bwd``, the custom
-VJP of the JAX package's instance norm.  Both are ``csrc/instance_norm.cu``
-and have the same shape: a stats launch writes f32 partial sums per
-(sample, spatial split, channel), an apply launch combines them and writes
-the output.  They take f32 or bf16, any C and any H*W; there is no channel
-gate like the TPU kernel's C % 128.
+VJP of the JAX package's instance norm.  Both are ``csrc/instance_norm.cu``.
+They take f32 or bf16, any C and any H*W; there is no channel gate like the
+TPU kernel's C % 128.
+
+``plan`` picks one of three routes per call from shape, dtype and
+alignment, before the launch (the source's header says what each does):
+``cluster`` (one launch; a thread block cluster holds the plane in shared
+memory), ``stream`` (two passes with 16-byte packets, for planes no
+cluster holds) and ``scalar`` (two passes, one element per thread, for C
+that is no multiple of a packet or a pointer that is not 16-byte
+aligned).  ``plan`` is pure Python, so the CPU tests hold it at every
+site.
 
 ``launches`` and ``bwd_launches`` count the calls that launched each
-kernel, so a run can show that its path went through them.  The kernels
-are built by nvcc at the first call (``_build``), never at import.
+kernel, whatever the number of CUDA launches inside, so a run can show
+that its path went through them; ``route_launches`` counts them by
+(direction, route).  The kernels are built by nvcc at the
+first call (``_build``), never at import.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,11 +34,43 @@ from . import _build
 
 launches = 0
 bwd_launches = 0
+route_launches = {(d, r): 0 for d in ("fwd", "bwd")
+                  for r in ("cluster", "stream", "scalar")}
 
 _ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
+_ROUTES = {"scalar": 0, "stream": 1, "cluster": 2}
 _LANES = 32             # channels per block (kLanes in the source)
-_TARGET_BLOCKS = 4 * 132  # a few blocks on each of the H100's 132 SMs
-_MIN_ROWS = 64          # rows per block, at least: 8 per warp
+_THREADS = 256          # threads per block (kThreads)
+_SMS = 132              # the H100's SMs: one wave of one block each
+_TARGET_BLOCKS = 4 * _SMS  # scalar route: a few blocks on each SM
+_MIN_ROWS = 64          # rows per block of the scalar route, at least
+# stream route: more, shorter blocks cut the last wave's tail, but every
+# apply block combines all its splits' partials, so a split keeps at least
+# _STREAM_MIN_ROWS rows (both measured on an H100 by perf_in.py)
+_STREAM_BLOCKS = 16 * _SMS
+_STREAM_MIN_ROWS = 512
+# cluster route: a CTA's slab rows in shared memory.  Up to _SMEM_PAIR two
+# CTAs share an SM (and one's loads overlap the other's stores); beyond it
+# one CTA takes an SM, up to the opt-in 232,448 bytes less the kernel's
+# static shared memory (under 3 KiB)
+_SMEM_PAIR = 96 * 1024
+_SMEM_MAX = 232448 - 4096
+_MAX_CLUSTER = 16  # above 8 needs cudaFuncAttributeNonPortableClusterSizeAllowed
+
+
+class Plan(NamedTuple):
+    """How one call runs: ``route``; ``tile`` channels per block;
+    ``cluster`` CTAs per cluster (1 on the two-pass routes); ``ctas`` per
+    launch; ``smem`` dynamic shared bytes per CTA; ``rows`` per CTA
+    (cluster) or per split; ``splits`` of the plane (two-pass routes, 1
+    on the cluster route)."""
+    route: str
+    tile: int
+    cluster: int
+    ctas: int
+    smem: int
+    rows: int
+    splits: int
 
 
 def check_act(act: Optional[str]) -> None:
@@ -38,15 +79,75 @@ def check_act(act: Optional[str]) -> None:
                          "'leaky_relu'")
 
 
-def split_rows(n: int, s: int, c: int) -> Tuple[int, int]:
-    """(rows per split, number of splits) of the S = H*W axis: enough
-    blocks to fill the card at batch 1, at least ``_MIN_ROWS`` rows each,
-    and no empty split."""
+def split_rows(n: int, s: int, c: int, blocks: int = _TARGET_BLOCKS,
+               min_rows: int = _MIN_ROWS) -> Tuple[int, int]:
+    """(rows per split, number of splits) of the S = H*W axis: about
+    ``blocks`` blocks on the card, at least ``min_rows`` rows each, and no
+    empty split."""
     tiles = -(-c // _LANES)
-    want = -(-_TARGET_BLOCKS // (n * tiles))
-    n_split = max(1, min(want, s // _MIN_ROWS))
+    want = -(-blocks // (n * tiles))
+    n_split = max(1, min(want, s // min_rows))
     rows = -(-s // n_split)
     return rows, -(-s // rows)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
+         direction: str, aligned: bool = True,
+         route: Optional[str] = None) -> Plan:
+    """The route of one call on an (n, h, w, c) tensor of ``dtype``,
+    ``direction`` "fwd" or "bwd"; ``aligned``: every tensor the kernel
+    reads or writes starts on 16 bytes.  ``route`` forces a route (for
+    measuring one against another) and raises where it cannot run.
+
+    cluster, where it fits: the smallest cluster whose CTAs hold their
+    rows of x (and dy) in ``_SMEM_PAIR``, else a cluster of 8 or 16 in
+    ``_SMEM_MAX``; doubled up to 16 while the launch has fewer CTAs
+    than the card's SMs and each CTA keeps a thread step of rows; taken
+    unless it leaves the card short of a wave where the stream route
+    fills one.  Otherwise stream, or scalar when C is no multiple of a
+    16-byte packet or a tensor is misaligned."""
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction={direction!r} — must be 'fwd' or 'bwd'")
+    s = h * w
+    esize = torch.finfo(dtype).bits // 8
+    vec = 16 // esize  # channels in one 16-byte packet
+    tiles = -(-c // _LANES)
+
+    def two_pass(name, blocks, min_rows):
+        rows, splits = split_rows(n, s, c, blocks, min_rows)
+        return Plan(name, _LANES, 1, n * tiles * splits, 0, rows, splits)
+
+    if not aligned or c % vec or route == "scalar":
+        if route not in (None, "scalar"):
+            raise ValueError(f"route {route!r} needs C % {vec} == 0 and "
+                             "16-byte aligned tensors")
+        return two_pass("scalar", _TARGET_BLOCKS, _MIN_ROWS)
+    stream = two_pass("stream", _STREAM_BLOCKS, _STREAM_MIN_ROWS)
+    if route == "stream":
+        return stream
+
+    row_bytes = _LANES * esize * (1 if direction == "fwd" else 2)
+    step = _THREADS // (_LANES // vec)  # rows of one thread step
+
+    def fits(k, limit):
+        return -(-s // k) * row_bytes <= limit
+
+    k = next((k for k in (1, 2, 4, 8, 16) if fits(k, _SMEM_PAIR)), None)
+    if k is None:
+        k = next((k for k in (8, 16) if fits(k, _SMEM_MAX)), None)
+    if k is not None:
+        while (n * tiles * k < _SMS and k < _MAX_CLUSTER
+               and -(-s // (2 * k)) >= step):
+            k *= 2
+        ctas = n * tiles * k
+        if route == "cluster" or ctas >= _SMS or stream.ctas < _SMS:
+            rows = -(-s // k)
+            return Plan("cluster", _LANES, k, ctas, rows * row_bytes, rows, 1)
+    if route == "cluster":
+        raise ValueError(f"no cluster of at most {_MAX_CLUSTER} CTAs holds "
+                         f"a ({h}, {w}) plane of {dtype} for {direction}")
+    return stream
 
 
 @functools.cache
@@ -54,10 +155,49 @@ def _kernels():
     lib = _build.load("instance_norm")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.sggan_instance_norm_fwd, lib.sggan_instance_norm_bwd
-    fwd.argtypes = [p] * 7 + [i] * 7 + [f, f, p]
-    bwd.argtypes = [p] * 8 + [i] * 7 + [f, p]
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    fwd.argtypes = [p] * 5 + [i] * 9 + [f, f, p]
+    bwd.argtypes = [p] * 9 + [i] * 9 + [f, p]
+    lib.sggan_instance_norm_init.argtypes = []
+    lib.sggan_instance_norm_max_clusters.argtypes = [i] * 4
+    for fn in (fwd, bwd, lib.sggan_instance_norm_init,
+               lib.sggan_instance_norm_max_clusters):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _init(device: int) -> None:
+    """Per device, once: the cluster kernels' shared-memory and cluster
+    size attributes."""
+    with torch.cuda.device(device):
+        err = _kernels().sggan_instance_norm_init()
+    if err:
+        raise RuntimeError(f"instance norm kernel set-up failed: CUDA error "
+                           f"{err}")
+
+
+_counters = {}  # (device, stream) -> the backward's arrival counter
+
+
+def _counter(device: int) -> torch.Tensor:
+    """One int32 per (device, current stream), zero between backward
+    calls: the kernel's last block resets it, and calls on one stream do
+    not overlap."""
+    key = (device, _stream(device))
+    t = _counters.get(key)
+    if t is None:
+        t = _counters[key] = torch.zeros(1, dtype=torch.int32,
+                                         device=torch.device("cuda", device))
+    return t
+
+
+def max_active_clusters(p: Plan, direction: str, dtype: torch.dtype) -> int:
+    """cudaOccupancyMaxActiveClusters of a cluster plan on the current
+    device (needs CUDA)."""
+    _init(torch.cuda.current_device())
+    return _kernels().sggan_instance_norm_max_clusters(
+        int(direction == "bwd"), int(dtype == torch.bfloat16), p.cluster,
+        p.rows)
 
 
 def _check_x(name: str, x: torch.Tensor) -> None:
@@ -87,14 +227,60 @@ def _check_f32(x: torch.Tensor, **params: torch.Tensor) -> None:
                              f"{tuple(p.shape)} on {p.device}")
 
 
-def _launch(fn, *args) -> None:
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args), stream)
+def _stream(device: int) -> int:
+    """The handle of the device's current stream, without building a
+    ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+def _launch(fn, x: torch.Tensor, *args) -> None:
+    """fn(*args, stream) on x's device, entering it only when it is not
+    the current one."""
+    dev = x.device.index
+    _init(dev)
+    if dev == torch.cuda.current_device():
+        err = fn(*args, _stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, _stream(dev))
     if err:
         raise RuntimeError(f"instance norm kernel launch failed: CUDA error "
                            f"{err}")
+
+
+def _forward(x, gamma, beta, eps, act, alpha, p: Plan):
+    """One forward call on plan ``p``: (y, mean, rstd)."""
+    n, h, w, c = x.shape
+    y = torch.empty_like(x)
+    # rows of C floats: mean (n), rstd (n), then the partials (n, splits, 2)
+    ws = torch.empty((2 * n + 2 * n * p.splits * (p.route != "cluster"), c),
+                     dtype=torch.float32, device=x.device)
+    _launch(_kernels().sggan_instance_norm_fwd, x, x.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            n, h * w, c, _ROUTES[p.route], p.cluster, p.rows, p.splits,
+            int(x.dtype == torch.bfloat16), _ACTS[act], eps, alpha)
+    return y, ws[:n], ws[n:2 * n]
+
+
+def _backward(x, dy, gamma, beta, mean, rstd, act, alpha, p: Plan):
+    """One backward call on plan ``p``: (dx, dgamma, dbeta)."""
+    n, h, w, c = x.shape
+    dx = torch.empty_like(x)
+    # rows of C floats: dgamma, dbeta, the sums (n, 2), the partials (n,
+    # splits, 2)
+    ws = torch.empty((2 + 2 * n + 2 * n * p.splits * (p.route != "cluster"),
+                      c), dtype=torch.float32, device=x.device)
+    _launch(_kernels().sggan_instance_norm_bwd, x, x.data_ptr(),
+            dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), ws.data_ptr(),
+            _counter(x.device.index).data_ptr(), n, h * w, c,
+            _ROUTES[p.route], p.cluster, p.rows, p.splits,
+            int(x.dtype == torch.bfloat16), _ACTS[act], alpha)
+    return dx, ws[0], ws[1]
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def instance_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
@@ -110,19 +296,10 @@ def instance_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
     check_act(act)
     _check_x("x", x)
     _check_f32(x, gamma=gamma, beta=beta)
-    n, h, w, c = x.shape
-    rows, n_split = split_rows(n, h * w, c)
-    part = torch.empty((n, n_split, 2, c), dtype=torch.float32,
-                       device=x.device)
-    y = torch.empty_like(x)
-    mean = rstd = None
-    if save_stats:
-        mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
-        rstd = torch.empty_like(mean)
-    _launch(_kernels()[0], x, gamma, beta, y, part, mean, rstd, n, h * w,
-            c, rows, n_split, int(x.dtype == torch.bfloat16), _ACTS[act],
-            eps, alpha)
+    p = plan(*x.shape, x.dtype, "fwd", _aligned(x))
+    y, mean, rstd = _forward(x, gamma, beta, eps, act, alpha, p)
     launches += 1
+    route_launches["fwd", p.route] += 1
     return (y, mean, rstd) if save_stats else y
 
 
@@ -146,14 +323,8 @@ def instance_norm_bwd_cuda(x: torch.Tensor, dy: torch.Tensor,
                          f"{tuple(dy.shape)} for x {x.dtype} "
                          f"{tuple(x.shape)}")
     _check_f32(x, gamma=gamma, beta=beta, mean=mean, rstd=rstd)
-    n, h, w, c = x.shape
-    rows, n_split = split_rows(n, h * w, c)
-    part = torch.empty((n, n_split, 2, c), dtype=torch.float32,
-                       device=x.device)
-    dx = torch.empty_like(x)
-    _launch(_kernels()[1], x, dy, gamma, beta, mean, rstd, part, dx,
-            n, h * w, c, rows, n_split, int(x.dtype == torch.bfloat16),
-            _ACTS[act], alpha)
+    p = plan(*x.shape, x.dtype, "bwd", _aligned(x, dy))
+    grads = _backward(x, dy, gamma, beta, mean, rstd, act, alpha, p)
     bwd_launches += 1
-    sums = part.sum((0, 1))  # (2, C): sum dy_g, sum dy_g * xhat
-    return dx, sums[1], sums[0]
+    route_launches["bwd", p.route] += 1
+    return grads

@@ -140,6 +140,146 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cuda_in.instance_norm_bwd_cuda(x, x, g, b, mean, mean[:, :8])
 
 
+def _check_fwd_bwd(x, g, b, dy, act, p_fwd, p_bwd):
+    """The forward (y, mean, rstd) and the backward (dx, dgamma, dbeta) on
+    the given plans against the plain twins at the tolerances above, and
+    two calls bitwise equal."""
+    dtype = x.dtype
+    got = cuda_in._forward(x, g, b, 1e-3, act, 0.3, p_fwd)
+    again = cuda_in._forward(x, g, b, 1e-3, act, 0.3, p_fwd)
+    ry, rmean, rrstd = tnorm._ref_forward(x, g, b, 1e-3, act, 0.3)
+    _, mean, rstd = got
+    dgot = cuda_in._backward(x, dy, g, b, mean, rstd, act, 0.3, p_bwd)
+    dagain = cuda_in._backward(x, dy, g, b, mean, rstd, act, 0.3, p_bwd)
+    rdx, rdg, rdb = tnorm.instance_norm_bwd_ref(x, dy, g, b, mean, rstd, act)
+    torch.cuda.synchronize()
+    for a, c in zip((*got, *dgot), (*again, *dagain)):
+        assert torch.equal(a, c)
+    y, dx = got[0], dgot[0]
+    assert y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), ry.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-4, atol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, rdx, rtol=1e-4, atol=1e-5)
+    else:
+        scale = rdx.float().abs().max().item()
+        assert (dx.float() - rdx.float()).abs().max().item() <= 2e-2 * scale
+    for a, r in ((dgot[1], rdg), (dgot[2], rdb)):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert (a - r).abs().max().item() <= 1e-4 * max(
+            r.abs().max().item(), 1e-3)
+
+
+# one shape that every route takes, a ragged channel tile (C 48), an
+# H*W = 5 plane and batch 1
+ROUTE_SHAPES = [(2, 16, 12, 64), (3, 9, 7, 48), (2, 1, 5, 64), (1, 32, 24, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("route", ["cluster", "stream", "scalar"])
+@pytest.mark.parametrize("shape", ROUTE_SHAPES)
+def test_every_route_matches_plain(dev, shape, route, act, dtype):
+    x, g, b = _inputs(shape, dev, dtype, seed=11)
+    dy = torch.from_numpy(np.random.default_rng(12).standard_normal(shape)
+                          .astype(np.float32)).to(dev, dtype)
+    plans = [cuda_in.plan(*shape, dtype, d, route=route)
+             for d in ("fwd", "bwd")]
+    assert all(p.route == route for p in plans)
+    _check_fwd_bwd(x, g, b, dy, act, *plans)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 8, 16])
+def test_cluster_sizes_match_plain(dev, k, dtype):
+    """The cluster route at each cluster size the plan uses, one plane
+    split over k CTAs (k = 16 needs the non-portable attribute)."""
+    shape = (2, 32, 32, 64)
+    x, g, b = _inputs(shape, dev, dtype, seed=13)
+    dy = torch.from_numpy(np.random.default_rng(14).standard_normal(shape)
+                          .astype(np.float32)).to(dev, dtype)
+    plans = []
+    for d, tensors in (("fwd", 1), ("bwd", 2)):
+        rows = -(-32 * 32 // k)
+        plans.append(cuda_in.Plan("cluster", 32, k, 2 * 2 * k,
+                                  rows * 32 * x.element_size() * tensors,
+                                  rows, 1))
+        assert cuda_in.max_active_clusters(plans[-1], d, dtype) > 0
+    _check_fwd_bwd(x, g, b, dy, "leaky_relu", *plans)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,route", [
+    ((2, 16, 12, 64), "cluster"), ((1, 128, 256, 128), "stream"),
+    ((3, 8, 8, 5), "scalar"), ((2, 1, 5, 512), "cluster")])
+def test_public_wrappers_take_the_planned_route(dev, shape, route, dtype):
+    x, g, b = _inputs(shape, dev, dtype, seed=15)
+    dy = torch.from_numpy(np.random.default_rng(16).standard_normal(shape)
+                          .astype(np.float32)).to(dev, dtype)
+    assert cuda_in.plan(*shape, dtype, "fwd").route == route
+    _check_fwd_bwd(x, g, b, dy, "relu", cuda_in.plan(*shape, dtype, "fwd"),
+                   cuda_in.plan(*shape, dtype, "bwd"))
+    y, mean, rstd = cuda_in.instance_norm_cuda(x, g, b, 1e-3, "relu",
+                                               save_stats=True)
+    ref = cuda_in._forward(x, g, b, 1e-3, "relu", 0.3,
+                           cuda_in.plan(*shape, dtype, "fwd"))
+    dx, dg, db = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd,
+                                                "relu")
+    dref = cuda_in._backward(x, dy, g, b, mean, rstd, "relu", 0.3,
+                             cuda_in.plan(*shape, dtype, "bwd"))
+    torch.cuda.synchronize()
+    for a, c in zip((y, mean, rstd, dx, dg, db), (*ref, *dref)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_input_takes_the_scalar_route(dev, dtype):
+    shape = (2, 8, 8, 64)
+    numel = int(np.prod(shape))
+    buf = torch.randn(numel + 1, device=dev).to(dtype)
+    x = buf[1:].view(shape)  # starts 2 or 4 bytes past an aligned address
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    _, g, b = _inputs(shape, dev, dtype, seed=17)
+    dy = torch.randn(shape, device=dev).to(dtype)
+    assert not cuda_in._aligned(x)
+    assert cuda_in.plan(*shape, dtype, "fwd", cuda_in._aligned(x)).route \
+        == "scalar"
+    y, mean, rstd = cuda_in.instance_norm_cuda(x, g, b, 1e-3, "relu",
+                                               save_stats=True)
+    dx, dg, db = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd,
+                                                "relu")
+    torch.cuda.synchronize()
+    _check_fwd_bwd(x, g, b, dy, "relu",
+                   cuda_in.plan(*shape, dtype, "fwd", False),
+                   cuda_in.plan(*shape, dtype, "bwd", False))
+    torch.testing.assert_close(
+        y.float(), tnorm.instance_norm_ref(x, g, b, 1e-3, "relu").float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 12, 64), (1, 64, 128, 256),
+                                   (3, 8, 8, 5)])
+def test_backward_launches_no_library_kernel(dev, shape):
+    """Every device kernel of a backward call (any route) is one of K1's:
+    dgamma and dbeta come from the kernel, not from a library reduction."""
+    from torch.profiler import ProfilerActivity, profile
+    x, g, b = _inputs(shape, dev, torch.bfloat16, seed=18)
+    dy = torch.randn(shape, device=dev).to(torch.bfloat16)
+    _, mean, rstd = cuda_in.instance_norm_cuda(x, g, b, 1e-3, "relu",
+                                               save_stats=True)
+    cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd, "relu")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd, "relu")
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    assert names and all("in_bwd_" in k for k in names), names
+
+
 def test_generator_cuda_forward_matches_cpu(dev, monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
