@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``sggan_tpu_torch``).
 
-Drives the port's three paths on one NVIDIA GPU at full width, with random
+Drives the port's four paths on one NVIDIA GPU at full width, with random
 weights from a seed: the serving path (the ResNet generator, ngf 64, at
 256x512 behind the HTTP service), the sggan train step (ResNet generator,
-semantic discriminator ndf 64, 34 classes, pool 50, bf16, batch 16) and
-the fused conv3x3 + instance norm table (``sggan_tpu_torch.perf_conv_in``
-at the resblock shape and the wide encoder shape, bf16, batch 16).  Run
-from the repository root:
+semantic discriminator ndf 64, 34 classes, pool 50, bf16, batch 16), the
+fused conv3x3 + instance norm table (``sggan_tpu_torch.perf_conv_in`` at
+the resblock shape and the wide encoder shape, bf16, batch 16) and the
+trainer behind ``python -m sggan_tpu_torch.main`` on a synthetic set of
+512x1024 PNGs (batch 12 doubled by augmentation, 256x512 bf16).  Run from
+the repository root:
 
     python3 chip_smoke.py
 
@@ -60,19 +62,44 @@ Phases, each of which raises on failure:
   14. the K2 table (main path): ``perf_conv_in`` at both full shapes,
      K2 against the unfused library path, forward and forward+backward;
      a profiler listing of the K2 forward, which must hold no library
-     convolution and no pad gather.
+     convolution and no pad gather;
+  15. the data pipeline at the trainer's source shape: 12 distinct
+     512x1024 triplets doubled to 24, half layout, -> 256x512, mask
+     32x64, 34 classes, with the sources as they are and host-downscaled
+     to 256x512, photometric off and on: ``preprocess_train`` and
+     ``preprocess_test`` on the card against the port's own CPU run on
+     the same inputs and draws (images 1e-5 abs, masks and flips equal);
+     ``seg_labels_u8`` and ``fake_u8`` bit-exact against the host
+     conversions (``fake_u8`` over every lattice point 2k/255 - 1 with 4
+     ulps each side and 2^24 strided f32 values of [-1, 1]); preprocess
+     img/s by CUDA events, 10 iterations after 3;
+  16. the trainer (main path): 96 + 2 synthetic 512x1024 PNG triplets as
+     ``perf_epoch_e2e.build_dataset`` makes them; ``python -m
+     sggan_tpu_torch.main --phase train`` with perf_epoch_e2e.py's
+     fused-aug flags for 3 epochs (the resident split taken, finite
+     losses, checkpoint, test PNGs, tfevents), then ``--phase test``
+     (" [*] Load SUCCESS") and ``--continue_train`` for one epoch, which
+     must resume at the saved step; per-epoch, sustained and whole-run
+     img/s; then one epoch in-process with K1's exact counts per route (37
+     forward and 37 backward a step, 23 forward for the eval) and a
+     profiler window of 2 steps of the epoch loop, and the batch assembly
+     profiled alone.
 
-Prints a JSON line of the kernels, then as the last line
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing neither,
+Prints a JSON line of the trainer's and the preprocess's rates, a JSON
+line of the kernels, then as the last line ``{"ok": true, "device":
+{...}}``.  Exits non-zero, printing neither,
 when no CUDA device is visible or any phase fails.
 """
 
 from __future__ import annotations
 
+import glob
 import io
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -119,14 +146,14 @@ K2_ACTS = (None, "relu", "leaky_relu")
 K2_ITERS = 10
 
 
-def step_sites():
+def step_sites(b: int = B_TRAIN):
     """(N, (H, W, C), act, calls per step) of every instance norm of one
-    b=16 train step: the generator's 23, the discriminator's 7 in the
-    generator loss (batch 16) and in the one call over [real; fake]
-    (batch 32)."""
-    return ([(B_TRAIN, hwc, act, c) for (hwc, act), c in zip(SITES, SITE_COUNT)]
-            + [(B_TRAIN, hwc, act, 1) for hwc, act in D_SITES]
-            + [(2 * B_TRAIN, hwc, act, 1) for hwc, act in D_SITES])
+    train step at batch ``b``: the generator's 23, the discriminator's 7
+    in the generator loss (batch b) and in the one call over [real; fake]
+    (batch 2b)."""
+    return ([(b, hwc, act, c) for (hwc, act), c in zip(SITES, SITE_COUNT)]
+            + [(b, hwc, act, 1) for hwc, act in D_SITES]
+            + [(2 * b, hwc, act, 1) for hwc, act in D_SITES])
 
 
 def bound_ms(n, hwc, dtype_bytes, tensors, flops_per_elt):
@@ -491,13 +518,21 @@ def time_sites(card: str, dev):
     return tot, rows
 
 
-def step_routes(direction: str) -> dict:
-    """K1 calls per route in one b=16 bf16 step, from the plan."""
+def step_routes(direction: str, b: int = B_TRAIN, steps: int = 1,
+                forwards: int = 0, forward_n: int = 1) -> dict:
+    """K1 calls per route, from the plan, in ``steps`` bf16 train steps at
+    batch ``b`` and ``forwards`` bf16 generator forwards at batch
+    ``forward_n`` (the eval's)."""
     from sggan_tpu_torch.ops import cuda_in
     out = {}
-    for n, hwc, _, calls in step_sites():
-        r = cuda_in.plan(n, *hwc, torch.bfloat16, direction).route
-        out[r] = out.get(r, 0) + calls
+    sites = [(n, hwc, calls * steps) for n, hwc, _, calls in step_sites(b)]
+    if direction == "fwd":
+        sites += [(forward_n, hwc, c * forwards)
+                  for (hwc, _), c in zip(SITES, SITE_COUNT)]
+    for n, hwc, calls in sites:
+        if calls:
+            r = cuda_in.plan(n, *hwc, torch.bfloat16, direction).route
+            out[r] = out.get(r, 0) + calls
     return out
 
 
@@ -833,6 +868,371 @@ def k2_profile(card: str, dev, wall_ms: float) -> None:
            and any(t in k.lower() for t in K2_FORBIDDEN)]
     if bad:
         raise AssertionError(f"library kernels inside the K2 forward: {bad}")
+
+
+# ----------------------------------------------------------------------
+# The data pipeline and the trainer (phases 15 and 16)
+# ----------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SRC_H, SRC_W = 512, 1024     # the synthetic set's source resolution
+E2E_TRAIN, E2E_TEST = 96, 2  # its train and test triplets
+E2E_B, E2E_EPOCHS = 12, 3    # per-file batch, doubled by augmentation
+PRE_DISTINCT, PRE_ITERS = 12, 10
+IMG_ATOL = 1e-5  # tests/test_torch_data.py's limit on [0, 1] images
+# perf_epoch_e2e.py's "fused-aug" variant: the default user config, batch
+# 12 doubled by augmentation, 256x512 bf16 sggan with the ResNet
+E2E_ARGS = ["--batch_size", str(E2E_B), "--use_augmentation",
+            "--img_height", str(H), "--img_width", str(W),
+            "--loss_mode", "sggan", "--use_resnet", "--segment_class",
+            str(N_CLASS), "--compute_dtype", "bfloat16", "--max_size", "50",
+            "--data_seed", "19", "--save_freq", "0", "--print_freq", "1000",
+            "--eval_freq", "1000", "--decode_cache_mb", "8192",
+            "--scan_steps", "8", "--host_downscale", "2"]
+PRE_CATEGORIES = [("resize (f32 GEMMs)", ("gemm",)),
+                  ("gathers: batch, warp taps, blur pads", ("index",)),
+                  ("random draws", ("distribution",)),
+                  ("copies and casts", ("copy",))]
+LOOP_CATEGORIES = [("preprocess: random draws", ("distribution",)),
+                   ("preprocess: resize GEMMs (f32)", ("sgemm",
+                                                       "gemm_f32f32")),
+                   *STEP_CATEGORIES]
+
+
+def synth_triplet(rng, i: int, yy, xx):
+    """One triplet of ``perf_epoch_e2e.build_dataset``: a smooth sinusoid
+    per channel, a checkerboard of 64-pixel cells over the 34 class ids,
+    and its colour seg map."""
+    ph = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+    fr = rng.uniform(1, 4, 3).astype(np.float32)
+    img = np.stack([
+        127.5 * (1 + np.sin(fr[c] * (xx / SRC_W * 6.28 + ph[c])
+                            + yy / SRC_H * fr[(c + 1) % 3]))
+        for c in range(3)], -1).astype(np.uint8)
+    cls = ((yy // 64 + xx // 64 + i) % 34).astype(np.uint8)
+    seg = np.stack([cls * 7, 255 - cls * 7, cls * 3], -1).astype(np.uint8)
+    return img, seg, cls
+
+
+def build_dataset(root: str, n: int) -> float:
+    """``perf_epoch_e2e.build_dataset``: ``n`` train and ``E2E_TEST`` test
+    triplets of 512x1024 PNGs under root/{trainA,testA}{,_seg,_seg_class},
+    drawn in its order; the PNG encodes run on a thread pool.  Returns
+    the seconds it took."""
+    from PIL import Image
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    t0 = time.perf_counter()
+    yy, xx = np.mgrid[0:SRC_H, 0:SRC_W].astype(np.float32)
+    rng = np.random.default_rng(0)
+    jobs = []
+    for split, count in (("trainA", n), ("testA", E2E_TEST)):
+        for sub in ("", "_seg", "_seg_class"):
+            os.makedirs(os.path.join(root, split + sub))
+        for i in range(count):
+            nm = f"s{i:04d}.png"
+            for sub, a in zip(("", "_seg", "_seg_class"),
+                              synth_triplet(rng, i, yy, xx)):
+                jobs.append((a, os.path.join(root, split + sub, nm)))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda j: Image.fromarray(j[0]).save(j[1]), jobs))
+    return time.perf_counter() - t0
+
+
+def fake_u8_inputs() -> np.ndarray:
+    """Every lattice point x = 2k/255 - 1 with its 4 f32 neighbours each
+    side (the only places a plain f32 formula flips a code), then 2^24
+    values evenly strided over the f32 bit patterns of [-1, 1]."""
+    xb = (2.0 * np.arange(256) / 255.0 - 1.0).astype(np.float32)
+    pts, dn, up = [xb], xb, xb
+    for _ in range(4):
+        dn = np.nextafter(dn, np.float32(-2))
+        up = np.nextafter(up, np.float32(2))
+        pts += [dn, up]
+    top = int(np.float32(1).view(np.uint32))
+    pos = np.linspace(0, top, 1 << 23).astype(np.uint32).view(np.float32)
+    return np.clip(np.concatenate(pts + [pos, -pos]), -1, 1)
+
+
+def draws_to(draws, dev):
+    """A copy of nested NamedTuples of tensors on ``dev``."""
+    if draws is None:
+        return None
+    if isinstance(draws, torch.Tensor):
+        return draws.to(dev)
+    return type(draws)(*(draws_to(t, dev) for t in draws))
+
+
+def held(name: str, got: dict, ref: dict, exact=("mask_a",)) -> float:
+    """Largest |card - CPU| of the images (limit ``IMG_ATOL``); the masks
+    must be equal.  Raises otherwise."""
+    worst = 0.0
+    for k, r in ref.items():
+        g = got[k].cpu()
+        if g.shape != r.shape or g.dtype != r.dtype \
+                or not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {k}: {g.dtype} {tuple(g.shape)}")
+        if k in exact:
+            if not torch.equal(g, r):
+                raise AssertionError(f"{name} {k} differs from the CPU's")
+            continue
+        d = (g - r).abs().max().item()
+        worst = max(worst, d)
+        if d > IMG_ATOL:
+            raise AssertionError(f"{name} {k}: max |card - CPU| {d:.3g} > "
+                                 f"{IMG_ATOL}")
+    return worst
+
+
+def preprocess_phase(card: str, dev) -> dict:
+    """Phase 15.  The preprocess on the card against the port's own CPU
+    run on the same inputs and draws, at the trainer's source shape;
+    fake_u8 and seg_labels_u8 bit-exact against the host conversions;
+    preprocess img/s.  Returns {(host_downscale, photometric): img/s}."""
+    from sggan_tpu_torch.data import preprocess as tp
+    from sggan_tpu_torch.data.loader import _downscale
+    from sggan_tpu_torch.utils.images import inverse_transform
+    out_hw, mask_hw = (H, W), (H // 8, W // 8)
+    yy, xx = np.mgrid[0:SRC_H, 0:SRC_W].astype(np.float32)
+    rng = np.random.default_rng(15)
+    trips = [synth_triplet(rng, i, yy, xx) for i in range(PRE_DISTINCT)]
+    rates = {}
+    for ds in (2, 1):
+        src = trips if ds == 2 else [
+            (_downscale(a, out_hw), _downscale(b, out_hw),
+             _downscale(c, out_hw, nearest=True)) for a, b, c in trips]
+        # doubled into [plain, to-augment] halves, as the iterators emit
+        arrays = [np.concatenate([np.stack([t[k] for t in src])] * 2)
+                  for k in range(3)]
+        b, sh = arrays[0].shape[:2]
+        cpu_in = [torch.from_numpy(a) for a in arrays]
+        cpu_in.append(torch.arange(b) >= b // 2)
+        dev_in = [t.to(dev) for t in cpu_in]
+        for pho in (False, True):
+            g = torch.Generator(device=dev).manual_seed(150 + ds)
+            kw = dict(out_hw=out_hw, mask_hw=mask_hw, n_class=N_CLASS,
+                      photometric=pho, aug_layout="half")
+            draws = tp.draw_preprocess(g, b, sh, out_hw, pho)
+            got = tp.preprocess_train(*dev_in[:3], draws, dev_in[3], **kw)
+            ref = tp.preprocess_train(*cpu_in[:3], draws_to(draws, "cpu"),
+                                      cpu_in[3], **kw)
+            if got["real_a"].shape != (b, H, W, 3) \
+                    or got["mask_a"].shape != (b, *mask_hw, N_CLASS):
+                raise AssertionError("preprocess_train output shapes")
+            err = held(f"preprocess_train ds{ds} photometric={pho}", got,
+                       ref)
+
+            def run():
+                tp.preprocess_train(*dev_in[:3], tp.draw_preprocess(
+                    g, b, sh, out_hw, pho), dev_in[3], **kw)
+            ms = cuda_ms(run, PRE_ITERS, warmup=3)
+            rates[ds, pho] = 1e3 * b / ms
+            print(f"  [{card}] preprocess_train {sh}x{arrays[0].shape[2]}"
+                  f" -> {H}x{W}, b={b} half layout, "
+                  f"photometric {'on' if pho else 'off'}: card vs CPU max "
+                  f"abs diff {err:.3g} (tol {IMG_ATOL}), masks and flips "
+                  f"equal; {ms:.3f} ms with its draws, "
+                  f"{rates[ds, pho]:.1f} img/s")
+        n = PRE_DISTINCT
+        kw = dict(out_hw=out_hw, mask_hw=mask_hw, n_class=N_CLASS)
+        got = tp.preprocess_test(*(t[:n] for t in dev_in[:3]), **kw)
+        ref = tp.preprocess_test(*(t[:n] for t in cpu_in[:3]), **kw)
+        names = ("img", "seg", "mask_full", "mask_grid")
+        err = held(f"preprocess_test ds{ds}", dict(zip(names, got)),
+                   dict(zip(names, ref)), exact=names[2:])
+        labels = tp.seg_labels_u8(got[1]).cpu().numpy()
+        host = (255 * got[1].cpu().numpy()).astype(np.uint8)
+        if not np.array_equal(labels, host):
+            raise AssertionError("seg_labels_u8 differs from the host cast")
+        print(f"  preprocess_test ds{ds} ({n} triplets, both masks): card vs "
+              f"CPU max abs diff {err:.3g}; seg_labels_u8 bit-exact")
+        del dev_in, got
+    r = np.random.default_rng(0).uniform(-0.1, 1.1, 1 << 20)
+    r = r.astype(np.float32)
+    with np.errstate(invalid="ignore"):  # the host cast wraps, on purpose
+        host = (255 * r).astype(np.uint8)
+    if not np.array_equal(tp.seg_labels_u8(torch.from_numpy(r).to(dev))
+                          .cpu().numpy(), host):
+        raise AssertionError("seg_labels_u8 does not wrap as the host does")
+    x = fake_u8_inputs()
+    got = tp.fake_u8(torch.from_numpy(x).to(dev)).cpu().numpy()
+    bad = int((got != inverse_transform(x)).sum())
+    print(f"  seg_labels_u8 bit-exact on {r.size} values in [-0.1, 1.1] "
+          f"(the wrap mod 256 included); fake_u8 vs the f64 host "
+          f"inverse_transform on {x.size} values: {bad} differ")
+    if bad:
+        raise AssertionError("fake_u8 is not bit-exact")
+    torch.cuda.empty_cache()
+    return rates
+
+
+def run_cli(run_dir: str, label: str, args: list) -> tuple:
+    """``python -m sggan_tpu_torch.main`` with ``args`` in ``run_dir``;
+    returns (stdout, seconds).  Raises if it fails."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sggan_tpu_torch.main",
+                           *args], cwd=run_dir, env=env, capture_output=True,
+                          text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    shown = [ln for ln in lines if not ln.startswith("Processing image")]
+    print(f"  python -m sggan_tpu_torch.main, {label}: exit "
+          f"{proc.returncode} in {dt:.1f} s")
+    for ln in shown[-8:]:
+        print(f"    | {ln}")
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("python -m sggan_tpu_torch.main failed")
+    return proc.stdout, dt
+
+
+def need(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def trainer_phase(card: str, dev, work: str) -> dict:
+    """Phase 16.  The trainer end to end through the CLI on the synthetic
+    PNG set: train, test, resume; then one epoch in-process with K1's
+    counts and a profiler window.  Returns the numbers for the summary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sggan_tpu_torch.config import parse_args
+    from sggan_tpu_torch.ops import cuda_in
+    from sggan_tpu_torch.train import fused
+    from sggan_tpu_torch.train.trainer import Trainer
+    from sggan_tpu_torch.utils.summary import read_scalars
+
+    root = os.path.join(work, "datasets", "city")
+    t_build = build_dataset(root, E2E_TRAIN)
+    print(f"  dataset: {E2E_TRAIN} + {E2E_TEST} triplets of {SRC_H}x{SRC_W} "
+          f"PNGs in {t_build:.1f} s")
+    steps = E2E_TRAIN // E2E_B
+    b_eff = 2 * E2E_B
+    args = E2E_ARGS + ["--dataset_dir", root]
+    run_dir = os.path.join(work, "cli")
+    os.makedirs(run_dir)
+    ck = os.path.join(run_dir, "checkpoint", "city")
+
+    def saved_step(epoch: int) -> int:
+        return torch.load(os.path.join(ck, "train", f"cp-{epoch:04d}.pt"),
+                          weights_only=True)["step"]
+
+    out, _ = run_cli(run_dir, f"train {E2E_EPOCHS} epochs",
+                     ["--phase", "train", "--epoch", str(E2E_EPOCHS), *args])
+    need(" [*] training split resident" in out,
+         "the trainer did not take the resident split")
+    losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
+    need(len(losses) == E2E_EPOCHS
+         and all(math.isfinite(v) for p in losses for v in p),
+         f"losses not finite at every print: {losses}")
+    m = re.search(r"Training finished: step (\d+), (\d+) images in "
+                  r"([\d.]+) s", out)
+    need(m and int(m.group(1)) == E2E_EPOCHS * steps,
+         "the run did not finish its steps")
+    wall_rate = int(m.group(2)) / float(m.group(3))
+    for part in ("gen", "disc", "train"):
+        need(os.path.isfile(os.path.join(
+            ck, part, f"cp-{E2E_EPOCHS - 1:04d}.pt")), f"no {part} checkpoint")
+    need(saved_step(E2E_EPOCHS - 1) == E2E_EPOCHS * steps,
+         "the checkpoint holds another step")
+    test_dir = os.path.join(run_dir, "test")
+    need(all(os.path.isfile(os.path.join(test_dir, f"s{i:04d}.png"))
+             for i in range(E2E_TEST)), "the eval wrote no test PNGs")
+    events = glob.glob(os.path.join(run_dir, "logs", "*", "train",
+                                    "events.out.tfevents.*"))
+    need(len(events) == 1, "no tfevents file")
+    scalars = read_scalars(events[0])
+    rates = [v for _, v in scalars["Images/sec"]]
+    need(len(rates) == E2E_EPOCHS and "Mean IoU" in scalars,
+         f"tfevents scalars {sorted(scalars)}")
+    sustained = float(np.mean(rates[1:]))
+    print(f"  [{card}] e2e fused-aug, {E2E_TRAIN} triplets, b={E2E_B} "
+          f"doubled to {b_eff}/step, {steps} steps/epoch: epoch img/s "
+          f"{[round(r, 2) for r in rates]} (StepTimer), sustained "
+          f"(epochs >= 1) {sustained:.2f} img/s, whole run {wall_rate:.2f} "
+          "img/s (train() wall: resident-split decode and upload, eval, "
+          "saves included)")
+
+    out, _ = run_cli(run_dir, "test", ["--phase", "test", *args])
+    need(" [*] Load SUCCESS" in out, "--phase test did not load")
+    need(all(os.path.isfile(os.path.join(test_dir, f"real_s{i:04d}.png"))
+             for i in range(E2E_TEST)), "--phase test wrote no PNGs")
+    out, _ = run_cli(run_dir, "resume for 1 epoch",
+                     ["--phase", "train", "--continue_train", "--epoch", "1",
+                      *args])
+    need(" [*] Load SUCCESS" in out, "--continue_train did not load")
+    resumed = saved_step(E2E_EPOCHS)
+    print(f"  resumed at step {saved_step(E2E_EPOCHS - 1)}, saved cp-"
+          f"{E2E_EPOCHS:04d} at step {resumed}")
+    need(resumed == (E2E_EPOCHS + 1) * steps,
+         "--continue_train did not resume at the saved step")
+
+    # one epoch in-process: K1's counts and a profiler window of 2 steps
+    own = os.path.join(work, "inproc")
+    cfg = parse_args(["--phase", "train", "--epoch", "1", *args,
+                      *(x for d in ("checkpoint", "test", "sample", "log",
+                                    "profile")
+                        for x in (f"--{d}_dir", os.path.join(own, d)))])
+    tr = Trainer(cfg, device=dev)
+    torch.cuda.empty_cache()
+    # the main path starts here
+    cuda_in.launches = cuda_in.bwd_launches = 0
+    cuda_in.route_launches.update(dict.fromkeys(cuda_in.route_launches, 0))
+    tr.train()
+    torch.cuda.synchronize()
+    counts = {"fwd": cuda_in.launches, "bwd": cuda_in.bwd_launches}
+    routes = {d: {r: cuda_in.route_launches[d, r]
+                  for r in ("cluster", "stream", "scalar")
+                  if cuda_in.route_launches[d, r]} for d in ("fwd", "bwd")}
+    planned = {d: step_routes(d, b_eff, steps, forwards=int(d == "fwd"),
+                              forward_n=E2E_TEST) for d in ("fwd", "bwd")}
+    print(f"  one epoch in-process: K1 forward {counts['fwd']}, backward "
+          f"{counts['bwd']} ({steps} steps x {LAUNCHES_PER_STEP} each, plus "
+          f"the eval's one forward of {E2E_TEST} images, 23 forward); by "
+          f"route {routes}, planned {planned}")
+    need(counts["fwd"] == steps * LAUNCHES_PER_STEP + 23
+         and counts["bwd"] == steps * LAUNCHES_PER_STEP,
+         "the trainer did not run K1 37 + 37 times a step and 23 times in "
+         "the eval")
+    need(routes == planned, "the trainer's K1 calls left their planned "
+                            "routes")
+    win = tr._prof
+    need(win is not None and win.steps == 2, "no profiler window")
+    wall_ms = 1e3 * win.seconds / win.steps
+    print_breakdown(win.prof, win.steps, wall_ms, f"[{card}] profiler, 2 "
+                    f"steps of the epoch loop (batch assembly, preprocess, "
+                    f"step; b={b_eff})", LOOP_CATEGORIES)
+    busy = sum(k[0] for k in kernel_times(win.prof, win.steps))
+
+    # the batch assembly alone: gather, doubling, draws, preprocess
+    ds = tr._maybe_device_dataset()
+    make_batch = fused.make_batch_fn(cfg)
+    idx = torch.arange(E2E_B, device=dev)
+
+    def assemble():
+        make_batch(ds.img, ds.seg, ds.cls, idx,
+                   fused.step_draws(tr, ds.img.shape[1])[0])
+    pre_ms = cuda_ms(assemble, PRE_ITERS, warmup=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            assemble()
+        torch.cuda.synchronize()
+    print_breakdown(prof, 2, pre_ms, f"[{card}] profiler, the batch "
+                    f"assembly alone (b={b_eff} from the resident split)",
+                    PRE_CATEGORIES)
+    del tr, ds
+    torch.cuda.empty_cache()
+    return {"epoch_img_per_s": rates, "sustained_img_per_s": sustained,
+            "wall_img_per_s": wall_rate, "trainer_launches": counts,
+            "trainer_routes": routes, "loop_step_ms": wall_ms,
+            "loop_busy_ms": busy, "loop_idle_share": 1 - busy / wall_ms,
+            "assembly_ms": pre_ms}
 
 
 def main() -> int:
@@ -1350,6 +1750,17 @@ def main() -> int:
           "resblock_fwd_ms": k2_block_ms["bfloat16", "k2_fwd"],
           "resblock_fwd_library_ms": k2_block_ms["bfloat16", "lib_fwd"]}
 
+    phase("15 the data pipeline on the card at the trainer's source shape")
+    pre_rates = preprocess_phase(card, dev)
+
+    phase("16 the trainer end to end (main path): python -m "
+          "sggan_tpu_torch.main")
+    work = os.path.join(REPO, "_smoke")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    e2e = trainer_phase(card, dev, work)
+    shutil.rmtree(work)
+
     def entry(name, d, replaces, launches, errs_d):
         return {"name": name, "route": "cuda",
                 "source": "sggan_tpu_torch/csrc/instance_norm.cu",
@@ -1384,6 +1795,22 @@ def main() -> int:
     bwd = entry("instance_norm_bwd", "bwd", "sggan_tpu/ops/norm.py:97",
                 train_bwd, bwd_errs)
     bwd["replaces_pallas_vjp"] = "sggan_tpu/ops/pallas_in.py:141"
+    for d, ent in (("fwd", fwd), ("bwd", bwd)):
+        ent["launches_trainer"] = e2e["trainer_launches"][d]
+        ent["routes_trainer"] = e2e["trainer_routes"][d]
+        ent["launches_trainer_is"] = (
+            "calls in one in-process epoch of the trainer (phase 16): "
+            f"{E2E_TRAIN // E2E_B} steps at b={2 * E2E_B}"
+            + (" and the eval's generator forward" if d == "fwd" else ""))
+    print(card)
+    print(json.dumps({"e2e": {
+        "config": "perf_epoch_e2e fused-aug: 96 PNG triplets 512x1024, "
+                  "b=12 doubled to 24, 256x512 bf16 sggan ResNet, "
+                  "host_downscale 2, 3 epochs",
+        **{k: v for k, v in e2e.items() if not k.startswith("trainer_")},
+        "preprocess_img_per_s": {
+            f"ds{ds}_photometric_{'on' if pho else 'off'}": r
+            for (ds, pho), r in pre_rates.items()}}}))
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k2]}))
     print(json.dumps({"ok": True, "device": {

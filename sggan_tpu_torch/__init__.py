@@ -6,8 +6,8 @@ the module of the same path there, and the tests hold each against it on
 the same weights and inputs.  This package imports ``torch`` and never
 ``jax``.
 
-Ported so far: the serving path of the ResNet generator and the sggan
-train step.
+Ported so far: the serving path of the ResNet generator, the sggan train
+step, and the trainer behind ``python -m sggan_tpu_torch.main``.
 
     config    — the reference CLI and ``Config``: the port's own copy,
                 held to the JAX one by a test
@@ -19,11 +19,19 @@ train step.
     models    — ``generator_resnet`` and ``discriminator`` as
                 ``nn.Module``s whose parameter names follow the JAX trees
     losses    — every criterion and loss of the reference
-    train     — ``evaluate`` (the inference half), ``pool`` (the (fake,
-                mask) image pool with explicit draws) and ``step`` (the
-                train step with Adam and the EMA)
-    utils     — ``bridge``: JAX parameter trees and train states <->
-                the port's
+    data      — ``loader`` (host decode, the split resident on the
+                card), ``augment`` and ``preprocess`` (on the device, with
+                explicit draws)
+    metrics   — ``scores``: confusion-matrix scores
+    train     — ``pool`` (the (fake, mask) image pool with explicit
+                draws), ``step`` (the train step with Adam and the EMA),
+                ``fused`` (batch assembly and the epoch over the resident
+                split), ``evaluate`` (generate, eval, test, samples) and
+                ``trainer``
+    utils     — ``bridge`` (JAX parameter trees and train states <-> the
+                port's), ``checkpoint``, ``images``, ``summary``
+                (tfevents), ``profiling``
+    main      — the CLI: ``python -m sggan_tpu_torch.main``
     serve     — the HTTP translate service
 
 Layout: public functions take and return NHWC tensors, like the JAX

@@ -1,18 +1,37 @@
-"""Inference half of ``sggan_tpu/train/evaluate.py``: output sharpening,
-the generator forward under the config's compute dtype, and the
-test-time input convention.  The eval loop, scores and image dumps are
-not ported yet (ROADMAP Queue 1).
+"""Eval, inference and sampling, port of ``sggan_tpu/train/evaluate.py``:
+output sharpening, the generator forward under the config's compute dtype
+and the test-time input convention (``generate``, also the service's),
+the epoch-end eval with fake PNG dumps, confusion-matrix scores and
+TensorBoard scalars (``test_during_train``), the inference CLI
+(``run_test``) and the sample dump (``sample_model``).
+
+The loop functions take the trainer (``tr``: its ``cfg``, ``state``,
+``device``, dataset ``root``, ``max_src_hw`` and eval caches), as the JAX
+ones do.  Under ``--gen_ema`` they run the EMA shadow, not the trained
+parameters (``eval_generator``).  ``--eval_crf`` is not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import math
+import os
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..data.loader import load_test_triplet, test_files
+from ..data.preprocess import fake_u8, preprocess_test, seg_labels_u8
+from ..metrics.scores import scores, scores_seg_fake
 from ..models.generator_resnet import GeneratorResnet
+from ..utils import checkpoint as ckpt
+from ..utils.images import imsave, merge, save_images
+from ..utils.summary import SummaryWriter
+
+CRF_TODO = ("--eval_crf is not ported yet (ROADMAP Queue 1: eval, "
+            "checkpoints, summaries: the CRF)")
 
 
 def sharpen(y: torch.Tensor, t: float) -> torch.Tensor:
@@ -53,16 +72,160 @@ def gen_forward(cfg: Config, gen: GeneratorResnet,
 
 
 @torch.inference_mode()
-def generate(cfg: Config, gen: GeneratorResnet, images01: np.ndarray,
-             device: torch.device) -> np.ndarray:
-    """Generator forward on [0, 1]-range NHWC images, honouring the
-    test-time input-scale flag (``round(x * 255)`` under
-    ``--test_uint8_input``, as numpy rounds: half to even) and
-    ``--eval_sharpen``.  Returns the f32 [-1, 1] output on the host."""
-    x = np.asarray(images01, np.float32)
-    if cfg.test_uint8_input:
-        x = np.round(x * 255.0)
-    y = gen_forward(cfg, gen, torch.from_numpy(x).to(device))
+def generate(cfg: Config, gen: GeneratorResnet, images01,
+             device: torch.device, as_u8: bool = False) -> np.ndarray:
+    """Generator forward on [0, 1]-range NHWC images (a numpy array, or a
+    tensor, which stays on the device), honouring the test-time
+    input-scale flag (``round(x * 255)`` under ``--test_uint8_input``,
+    half to even as numpy rounds) and ``--eval_sharpen``.  Returns the f32
+    [-1, 1] output on the host, or with ``as_u8`` its uint8 conversion
+    made on the device by ``fake_u8`` (bit-exact to the host
+    ``inverse_transform``, a quarter of the bytes to copy)."""
+    if isinstance(images01, torch.Tensor):
+        x = images01.to(device=device, dtype=torch.float32)
+        if cfg.test_uint8_input:
+            x = torch.round(x * 255.0)
+    else:
+        x = np.asarray(images01, np.float32)
+        if cfg.test_uint8_input:
+            x = np.round(x * 255.0)
+        x = torch.as_tensor(x).to(device)
+    y = gen_forward(cfg, gen, x)
     if cfg.eval_sharpen != 1.0:
         y = sharpen(y, cfg.eval_sharpen)
+    if as_u8:
+        y = fake_u8(y)
     return y.cpu().numpy()
+
+
+def eval_generator(tr) -> GeneratorResnet:
+    """The generator that eval, test and sampling run: under
+    ``--gen_ema`` a copy of the net holding the EMA shadow
+    (evaluate.py:101-103), refreshed at each call; else the trained net."""
+    ema = tr.state.ema
+    if ema is None:
+        return tr.state.gen_params
+    if tr._ema_gen is None:
+        tr._ema_gen = copy.deepcopy(tr.state.gen_params).requires_grad_(False)
+    with torch.no_grad():
+        for k, p in tr._ema_gen.named_parameters():
+            p.copy_(ema[k])
+    return tr._ema_gen
+
+
+def _upload(tr, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(tr.device)
+            for a in arrays]
+
+
+def _test_inputs(tr, trips):
+    """(img, seg) in [0, 1] at the configured size, on the device, of a
+    list of decoded test triplets."""
+    cfg = tr.cfg
+    img_u8, seg_u8 = _upload(tr, np.stack([t[0] for t in trips]),
+                             np.stack([t[1] for t in trips]))
+    img, seg, _, _ = preprocess_test(
+        img_u8, seg_u8, None, out_hw=cfg.image_size, mask_hw=cfg.mask_hw,
+        n_class=cfg.segment_class, with_masks=False)
+    return img, seg
+
+
+def test_during_train(tr, epoch: int,
+                      writer: Optional[SummaryWriter] = None):
+    """Epoch-end eval, parity with model.py:307-378 (evaluate.py:119): the
+    test split in chunks of up to 8, the ragged tail padded with the last
+    triplet (outputs sliced off); per file the fake's PNG in --test_dir and
+    its argmax labels against the seg's; aggregate scores; TensorBoard
+    scalars under the reference's tags.  The ground-truth labels are
+    pulled once per run (cached by chunk paths and size).  Returns
+    (fakes as (N, H, W, 3) uint8, score dict), or (None, None) without
+    test files."""
+    cfg = tr.cfg
+    if cfg.eval_crf:
+        raise NotImplementedError(CRF_TODO)
+    files = test_files(tr.root)
+    if not files:
+        return None, None
+    os.makedirs(cfg.test_dir, exist_ok=True)
+    gen = eval_generator(tr)
+    gts, preds, outputs = [], [], []
+    chunk = min(8, len(files))
+    for c0 in range(0, len(files), chunk):
+        paths = files[c0:c0 + chunk]
+        trips = [load_test_triplet(p, cache_mb=cfg.decode_cache_mb,
+                                   max_hw=tr.max_src_hw)
+                 for p in paths]
+        trips += [trips[-1]] * (chunk - len(paths))
+        img, seg = _test_inputs(tr, trips)
+        fakes = generate(cfg, gen, img, tr.device, as_u8=True)
+        seg_key = (tuple(paths), cfg.image_size)
+        seg_np = tr._eval_seg_cache.get(seg_key)
+        if seg_np is None:
+            seg_np = seg_labels_u8(seg).cpu().numpy()
+            tr._eval_seg_cache[seg_key] = seg_np
+        for i, path in enumerate(paths):
+            fake = fakes[i:i + 1]
+            imsave(fake, [1, 1], os.path.join(cfg.test_dir,
+                                              os.path.basename(path)))
+            fake_img = merge(fake, [1, 1])
+            fake_img = fake_img.reshape(1, *fake_img.shape)
+            outputs.append(fake_img[0])
+            lt, lp = scores_seg_fake(
+                seg_np[i:i + 1], fake_img,
+                compat_eval_overflow=cfg.compat_eval_overflow)
+            gts += list(lt)
+            preds += list(lp)
+    score = scores(gts, preds, n_class=cfg.segment_class)
+    if writer is not None:
+        writer.scalar("Overall Accuracy", score["Overall Acc"], epoch)
+        writer.scalar("Mean Accuracy", score["Mean Acc"], epoch)
+        writer.scalar("Frequency Weighted Accuracy", score["FreqW Acc"],
+                      epoch)
+        writer.scalar("Mean IoU", score["Mean IoU"], epoch)
+    return np.stack(outputs), score
+
+
+def run_test(tr) -> None:
+    """Inference CLI, parity with model.py:535-567 (evaluate.py:202): load
+    the latest checkpoint, translate every testA image, save the fake as
+    <name> and the input as real_<name> in --test_dir."""
+    cfg = tr.cfg
+    restored = ckpt.load(tr.state, cfg.checkpoint_dir, cfg.dataset_dir)
+    if restored is not None:
+        tr.state = restored
+        print(" [*] Load SUCCESS")
+    else:
+        print(" [!] Load failed...")
+    os.makedirs(cfg.test_dir, exist_ok=True)
+    gen = eval_generator(tr)
+    for path in test_files(tr.root):
+        print("Processing image: " + path)
+        img, _ = _test_inputs(tr, [load_test_triplet(path)])
+        fake = generate(cfg, gen, img, tr.device, as_u8=True)
+        base = os.path.basename(path)
+        # the reference saves the real copy through inverse_transform of
+        # [0, 1]-range data (model.py:566): reproduced exactly
+        save_images(img.cpu().numpy() * 2.0 - 1.0, [1, 1],
+                    os.path.join(cfg.test_dir, "real_" + base))
+        imsave(fake, [1, 1], os.path.join(cfg.test_dir, base))
+
+
+def sample_model(tr, epoch: int, idx: int) -> None:
+    """Sample dump, parity with model.py:506-525 (evaluate.py:232): a
+    batch of shuffled test images translated into one JPEG grid in
+    --sample_dir."""
+    cfg = tr.cfg
+    files = test_files(tr.root)
+    if not files:
+        return
+    rng = np.random.default_rng(cfg.data_seed + epoch * 10000 + idx)
+    rng.shuffle(files)
+    paths = files[: cfg.batch_size]
+    img, _ = _test_inputs(tr, [load_test_triplet(
+        p, cache_mb=cfg.decode_cache_mb, max_hw=tr.max_src_hw)
+        for p in paths])
+    fake = generate(cfg, eval_generator(tr), img, tr.device, as_u8=True)
+    os.makedirs(cfg.sample_dir, exist_ok=True)
+    name = os.path.basename(paths[0]).split(".")[0]
+    imsave(fake, [fake.shape[0], 1],
+           f"{cfg.sample_dir}/A_{epoch:02d}_{idx:04d}_{name}.jpg")

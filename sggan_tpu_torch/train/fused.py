@@ -1,0 +1,117 @@
+"""The epoch over the card-resident split, port of
+``sggan_tpu/train/fused.py``: batch assembly on the device (a gather from
+the resident split, the augmentation doubling, the preprocess) and the
+epoch loop with its per-epoch shuffle, prints and ``--save_freq`` saves.
+
+The port runs one step per dispatch.  The JAX package's ``--scan_steps``
+rolls K steps into one ``lax.scan`` program and documents it as
+numerically identical to its per-step path (fused.py:187-193), so the
+port accepts the flag and runs that per-step path until the step is
+captured as a CUDA graph (ROADMAP Queue 1, item 2).  Not ported, since
+nothing on one card needs them: the scan program itself, its fallback on
+a memory failure (``is_hbm_failure``) and the relay fences.
+
+Each step uploads nothing: the epoch's order goes to the device once, the
+data draws come from the trainer's device generator, and the pool's
+draws from its host generator, since the pool plans on the host
+(``train/pool.py``).
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..data.loader import epoch_order
+from ..data.preprocess import (PreprocessDraws, draw_preprocess,
+                               preprocess_train)
+from .pool import pool_draws
+
+
+def make_batch_fn(cfg):
+    """Batch assembly on the device (fused.py:26-50): gather from the
+    resident split, augmentation doubling, preprocess, with the host
+    iterator's flag layout.  ``make_batch(img_all, seg_all, cls_all, idxs,
+    draws)``: ``idxs`` an int64 tensor of ``batch_size`` rows on the
+    split's device, ``draws`` from ``draw_preprocess`` for the doubled
+    batch."""
+    b = cfg.batch_size
+
+    def make_batch(img_all, seg_all, cls_all, idxs,
+                   draws: PreprocessDraws) -> dict:
+        take = lambda a: a.index_select(0, idxs)  # noqa: E731
+        img, seg, cls = take(img_all), take(seg_all), take(cls_all)
+        if cfg.use_augmentation:
+            img, seg, cls = (torch.cat([a, a]) for a in (img, seg, cls))
+            flags = torch.arange(2 * b, device=img.device) >= b
+        else:
+            flags = torch.zeros(b, dtype=torch.bool, device=img.device)
+        return preprocess_train(
+            img, seg, cls, draws, flags, out_hw=cfg.image_size,
+            mask_hw=cfg.mask_hw, n_class=cfg.segment_class,
+            photometric=cfg.use_photometric,
+            aug_layout="half" if cfg.use_augmentation else "none")
+
+    return make_batch
+
+
+def effective_batch(cfg) -> int:
+    return cfg.batch_size * (2 if cfg.use_augmentation else 1)
+
+
+def step_draws(tr, src_h: int):
+    """One step's draws: the preprocess's from the trainer's device
+    generator, the pool's from its host generator."""
+    cfg = tr.cfg
+    b_eff = effective_batch(cfg)
+    return (draw_preprocess(tr.data_gen, b_eff, src_h, cfg.image_size,
+                            cfg.use_photometric),
+            pool_draws(tr.pool_gen, b_eff, cfg.max_size))
+
+
+def end_step(tr, epoch: int, idx: int, m: dict, n_images: int,
+             g_losses: list, d_losses: list, global_step: int,
+             start_time: float) -> int:
+    """The bookkeeping after step ``idx`` of an epoch, as the JAX trainer
+    does it (trainer.py:373-386): keep the losses on the device, count the
+    images, tick the profiler window, print at the first step and every
+    ``--print_freq`` steps (the reference's line, model.py:260-261), save
+    when the step count reaches a multiple of ``--save_freq``.  Returns
+    the new global step."""
+    cfg = tr.cfg
+    g_losses.append(m["gen_loss"])
+    d_losses.append(m["disc_loss"])
+    tr._timer.mark(n_images)
+    if tr._prof is not None:
+        tr._prof.tick()
+    if idx % cfg.print_freq == 0:
+        print("Epoch: [%2d] [%4d] time: %4.4f "
+              "Gen_Loss: %f Disc_Loss: %f" % (
+                  epoch, idx, time.time() - start_time,
+                  float(m["gen_loss"]), float(m["disc_loss"])))
+    global_step += 1
+    if cfg.save_freq and global_step % cfg.save_freq == 0:
+        tr._save(epoch)
+    return global_step
+
+
+def run_epoch_fused(tr, epoch: int, lr: float, dev_ds, make_batch,
+                    g_losses: list, d_losses: list, global_step: int,
+                    start_time: float) -> int:
+    """One epoch over the resident split, one step per dispatch, in the
+    order of ``np.random.default_rng(data_seed + epoch)``'s shuffle.
+    Returns the new global step."""
+    cfg = tr.cfg
+    b = cfg.batch_size
+    arrays = (dev_ds.img, dev_ds.seg, dev_ds.cls)
+    order = torch.from_numpy(epoch_order(len(dev_ds), cfg.data_seed,
+                                         epoch)).to(dev_ds.img.device)
+    src_h = dev_ds.img.shape[1]
+    for done in range(len(dev_ds) // b):
+        draws, pdraws = step_draws(tr, src_h)
+        batch = make_batch(*arrays, order[done * b:(done + 1) * b], draws)
+        tr.state, m = tr.step_fn(tr.state, batch, lr, pdraws)
+        global_step = end_step(tr, epoch, done, m, effective_batch(cfg),
+                               g_losses, d_losses, global_step, start_time)
+    return global_step

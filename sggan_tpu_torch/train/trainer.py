@@ -1,0 +1,250 @@
+"""Training and eval orchestration, port of ``sggan_tpu/train/trainer.py``
+(parity with the reference's ``sggan`` class, model.py:39-567), for one
+process on one device.
+
+Per epoch (model.py:219-271): the learning rate of ``lr_schedule``; the
+steps, over the split resident on the device (``train/fused.py``) when it
+fits ``--device_dataset_mb``, else over the host iterator (PNG decode on a
+prefetch thread, upload, preprocess on the device); the print line of
+the reference; the epoch-end eval over testA (every ``--eval_freq``
+epochs and always the last) with fake PNGs, scores and TensorBoard
+scalars; saves every ``--save_freq`` steps, at the end (in ``finally``)
+and on KeyboardInterrupt (model.py:272-275).
+
+``--scan_steps`` is accepted and runs the JAX package's per-step path,
+which that package documents as numerically identical to its scan chunks
+(fused.py:187-193); its analog on the card, a CUDA graph of the step, is
+ROADMAP Queue 1, item 2.
+
+Randomness: the nets are drawn from ``--data_seed`` (``init_state``); the
+preprocess's draws come from a generator on the device and the pool's
+from one on the host, both seeded from ``--data_seed``.  jax.random
+streams are not reproducible in torch, so a run is not the JAX run.
+
+Checkpoint numbers continue after the one ``--continue_train`` loaded,
+so a later resume finds the newest state (the JAX trainer numbers them
+from 0 again, below the one it loaded).
+
+Not ported, each raising ``NotImplementedError`` that names its ROADMAP
+item: the cycle mode, meshes and multi-host training, the U-Net and
+pix2pix nets, ``--eval_crf``.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.loader import (Dataset, DeviceDataset, _load_triplet,
+                           train_iterator)
+from ..data.preprocess import make_preprocess_train
+from ..utils import checkpoint as ckpt
+from ..utils.profiling import StepTimer, TraceWindow
+from ..utils.summary import SummaryWriter
+from . import evaluate, fused
+from .step import _require_ported, init_state, lr_schedule, make_train_step
+
+
+def _dataset_root(cfg: Config) -> str:
+    if os.path.isdir(cfg.dataset_dir):
+        return cfg.dataset_dir
+    return os.path.join("./datasets", cfg.dataset_dir)
+
+
+class Trainer:
+    def __init__(self, cfg: Config, device="cuda"):
+        self.cfg = cfg.validate()
+        _require_ported(cfg)
+        if cfg.eval_crf:
+            raise NotImplementedError(evaluate.CRF_TODO)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but no CUDA device "
+                               "is visible")
+        self.root = _dataset_root(cfg)
+        self.state = init_state(
+            cfg, torch.Generator().manual_seed(cfg.data_seed), self.device)
+        self.step_fn = make_train_step(cfg)
+        self.data_gen = torch.Generator(device=self.device).manual_seed(
+            cfg.data_seed)
+        self.pool_gen = torch.Generator().manual_seed(cfg.data_seed)
+        self.preprocess = make_preprocess_train(cfg)
+        # host-side source shrink cap before upload (loader._downscale)
+        self.max_src_hw = (
+            (cfg.image_height * cfg.host_downscale,
+             cfg.image_width * cfg.host_downscale)
+            if cfg.host_downscale else None)
+        # epoch-invariant ground-truth seg labels, pulled once per run
+        self._eval_seg_cache: dict = {}
+        self._ema_gen = None  # the generator that holds the EMA at eval
+        self._ckpt_base = 0   # checkpoint number of epoch 0
+        self._prof: Optional[TraceWindow] = None
+        self._timer = StepTimer()
+
+    def generate(self, images01, as_u8: bool = False) -> np.ndarray:
+        """See evaluate.generate; runs the EMA shadow under --gen_ema."""
+        return evaluate.generate(self.cfg, evaluate.eval_generator(self),
+                                 images01, self.device, as_u8=as_u8)
+
+    def _maybe_device_dataset(self) -> Optional[DeviceDataset]:
+        """The training split resident on the device (loader.DeviceDataset)
+        when it fits cfg.device_dataset_mb, as the JAX trainer decides
+        (trainer.py:152-197); None keeps the host iterator, for an empty
+        budget, a split smaller than a batch, or one that does not fit."""
+        cfg = self.cfg
+        if not cfg.device_dataset_mb:
+            return None
+        files = Dataset(self.root, "trainA").files()
+        n = min(len(files), int(cfg.train_size))
+        if n < cfg.batch_size:
+            return None
+        probe = _load_triplet(files[0], "trainA",
+                              cache_bytes=cfg.decode_cache_mb << 20,
+                              max_hw=self.max_src_hw)
+        if sum(a.nbytes for a in probe) * n > cfg.device_dataset_mb << 20:
+            return None
+        try:
+            ds = DeviceDataset(self.root, "trainA", max_hw=self.max_src_hw,
+                               cache_mb=cfg.decode_cache_mb,
+                               train_size=cfg.train_size,
+                               device=self.device)
+        except (ValueError, torch.cuda.OutOfMemoryError) as e:
+            # sources of several shapes do not stack; the card may be full
+            print(f" [!] device dataset cache disabled: "
+                  f"{type(e).__name__}: {e}")
+            return None
+        print(f" [*] training split resident on device "
+              f"({ds.nbytes >> 20} MB, {len(ds)} triplets)")
+        return ds
+
+    def _save(self, epoch: int):
+        ckpt.save(self.state, self.cfg.checkpoint_dir, self.cfg.dataset_dir,
+                  self._ckpt_base + epoch)
+
+    def _host_epoch(self, epoch: int, lr: float, g_losses: list,
+                    d_losses: list, global_step: int,
+                    start_time: float) -> int:
+        """One epoch over the host iterator: decoded uint8 batches,
+        uploaded, preprocessed on the device, one step each."""
+        cfg = self.cfg
+        pinned = self.device.type == "cuda"
+        it = train_iterator(
+            self.root, cfg.batch_size, cfg.data_seed,
+            use_augmentation=cfg.use_augmentation, epoch=epoch,
+            train_size=cfg.train_size, prefetch=cfg.prefetch,
+            cache_mb=cfg.decode_cache_mb, max_src_hw=self.max_src_hw)
+        for idx, raw in enumerate(it):
+            img, seg, cls, aug = (
+                torch.from_numpy(raw[k]) for k in ("img", "seg", "cls",
+                                                   "aug"))
+            if pinned:
+                img, seg, cls, aug = (t.pin_memory() for t in
+                                      (img, seg, cls, aug))
+            img, seg, cls, aug = (t.to(self.device, non_blocking=pinned)
+                                  for t in (img, seg, cls, aug))
+            draws, pdraws = fused.step_draws(self, img.shape[1])
+            batch = self.preprocess(img, seg, cls, draws, aug)
+            self.state, m = self.step_fn(self.state, batch, lr, pdraws)
+            global_step = fused.end_step(
+                self, epoch, idx, m, img.shape[0], g_losses, d_losses,
+                global_step, start_time)
+        return global_step
+
+    def train(self) -> dict:
+        cfg = self.cfg
+        logdir = os.path.join(
+            cfg.log_dir,
+            datetime.datetime.now().strftime("%Y%m%d-%H%M%S"), "train")
+        writer = SummaryWriter(logdir)
+        start_time = time.time()
+
+        if cfg.continue_train:
+            loaded = ckpt.latest_epoch(cfg.checkpoint_dir, cfg.dataset_dir)
+            restored = ckpt.load(self.state, cfg.checkpoint_dir,
+                                 cfg.dataset_dir, loaded)
+            if restored is not None:
+                self.state = restored
+                self._ckpt_base = loaded + 1
+                print(" [*] Load SUCCESS")
+            else:
+                print(" [!] Load failed...")
+        else:
+            print(" [*] New training STARTED")
+
+        epoch = 0
+        last = {}
+        global_step = self.state.step
+        images = 0
+        self._prof = TraceWindow(cfg.profile_dir) if cfg.profile_dir \
+            else None
+        dev_ds = self._maybe_device_dataset()
+        make_batch = fused.make_batch_fn(cfg) if dev_ds is not None else None
+        try:
+            for epoch in range(cfg.epoch):
+                lr = lr_schedule(cfg, epoch)
+                g_losses, d_losses = [], []
+                self._timer.reset()
+                self._timer.start()
+                if dev_ds is not None:
+                    global_step = fused.run_epoch_fused(
+                        self, epoch, lr, dev_ds, make_batch, g_losses,
+                        d_losses, global_step, start_time)
+                else:
+                    global_step = self._host_epoch(
+                        epoch, lr, g_losses, d_losses, global_step,
+                        start_time)
+
+                # throughput before eval, synced on the last loss
+                rate = self._timer.read(d_losses[-1]) if d_losses else None
+                if rate is not None:
+                    images += rate["images"]
+
+                # --eval_freq N: every Nth epoch and always the last
+                do_eval = (epoch % cfg.eval_freq == 0
+                           or epoch == cfg.epoch - 1)
+                fake_concat, score = (self.test_during_train(epoch, writer)
+                                      if do_eval else (None, None))
+                if fake_concat is not None:
+                    writer.image(f"Segmentation Epoch {epoch}", fake_concat,
+                                 step=epoch)
+                g_mean = None
+                if g_losses:
+                    g_mean = torch.stack(g_losses).float().mean().item()
+                    writer.scalar("Generator Loss", g_mean, epoch)
+                    writer.scalar("Discriminator Loss", torch.stack(
+                        d_losses).float().mean().item(), epoch)
+                    writer.scalar("Images/sec", rate["images_per_sec"],
+                                  epoch)
+                last = {"epoch": epoch, "score": score, "gen_loss": g_mean}
+        except KeyboardInterrupt:
+            self._save(epoch)
+            raise
+        finally:
+            if self._prof is not None:
+                self._prof.close()
+            self._save(epoch)
+            writer.close()
+        wall = time.time() - start_time
+        print(f" [*] Training finished: step {global_step}, {images} images "
+              f"in {wall:.2f} s ({images / wall:.2f} img/s with eval, "
+              "saves and set-up)")
+        return last
+
+    def test_during_train(self, epoch: int,
+                          writer: Optional[SummaryWriter] = None):
+        """Epoch-end eval (evaluate.py), parity with model.py:307-378."""
+        return evaluate.test_during_train(self, epoch, writer)
+
+    def test(self):
+        """Inference CLI (evaluate.py), parity with model.py:535-567."""
+        return evaluate.run_test(self)
+
+    def sample_model(self, epoch: int, idx: int):
+        """Sample dump (evaluate.py), parity with model.py:506-525."""
+        return evaluate.sample_model(self, epoch, idx)

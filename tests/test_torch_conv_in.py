@@ -5,7 +5,10 @@ file: forward f32 at rtol/atol 2e-5, bf16 at 5e-2, the saved y16, mean and
 rsig, gradients at 2e-4, the tall multi-tile plane.  On the CPU the port's
 ``conv3_in`` runs its plain twin ``conv3_in_ref`` and the plain backward;
 the CUDA kernel is held against the twin on the card by
-tests/test_torch_cuda.py.  Inputs are made with numpy from a seed."""
+tests/test_torch_cuda.py.  Inputs are made with numpy from a seed.  Each
+JAX reference is one program compiled without XLA's LLVM passes and CPU
+fusion emitters, as tests/test_torch_step.py compiles the JAX step (f32
+results equal to rounding)."""
 
 import functools
 import json
@@ -35,6 +38,14 @@ SHAPES = [(2, 8, 16, 8, 8), (1, 16, 8, 16, 8)]
 TALL = (1, 64, 8, 8, 16)
 F32 = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=2e-4, atol=2e-4)
+FAST = {"xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True,
+        "xla_cpu_use_fusion_emitters": False}
+
+
+def _fast(fn, *args):
+    """``fn(*args)`` as one program compiled with ``FAST``."""
+    return jax.jit(fn).lower(*args).compile(FAST)(*args)
 
 
 def _setup(shape, seed=0):
@@ -60,19 +71,16 @@ def _torch_args(x, wk, gamma, beta, dtype=torch.float32):
 @functools.cache
 def _pallas(shape, act, dtype="float32", seed=0):
     """(y, y16, mean, rsig) of the Pallas kernel in interpret mode."""
-    x, wk, gamma, beta = _setup(shape, seed)
-    out = pci._pallas_forward(jnp.asarray(x).astype(dtype), jnp.asarray(wk),
-                              jnp.asarray(gamma), jnp.asarray(beta),
-                              pci.IN_EPS, act, 0.3, interpret=True)
+    out = _fast(lambda x, wk, gamma, beta: pci._pallas_forward(
+        x.astype(dtype), wk, gamma, beta, pci.IN_EPS, act, 0.3,
+        interpret=True), *_setup(shape, seed))
     return [np.asarray(o, np.float32) for o in out]
 
 
 def _xla(shape, act, dtype="float32", seed=0):
-    x, wk, gamma, beta = _setup(shape, seed)
-    y = pci.conv3_in_xla({"w": jnp.asarray(wk)},
-                         {"gamma": jnp.asarray(gamma),
-                          "beta": jnp.asarray(beta)},
-                         jnp.asarray(x).astype(dtype), act=act)
+    y = _fast(lambda x, wk, gamma, beta: pci.conv3_in_xla(
+        {"w": wk}, {"gamma": gamma, "beta": beta}, x.astype(dtype),
+        act=act), *_setup(shape, seed))
     return np.asarray(y, np.float32)
 
 
@@ -142,9 +150,8 @@ def test_moments_are_of_the_rounded_conv_output():
 
 
 def _jax_grads(fn, shape, act, seed):
-    x, wk, gamma, beta = (jnp.asarray(a) for a in _setup(shape, seed))
-    return jax.grad(lambda *a: jnp.sum(fn(*a, act) ** 2),
-                    argnums=(0, 1, 2, 3))(x, wk, gamma, beta)
+    return _fast(jax.grad(lambda *a: jnp.sum(fn(*a, act) ** 2),
+                          argnums=(0, 1, 2, 3)), *_setup(shape, seed))
 
 
 def _port_grads(fn, shape, act, seed):
@@ -311,10 +318,9 @@ def test_resblock_through_k2_matches_res_block():
     torch.testing.assert_close(y, y_ref, **F32)
     torch.testing.assert_close(dx, dx_ref, **GRAD)
 
-    jtree = jax.tree.map(jnp.asarray, tree)
-    jy, jdx = jax.value_and_grad(
-        lambda xj: jnp.sum(jgen._res_block(jtree, xj, jnp.float32, False)
-                           ** 2))(jnp.asarray(x))
+    jy, jdx = _fast(jax.value_and_grad(
+        lambda xj, jtree: jnp.sum(jgen._res_block(jtree, xj, jnp.float32,
+                                                  False) ** 2)), x, tree)
     np.testing.assert_allclose(y.square().sum().item(), float(jy), rtol=1e-5)
     np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **GRAD)
 

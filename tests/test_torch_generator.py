@@ -73,8 +73,14 @@ def test_bridge_round_trips_every_key_and_shape(golden_case):
 @pytest.mark.parametrize("pad_free_head", [True, False])
 def test_generator_matches_jax(golden_case, pad_free_head):
     p, x = golden_case
-    ref = jgen.apply(p, jnp.asarray(x), compute_dtype=jnp.float32,
-                     pad_free_head=pad_free_head)
+    # one program without XLA's LLVM passes and CPU fusion emitters, as
+    # tests/test_torch_step.py compiles the JAX step (f32 results equal to
+    # rounding; the op-by-op eager forward compiled each op at -O3)
+    ref = jax.jit(lambda p, x: jgen.apply(
+        p, x, compute_dtype=jnp.float32, pad_free_head=pad_free_head)) \
+        .lower(p, x).compile({"xla_backend_optimization_level": 0,
+                              "xla_llvm_disable_expensive_passes": True,
+                              "xla_cpu_use_fusion_emitters": False})(p, x)
     with torch.inference_mode():
         got = _port(p)(torch.from_numpy(x.copy()), torch.float32)
     assert got.dtype == torch.float32 and got.shape == (1, 32, 32, 3)

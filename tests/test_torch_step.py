@@ -47,6 +47,17 @@ FAST = {"xla_backend_optimization_level": 0,
         "xla_cpu_use_fusion_emitters": False}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's nets here have 4 channels at 32x64: one thread runs them
+    as fast as several, and it does not contend with the other test
+    workers' threads for the cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batch(seed=0):
     r = np.random.default_rng(seed)
     hm, wm = H // 8, W // 8
