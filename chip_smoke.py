@@ -135,12 +135,14 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 in the tensor cores
 # K2 (N, H, W, Cin, Cout): the JAX tests' three, an odd plane and a Cin
-# that is no multiple of 16 (scalar route in every dtype), then two that
-# the tensor-core route takes in bf16, one of them ragged in rows, columns
-# and the Cout tile; then the two full shapes of the table
+# that is no multiple of 16 (scalar route in every dtype), then four that
+# the wgmma route takes in bf16: W < 64, ragged in rows, columns and the
+# Cout tile, and two ragged against its 8 x 64 pixel by 64 channel tile
+# (W of 70 and 130, odd H, Cout 144 and 48, Cin 16 in one chunk, n > 1);
+# then the two full shapes of the table
 K2_SMALL = [(2, 8, 16, 8, 8), (1, 16, 8, 16, 8), (1, 64, 8, 8, 16),
             (2, 7, 9, 5, 6), (1, 9, 33, 24, 40), (2, 16, 16, 16, 16),
-            (1, 20, 37, 32, 80)]
+            (1, 20, 37, 32, 80), (1, 9, 70, 32, 144), (2, 5, 130, 16, 48)]
 K2_FULL = [(16, 64, 128, 256, 256), (16, 256, 512, 64, 64)]
 K2_ACTS = (None, "relu", "leaky_relu")
 K2_ITERS = 10
@@ -184,7 +186,11 @@ def ptxas_report(log: str) -> list:
 
 
 def short_kernel_name(mangled: str) -> str:
-    """``in_bwd_apply<bf16,8>`` from an Itanium-mangled kernel template."""
+    """``in_bwd_apply<bf16,8>`` or ``k2_conv_wgmma<64,4,4>`` from an
+    Itanium-mangled kernel template."""
+    m = re.search(r"\d+(k2_[a-z_0-9]+?)I((?:Li\d+E)+)E", mangled)
+    if m:
+        return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
     m = re.search(r"\d+((?:in|k2)_[a-z_0-9]+?)I(13__nv_bfloat16|f)"
                   r"(?:Li(\d+)E)?", mangled)
     if not m:
@@ -599,17 +605,14 @@ def k2_forward_vs_plain(dev) -> dict:
             for dtype in (torch.float32, torch.bfloat16):
                 tols = k2_tols(dtype, full)
                 x, wk, g, b = k2_inputs(shape, dtype, dev, seed=si)
-                tc = (dtype == torch.bfloat16 and shape[3] % 16 == 0
-                      and shape[4] % 16 == 0)
-                route = "tensor_core" if tc else "scalar"
+                route = cci.conv_plan(*shape, dtype).kernel
                 worst = dict.fromkeys(tols, 0.0)
                 for act in K2_ACTS:
                     before = cci.route_launches[route]
                     got = cci.conv3_in_cuda(x, wk, g, b, 1e-3, act, 0.3)
                     again = cci.conv3_in_cuda(x, wk, g, b, 1e-3, act, 0.3)
                     if cci.route_launches[route] != before + 2:
-                        raise AssertionError(f"K2 did not take the {route} "
-                                             "route")
+                        raise AssertionError(f"K2 did not run {route}")
                     ref = cci.conv3_in_ref(x, wk, g, b, 1e-3, act, 0.3)
                     torch.cuda.synchronize()
                     if not all(torch.equal(a, c) for a, c in zip(got, again)):
@@ -862,8 +865,8 @@ def k2_profile(card: str, dev, wall_ms: float) -> None:
                     f"{K2_FULL[0]} bf16", K2_CATEGORIES)
     names = [e.key for e in prof.key_averages()
              if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    if not any("k2_conv_tc" in k for k in names):
-        raise AssertionError("the profiler saw no K2 conv kernel")
+    if not any("k2_conv_wgmma" in k for k in names):
+        raise AssertionError("the profiler saw no k2_conv_wgmma kernel")
     bad = [k for k in names if "k2_" not in k
            and any(t in k.lower() for t in K2_FORBIDDEN)]
     if bad:
@@ -1265,13 +1268,27 @@ def main() -> int:
     names = ("instance_norm", "conv3_in")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc each, together
         built = list(pool.map(_build.build, names))
-    print(f"built {', '.join(lib.name for lib, _ in built)} in "
+    print(f"built {', '.join(lib.name for lib, _, _ in built)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name, (lib, log) in zip(names, built):
-        print(f"  {name}: {'compiled' if log else 'already built'}")
-        for kernel, regs, spills, smem in ptxas_report(log):
+    for name, (lib, log, fresh) in zip(names, built):
+        print(f"  {name}: {'compiled' if fresh else 'already built'}; "
+              "ptxas:")
+        report = ptxas_report(log)
+        for kernel, regs, spills, smem in report:
             print(f"    {kernel:34s} {regs:3d} registers, {spills}, "
                   f"{smem} static shared bytes")
+            if kernel.startswith("k2_conv_wgmma") and spills != \
+                    "spills 0/0 bytes":
+                raise AssertionError(f"{kernel} spills registers")
+        if name == "conv3_in" and not any(
+                k.startswith("k2_conv_wgmma") for k, *_ in report):
+            raise AssertionError("ptxas reported no k2_conv_wgmma kernel: "
+                                 "its spills are unchecked")
+        # ptxas's own word on the wgmma pipelines: it serializes one it
+        # cannot prove safe, and says so in a line of its own
+        for line in log.splitlines():
+            if "wgmma.mma_async" in line:
+                print(f"    ptxas: {line.strip()}")
     print("  K1 cluster route: dynamic shared bytes per CTA up to "
           f"{cuda_in._SMEM_MAX} (the plan's limit), printed per site in "
           "phase 7")
@@ -1674,7 +1691,8 @@ def main() -> int:
     phase("14 the K2 table (main path)")
     # the main path's counts start here
     cuda_conv_in.launches = 0
-    cuda_conv_in.route_launches.update(tensor_core=0, scalar=0)
+    cuda_conv_in.route_launches.update(
+        dict.fromkeys(cuda_conv_in.route_launches, 0))
     cuda_in.launches = cuda_in.bwd_launches = 0
     print(card)
     table = perf_conv_in.main([str(K2_ITERS)])
@@ -1683,12 +1701,13 @@ def main() -> int:
           f"({cuda_conv_in.route_launches}), K1 forward {cuda_in.launches} "
           f"(the unfused path), K1 backward {cuda_in.bwd_launches} (both)")
     # per shape: the check, then warm-up 3 + iterations, forward and
-    # forward+backward; the unfused path runs K1 forward as often, and
-    # both backwards run K1's
+    # forward+backward, which the unfused path runs K1 forward as often,
+    # and both backwards K1's; then 1 + iterations more K2 forwards under
+    # the profiler for the conv pass's device time
     per_shape = 1 + 2 * (3 + K2_ITERS)
-    if (k2_launches != len(K2_FULL) * per_shape
-            or cuda_conv_in.route_launches["tensor_core"] != k2_launches
-            or cuda_in.launches != k2_launches
+    if (k2_launches != len(K2_FULL) * (per_shape + 1 + K2_ITERS)
+            or cuda_conv_in.route_launches["k2_conv_wgmma"] != k2_launches
+            or cuda_in.launches != len(K2_FULL) * per_shape
             or cuda_in.bwd_launches != len(K2_FULL) * 2 * (3 + K2_ITERS)):
         raise AssertionError("the table did not go through the K2 and K1 "
                              "kernels as often as it calls them")
@@ -1716,6 +1735,12 @@ def main() -> int:
               f"unfused| {r['max_abs_diff']:.3g}; f32 scalar route forward "
               f"{r['fwd_k2_f32_ms']:.3f} ms (bound "
               f"{k2_bound(shape, torch.float32)[0]:.3f})")
+        print(f"  [{card}] K2 {shape} bf16 conv pass k2_conv_wgmma: "
+              f"{r['conv_pass_ms']:.4f} ms device "
+              f"({r['conv_pass_tflops']:.1f} TF/s); cuDNN conv alone "
+              f"{r['fwd_conv_only_ms']:.4f} ms events "
+              f"({r['fwd_conv_only_tfs']:.1f} TF/s), "
+              f"{r['conv_only_device_ms']:.4f} ms device")
     res = rows[K2_FULL[0]]
     k2_profile(card, dev, res["fwd_k2_ms"])
     x, wk, g, b = k2_inputs(K2_FULL[0], torch.bfloat16, dev, seed=0)
@@ -1732,7 +1757,11 @@ def main() -> int:
                 "fwdbwd_ms": r["fwdbwd_k2_ms"],
                 "fwdbwd_library_ms": r["fwdbwd_unfused_ms"],
                 "bwd_bound_ms": r["bwd_bound_ms"],
-                "bwd_bound_by": r["bwd_bound_by"]}
+                "bwd_bound_by": r["bwd_bound_by"],
+                "conv_pass_ms": r["conv_pass_ms"],
+                "conv_pass_tflops": r["conv_pass_tflops"],
+                "conv_only_library_ms": r["fwd_conv_only_ms"],
+                "conv_only_library_device_ms": r["conv_only_device_ms"]}
 
     k2 = {"name": "conv3_in_fwd", "route": "cuda",
           "source": "sggan_tpu_torch/csrc/conv3_in.cu",
@@ -1744,8 +1773,10 @@ def main() -> int:
           **k2_times(res), "plain_ms": k2_plain_ms,
           "ms_is": "one call at (16,64,128,256->256), bf16, relu, CUDA "
                    "events; library_ms is the unfused path (pad gather + "
-                   "cuDNN conv + K1); 'wide' holds the same at "
-                   "(16,256,512,64->64)",
+                   "cuDNN conv + K1); conv_pass_ms the k2_conv_wgmma pass "
+                   "alone (profiler device time) beside cuDNN's conv alone "
+                   "(conv_only_library_ms, events; _device_ms, profiler); "
+                   "'wide' holds the same at (16,256,512,64->64)",
           "wide": k2_times(rows[K2_FULL[1]]),
           "resblock_fwd_ms": k2_block_ms["bfloat16", "k2_fwd"],
           "resblock_fwd_library_ms": k2_block_ms["bfloat16", "lib_fwd"]}

@@ -19,14 +19,14 @@
 // Design.  The Pallas kernel runs one program per sample, walks row tiles in
 // order and carries the sums in VMEM scratch; sixteen programs would fill 16
 // of 132 SMs, and Hopper blocks run in no order.  Here:
-//   1. k2_conv_tc / k2_conv_scalar: grid (Cout tile x spatial tile, sample).
-//      A block loads the (rows + 2) x (cols + 2) halo of its pixel tile for a
-//      chunk of input channels into shared memory, the reflect indices
-//      (-1 -> 1, H -> H - 2) computed in the load, so no padded copy of x
-//      exists; the nine taps are nine shifted views of that halo.  It writes
-//      its tile of y16 and its f32 partial (sum, sum of squares) per channel
-//      to a scratch (N, tiles, 2, Cout).  No atomics: every partial has one
-//      writer, so the result repeats bit for bit.
+//   1. k2_conv_wgmma / k2_conv_scalar: grid (Cout tile x spatial tile,
+//      sample).  A block loads the halo of its pixel tile for a chunk of
+//      input channels into shared memory, the reflect indices (-1 -> 1, H ->
+//      H - 2) computed in the load, so no padded copy of x exists; the nine
+//      taps are nine shifted views of that halo.  It writes its tile of y16
+//      and its f32 partial (sum, sum of squares) per channel to a scratch
+//      (N, tiles, 2, Cout).  No atomics: every partial has one writer, so
+//      the result repeats bit for bit.
 //   2. k2_moments: combines a channel's partials in a fixed order into the
 //      (N, Cout) f32 mean and rsig.
 //   3. k2_normalize: re-reads y16 (from L2 where it still is), normalizes,
@@ -36,31 +36,55 @@
 // The pre-activation is rounded after the product and after the sum (no fma),
 // exactly as instance_norm.cu's backward gate recomputes it from y16, mean
 // and rsig, so forward and backward decide relu alike within an ulp of 0.
+// ops/cuda_conv_in.py's conv_plan picks the route and the tile, and the
+// entry refuses a plan that is not its route's own.
 //
 // Two routes for the conv, both hand-written here:
-//   tensor cores (bf16, Cin and Cout multiples of 16): an implicit GEMM of
-//     256 pixels (16 x 16) by 64 output channels a block, K = 9 taps x Cin in
-//     chunks of 16 channels.  The chunks arrive by cp.async in a two-stage
-//     ring, so the next chunk's loads run under this chunk's products.
-//     Fragments come from shared memory by ldmatrix (the weights
-//     transposed on the way) and feed mma.sync m16n8k16 with f32
-//     accumulators; a warp owns two pixel rows by 64 channels.  The pixel
-//     stride of the halo (24 bf16) and the row stride of the weights (72)
-//     put the eight rows of every 8x8 ldmatrix tile in distinct banks, for
-//     each of the nine shifted tap views.  (A first version went through
-//     nvcuda::wmma: its fragment loads compiled to generic loads and
-//     register transposes, and the pass took 0.90 ms where this takes
-//     0.44 ms at the resblock shape, on an H100 at 700 W.)
+//   wgmma (bf16, Cin and Cout multiples of 16): an implicit GEMM on Hopper's
+//     warpgroup MMA.  A block is two warpgroups; each owns R rows of 64
+//     consecutive output pixels (a wgmma's 64 rows must be core matrices at
+//     one stride, which one row of pixels gives) by BN output channels.
+//     Each chunk of 16 input channels is 9 R wgmma.mma_async m64nBNk16 a
+//     warpgroup, both operands read from shared memory by descriptor,
+//     without swizzle: A is a tap's view of the halo, stored as two planes
+//     of 8 channels so that a tap is an offset of the start address; B the
+//     tap's weights, which the wrapper packs K-major.  The chunks arrive by
+//     cp.async, the reflect resolved once a block in the copies' source
+//     offsets, in a ring of STAGES, STAGES - 2 ahead; a chunk's copies are
+//     issued after the wgmmas of the chunk before them, and a warpgroup
+//     keeps one chunk of wgmmas in flight across the barrier.
+//     What bounds it: every block reads each chunk of weights from L2 again,
+//     and over every tile and width timed while it was tuned the pass moved
+//     ~2 TB/s from L2 by cp.async.  So the tile holds as many pixels as the
+//     accumulators allow: 8 rows x 64 pixels by 64 channels, 128 f32 a
+//     thread, which reads 77 bytes from L2 per pixel and chunk of 64 output
+//     channels where the first port's 16 x 16 by 64 tile read 113 (and
+//     mma.sync's warps each re-read their weights from shared memory).
+//     N = 128 with 4 rows needs less shared-memory bandwidth per product
+//     but more from L2, and was slower, as was a 3-stage ring; one tile is
+//     built (kWgBN, kWgR, kWgStages).  A in registers by ldmatrix measured
+//     the same as by descriptor at one row a warpgroup, and its fragments
+//     leave no registers for more rows.
+//     On an NVIDIA H100 80GB HBM3 at 700 W (perf_conv_in, profiler device
+//     time): the pass takes 0.322 ms (480 TF/s) at the resblock shape,
+//     where the first port's mma.sync pass took 0.432-0.443 ms and cuDNN's
+//     conv alone takes 0.199 ms; 0.529 ms at the wide shape (4 chunks a
+//     block, so each block's first loads and its epilogue, unhidden with
+//     one block an SM, are most of it), against 0.547-0.550 and cuDNN's
+//     0.324.
 //   scalar (f32, and bf16 at any other channel count): 128 pixels (8 x 16)
 //     by 64 channels a block, chunks of 8 input channels, a thread owns
 //     4 pixels by 8 channels of f32 FMAs.
-// What a later redesign would change for the card: wgmma, which reads both
-// operands from shared memory once per 64-row tile, with TMA-fed tiles, and
-// the normalize pass fused into the next conv's load.
+// What a later redesign would change for the card: TMA with the weight
+// stage multicast to a cluster (the bytes from L2 that bound the pass), a
+// persistent grid whose epilogue overlaps the next tile's loads, the moments
+// taken in the epilogue, and the normalize pass fused into the next conv's
+// load.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cuda_pipeline.h>
+#include <stdint.h>
 
 namespace {
 
@@ -68,28 +92,42 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTW = 16;      // pixel columns of a block's tile, both routes
-constexpr int kBN = 64;      // output channels of a block's tile
-constexpr int kHaloW = kTW + 2;
+constexpr int kBN = 64;      // output channels of one epilogue pass
 
-// tensor-core route
-constexpr int kTcTH = 16;                       // pixel rows of a tile
-constexpr int kTcKC = 16;   // input channels per chunk: one mma's depth
-constexpr int kTcStages = 2;                    // chunks in flight
-constexpr int kTcLDA = kTcKC + 8;               // halo pixel stride, bf16
-constexpr int kTcLDB = kBN + 8;                 // weight row stride, bf16
-constexpr int kTcLDC = kBN + 4;                 // accumulator row stride, f32
-constexpr int kTcHalo = (kTcTH + 2) * kHaloW;   // 324 pixels
-constexpr int kTcStageElems = kTcHalo * kTcLDA + 9 * kTcKC * kTcLDB;
-constexpr int kTcBytesOps = kTcStages * kTcStageElems * 2;
-constexpr int kTcBytesC = kTcTH * kTW * kTcLDC * 4;
-constexpr int kTcSmem = kTcBytesOps > kTcBytesC ? kTcBytesOps : kTcBytesC;
+// wgmma route: a block is two warpgroups, each R output rows of kWgTW
+// pixels by BN output channels; chunks of 16 input channels
+constexpr int kWgTW = 64;                        // pixels: one wgmma's M
+constexpr int kWgKC = 16;                        // one wgmma's K
+constexpr int kWgHaloW = kWgTW + 2;
+
+// The halo is two planes of 8 channels, 16 bytes a pixel; each 8 pixels of
+// a row are one core matrix of the A descriptor
+template <int BN, int R>
+struct WgTile {
+  static constexpr int kRows = 2 * R;                 // output rows a tile
+  static constexpr int kHalo = (kRows + 2) * kWgHaloW;  // pixels
+  static constexpr int kHaloElems = kHalo * kWgKC;
+  static constexpr int kPlaneBytes = kHalo * 16;
+  static constexpr int kStage = kHaloElems + 9 * BN * kWgKC;  // bf16
+  static constexpr int kLDC = BN + 8;  // accumulator row stride, f32
+  static constexpr int kBytesC = kRows * kWgTW * kLDC * 4;
+  static constexpr int smem(int stages) {
+    return stages * kStage * 2 > kBytesC ? stages * kStage * 2 : kBytesC;
+  }
+};
+// The one wgmma kernel built, as conv_plan (ops/cuda_conv_in.py) names it:
+// R = 4 rows a warpgroup (a tile of 8 x 64 pixels) by 64 channels, 4 stages
+constexpr int kWgBN = 64, kWgR = 4, kWgStages = 4;
+using WgPlan = WgTile<kWgBN, kWgR>;
 
 // scalar route
 constexpr int kScTH = 8;
+constexpr int kScTW = 16;
+constexpr int kScHaloW = kScTW + 2;
 constexpr int kScKC = 8;
-constexpr int kScHalo = (kScTH + 2) * kHaloW;   // 180 pixels
+constexpr int kScHalo = (kScTH + 2) * kScHaloW;   // 180 pixels
 
+enum Route { kScalar = 0, kWgmma = 1 };
 enum Act { kNone = 0, kRelu = 1, kLeakyRelu = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -114,12 +152,13 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// Shared by both routes.  `acc` holds the block's f32 conv results in shared
-// memory, pixel p = row * kTW + col at acc[p * ld + channel].  Rounds each to
-// T, stores the valid ones to y16, and writes the block's partial sums of the
-// rounded values to `part`.  Lane l takes channels 2l and 2l + 1, warp w the
-// pixels w, w + 8, ...; the 8 warps' sums are combined in order.
-template <typename T>
+// Shared by every route.  `acc` holds kBN channels of the block's f32 conv
+// results in shared memory, pixel p = row * TW + col at acc[p * ld +
+// channel].  Rounds each to T, stores the valid ones to y16, and writes the
+// block's partial sums of the rounded values to `part`.  Lane l takes
+// channels 2l and 2l + 1, warp w the pixels w, w + 8, ...; the 8 warps'
+// sums are combined in order.
+template <typename T, int TW>
 __device__ __forceinline__ void tile_epilogue(
     const float* acc, int ld, int tile_h, T* __restrict__ y16,
     float* __restrict__ part, float (*red)[2][kBN], int n, int h, int w,
@@ -127,8 +166,8 @@ __device__ __forceinline__ void tile_epilogue(
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int ch = 2 * lane, co = co0 + ch;
   float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
-  for (int p = warp; p < tile_h * kTW; p += kWarps) {
-    const int oh = h0 + p / kTW, ow = w0 + p % kTW;
+  for (int p = warp; p < tile_h * TW; p += kWarps) {
+    const int oh = h0 + p / TW, ow = w0 + p % TW;
     if (oh >= h || ow >= w) continue;
     if (co >= cout) continue;
     T* out = y16 + (((size_t)n * h + oh) * w + ow) * cout + co;
@@ -166,140 +205,220 @@ __device__ __forceinline__ void tile_epilogue(
 }
 
 // ---------------------------------------------------------------------
-// tensor-core route: bf16, cin % 16 == 0, cout % 16 == 0
+// wgmma route: bf16, cin % 16 == 0, cout % 16 == 0
 // ---------------------------------------------------------------------
 
-// four 8x8 b16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+// d (64 x N, f32, this thread's N / 2) += a (64 x 16) * b (16 x N), both
+// bf16 in shared memory, K-major, given by their descriptors
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-// c += a (16 x 16, row-major fragments) * b (16 x 8), f32 accumulate
-__device__ __forceinline__ void mma_16816(float (&c)[4],
-                                          const unsigned (&a)[4], unsigned b0,
-                                          unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-k2_conv_tc(const bf16* __restrict__ x, const bf16* __restrict__ wk,
-           bf16* __restrict__ y16, float* __restrict__ part, int h, int w,
-           int cin, int cout, int tiles_w, int n_ct) {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// this thread's writes to shared memory (cp.async and plain stores), made
+// visible to the async proxy that wgmma reads its shared operands through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// pins an accumulator at this point of the program, so the compiler does
+// not read it before the wgmmas that write it have retired
+__device__ __forceinline__ void pin(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// Descriptor of a K-major bf16 operand in shared memory without swizzle
+// (shared addresses stay under 2^18, so an offset added to the descriptor
+// stays in its 14-bit start address field):
+// core matrices of 8 rows by 16 bytes (8 channels of K) stored as 128
+// contiguous bytes; the core matrix of the next 8 channels of K `lbo` bytes
+// on, that of the next 8 rows `sbo` bytes on.  B: rows are output
+// channels, lbo 128, sbo 256.  A from the halo planes: rows are pixels,
+// lbo one plane, sbo 128.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t smem_addr, int lbo,
+                                                int sbo) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4)
+         | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// An implicit GEMM: M = the block's 2R x 64 output pixels (R rows a
+// warpgroup), N = BN output channels, K = 9 taps x Cin in chunks of 16
+// input channels, each chunk 9 R wgmma m64nBNk16 a warpgroup, the R rows of
+// a tap on one B descriptor.  Both operands come from shared memory by
+// descriptor: B, the chunk's 9 x BN x 16 weights, K-major; A, the nine taps
+// as shifted views of one halo.  The chunks arrive by cp.async in a ring of
+// STAGES, STAGES - 2 ahead: a chunk's loads are issued after the wgmmas of
+// the chunk before them, so they run under those, and each warpgroup keeps
+// one chunk of wgmmas in flight across the barrier.  A stage is refilled
+// only after every warpgroup's wgmmas on it have retired and every thread
+// has passed the barrier after that.
+template <int BN, int R, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+k2_conv_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wk,
+              bf16* __restrict__ y16, float* __restrict__ part, int h, int w,
+              int cin, int cout, int tiles_w, int n_ct) {
+  static_assert(STAGES >= 3, "a stage in flight, one read, one retiring");
+  static_assert(BN == 64, "m64n64k16 is the one wgmma shape bound here");
+  using Tile = WgTile<BN, R>;
+  constexpr int kAhead = STAGES - 2;
+  constexpr int kHaloLoads = (Tile::kHalo * 2 + kThreads - 1) / kThreads;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float red[kWarps][2][kBN];
   bf16* sa = reinterpret_cast<bf16*>(smem);
   float* sc = reinterpret_cast<float*>(smem);
+  const uint32_t sa_addr = (uint32_t)__cvta_generic_to_shared(sa);
 
   const int ct = blockIdx.x % n_ct, sp = blockIdx.x / n_ct, n = blockIdx.y;
   const int n_sp = gridDim.x / n_ct;
-  const int h0 = (sp / tiles_w) * kTcTH, w0 = (sp % tiles_w) * kTW;
-  const int co0 = ct * kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // this lane's row and 8-column half in every ldmatrix.x4
-  const int lrow = lane % 16, lcol = (lane / 16) * 8;
+  const int h0 = (sp / tiles_w) * Tile::kRows, w0 = (sp % tiles_w) * kWgTW;
+  const int co0 = ct * BN;
+  // warpgroup g computes output rows h0 + R g .. h0 + R g + R - 1; its
+  // warp q pixels 16 q .. 16 q + 15 of each
+  const int g = threadIdx.x / 128, q = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
 
-  // acc[i][t]: pixel row 2 * warp + i of the tile, channels 8 t .. 8 t + 7
-  float acc[2][kBN / 8][4];
+  float acc[R][BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int t = 0; t < kBN / 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) acc[r][i] = 0.f;
 
+  // this thread's halo copies, 16 bytes each: item i = threadIdx.x + k
+  // kThreads is 8 channels (v = i % 2) of halo pixel i / 2, stored in
+  // plane v; its source offset at channel 0, the reflect resolved once
   const bf16* xn = x + (size_t)n * h * w * cin;
-  const int n_chunks = cin / kTcKC;
-  // chunk c of the input channels into stage c % kTcStages, as one
-  // cp.async group
+  int a_src[kHaloLoads];
+#pragma unroll
+  for (int k = 0; k < kHaloLoads; ++k) {
+    const int i = threadIdx.x + k * kThreads, pix = i / 2;
+    const int ih = reflect(h0 - 1 + pix / kWgHaloW, h);
+    const int iw = reflect(w0 - 1 + pix % kWgHaloW, w);
+    a_src[k] = (ih * w + iw) * cin + (i % 2) * 8;
+  }
+  // the weight rows past cout are zero in every stage, once
+  for (int j = threadIdx.x; co0 + BN > cout && j < STAGES * 9 * BN * 2;
+       j += kThreads) {
+    const int o = (j / 2) % BN;
+    if (co0 + o >= cout) {
+      const int stage = j / (9 * BN * 2), tap = (j / (2 * BN)) % 9;
+      *reinterpret_cast<uint4*>(sa + stage * Tile::kStage + Tile::kHaloElems
+                                + tap * BN * kWgKC + (o / 8) * 128
+                                + (j % 2) * 64 + (o % 8) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  // the accumulators are touched by nothing but the wgmmas until the
+  // last of them has retired: a register write between two would make
+  // ptxas serialize them
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) pin(acc[r][i]);
+
+  const int n_chunks = cin / kWgKC;
+  // chunk c into stage c % STAGES, as one cp.async group: the halo's 16
+  // channels, and the weights packed (cin / 16, 9, cout, 16) by the
+  // wrapper, laid out as the descriptor reads them
   auto load_chunk = [&](int c) {
     if (c < n_chunks) {
-      const int c0 = c * kTcKC;
-      bf16* a_st = sa + (c % kTcStages) * kTcStageElems;
-      bf16* b_st = a_st + kTcHalo * kTcLDA;
-      for (int i = threadIdx.x; i < kTcHalo * (kTcKC / 8); i += kThreads) {
-        const int pix = i / (kTcKC / 8), v = i % (kTcKC / 8);
-        const int ih = reflect(h0 - 1 + pix / kHaloW, h);
-        const int iw = reflect(w0 - 1 + pix % kHaloW, w);
-        __pipeline_memcpy_async(a_st + pix * kTcLDA + v * 8,
-                                xn + ((size_t)ih * w + iw) * cin + c0 + v * 8,
-                                16);
-      }
-      for (int j = threadIdx.x; j < 9 * kTcKC * (kBN / 8); j += kThreads) {
-        const int v = j % (kBN / 8), k = (j / (kBN / 8)) % kTcKC;
-        const int tap = j / ((kBN / 8) * kTcKC);
-        const int co = co0 + v * 8;
-        bf16* dst = b_st + (tap * kTcKC + k) * kTcLDB + v * 8;
-        if (co < cout)
+      bf16* a_st = sa + (c % STAGES) * Tile::kStage;
+      bf16* b_st = a_st + Tile::kHaloElems;
+#pragma unroll
+      for (int k = 0; k < kHaloLoads; ++k) {
+        const int i = threadIdx.x + k * kThreads;
+        if (i < Tile::kHalo * 2)
           __pipeline_memcpy_async(
-              dst, wk + ((size_t)tap * cin + c0 + k) * cout + co, 16);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+              a_st + (i % 2) * Tile::kHalo * 8 + (i / 2) * 8,
+              xn + a_src[k] + c * kWgKC, 16);
+      }
+      const bf16* wc = wk + (size_t)c * 9 * cout * kWgKC;
+      for (int j = threadIdx.x; j < 9 * BN * 2; j += kThreads) {
+        const int v = j % 2, o = (j / 2) % BN, tap = j / (2 * BN);
+        if (co0 + o < cout)
+          __pipeline_memcpy_async(
+              b_st + tap * BN * kWgKC + (o / 8) * 128 + v * 64 + (o % 8) * 8,
+              wc + ((size_t)tap * cout + co0 + o) * kWgKC + v * 8, 16);
       }
     }
     __pipeline_commit();  // an empty group past the end keeps the count
   };
-  for (int c = 0; c < kTcStages - 1; ++c) load_chunk(c);
+
+  for (int c = 0; c < kAhead; ++c) load_chunk(c);
   for (int c = 0; c < n_chunks; ++c) {
-    __pipeline_wait_prior(kTcStages - 2);  // chunk c has landed
-    __syncthreads();  // for every thread; and chunk c - 1 is consumed
-    load_chunk(c + kTcStages - 1);
-    const bf16* a_st = sa + (c % kTcStages) * kTcStageElems;
-    const bf16* b_st = a_st + kTcHalo * kTcLDA;
+    __pipeline_wait_prior(kAhead - 1);  // chunk c has landed
+    fence_proxy_async();
+    // every thread's copies of chunk c are in; every warpgroup has retired
+    // chunk c - 2, whose stage the loads below refill
+    __syncthreads();
+    // descriptors of this stage's halo at this warpgroup's first row, and
+    // of its weights; a tap or row further on adds its offset in 16-byte
+    // units to the start address field
+    const uint32_t a_addr = sa_addr + (c % STAGES) * Tile::kStage * 2;
+    const uint64_t ad = kmajor_desc(a_addr + R * g * kWgHaloW * 16,
+                                    Tile::kPlaneBytes, 128);
+    const uint64_t bd = kmajor_desc(a_addr + Tile::kHaloElems * 2, 128, 256);
+    wgmma_fence();
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      unsigned a[2][4];
+    for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(a[i], a_st + ((2 * warp + i + dy) * kHaloW + dx + lrow)
-                                     * kTcLDA + lcol);
-#pragma unroll
-      for (int j = 0; j < kBN / 16; ++j) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b,
-                          b_st + (tap * kTcKC + lrow) * kTcLDB + j * 16 + lcol);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_16816(acc[i][2 * j], a[i], b[0], b[1]);
-          mma_16816(acc[i][2 * j + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
+      for (int r = 0; r < R; ++r)
+        wgmma_n64(acc[r], ad + (r + tap / 3) * kWgHaloW + tap % 3,
+                  bd + tap * BN * kWgKC * 2 / 16);
+    wgmma_commit();
+    load_chunk(c + kAhead);
+    wgmma_wait<1>();  // chunk c - 1 has retired
   }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) pin(acc[r][i]);
   __pipeline_wait_prior(0);
   __syncthreads();  // the accumulator tile takes the operands' place
-  // an accumulator holds rows lane / 4 and lane / 4 + 8 of its 16 pixels,
-  // channels 2 (lane % 4) and the next
+  // a thread holds rows lane / 4 and lane / 4 + 8 of its warp's 16 pixels,
+  // channels 8 t + 2 (lane % 4) and the next, as mma.sync does
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int t = 0; t < kBN / 8; ++t) {
-      float* o = sc + ((2 * warp + i) * kTW + lane / 4) * kTcLDC + t * 8
-                 + 2 * (lane % 4);
-      *reinterpret_cast<float2*>(o) = make_float2(acc[i][t][0], acc[i][t][1]);
-      *reinterpret_cast<float2*>(o + 8 * kTcLDC) =
-          make_float2(acc[i][t][2], acc[i][t][3]);
+    for (int t = 0; t < BN / 8; ++t) {
+      float* o = sc + ((R * g + r) * kWgTW + 16 * q + lane / 4) * Tile::kLDC
+                 + t * 8 + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(o) =
+          make_float2(acc[r][4 * t], acc[r][4 * t + 1]);
+      *reinterpret_cast<float2*>(o + 8 * Tile::kLDC) =
+          make_float2(acc[r][4 * t + 2], acc[r][4 * t + 3]);
     }
   __syncthreads();
-  tile_epilogue<bf16>(sc, kTcLDC, kTcTH, y16, part, red, n, h, w, cout, h0,
-                      w0, co0, sp, n_sp);
+  for (int c0 = 0; c0 < BN; c0 += kBN) {
+    tile_epilogue<bf16, kWgTW>(sc + c0, Tile::kLDC, Tile::kRows, y16, part,
+                               red, n, h, w, cout, h0, w0, co0 + c0, sp,
+                               n_sp);
+    __syncthreads();  // red is reused by the next channel group
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -311,7 +430,7 @@ struct ScOperands {
 };
 union ScSmem {
   ScOperands op;
-  float acc[kScTH * kTW][kBN];
+  float acc[kScTH * kScTW][kBN];
 };
 
 template <typename T>
@@ -324,7 +443,7 @@ k2_conv_scalar(const T* __restrict__ x, const T* __restrict__ wk,
 
   const int ct = blockIdx.x % n_ct, sp = blockIdx.x / n_ct, n = blockIdx.y;
   const int n_sp = gridDim.x / n_ct;
-  const int h0 = (sp / tiles_w) * kScTH, w0 = (sp % tiles_w) * kTW;
+  const int h0 = (sp / tiles_w) * kScTH, w0 = (sp % tiles_w) * kScTW;
   const int co0 = ct * kBN;
   // a thread owns pixels (row, col0 .. col0 + 3) and channels cg .. cg + 7
   const int cg = (threadIdx.x % 8) * 8, pg = threadIdx.x / 8;
@@ -343,8 +462,8 @@ k2_conv_scalar(const T* __restrict__ x, const T* __restrict__ wk,
       const int pix = i / kScKC, k = i % kScKC;
       float v = 0.f;
       if (c0 + k < cin) {
-        const int ih = reflect(h0 - 1 + pix / kHaloW, h);
-        const int iw = reflect(w0 - 1 + pix % kHaloW, w);
+        const int ih = reflect(h0 - 1 + pix / kScHaloW, h);
+        const int iw = reflect(w0 - 1 + pix % kScHaloW, w);
         v = to_f32(xn[((size_t)ih * w + iw) * cin + c0 + k]);
       }
       sm.op.in[pix][k] = v;
@@ -359,7 +478,7 @@ k2_conv_scalar(const T* __restrict__ x, const T* __restrict__ wk,
     __syncthreads();
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
-      const int base = (row + tap / 3) * kHaloW + col0 + tap % 3;
+      const int base = (row + tap / 3) * kScHaloW + col0 + tap % 3;
 #pragma unroll
       for (int k = 0; k < kScKC; ++k) {
         const float4 wa = *reinterpret_cast<const float4*>(&sm.op.wt[tap][k][cg]);
@@ -380,10 +499,10 @@ k2_conv_scalar(const T* __restrict__ x, const T* __restrict__ wk,
   for (int p = 0; p < 4; ++p)
 #pragma unroll
     for (int c = 0; c < 8; ++c)
-      sm.acc[row * kTW + col0 + p][cg + c] = acc[p][c];
+      sm.acc[row * kScTW + col0 + p][cg + c] = acc[p][c];
   __syncthreads();
-  tile_epilogue<T>(&sm.acc[0][0], kBN, kScTH, y16, part, red, n, h, w, cout,
-                   h0, w0, co0, sp, n_sp);
+  tile_epilogue<T, kScTW>(&sm.acc[0][0], kBN, kScTH, y16, part, red, n, h, w,
+                          cout, h0, w0, co0, sp, n_sp);
 }
 
 // ---------------------------------------------------------------------
@@ -491,38 +610,53 @@ void launch_normalize(const void* y16, const float* mean, const float* rsig,
 
 }  // namespace
 
-// x: (n, h, w, cin) contiguous; wk: (3, 3, cin, cout) contiguous in x's
-// dtype; y16, y: (n, h, w, cout); all f32 (is_bf16 = 0) or bf16 (1).  gamma,
-// beta: (cout,) f32.  mean, rsig: (n, cout) f32 outputs.  part: scratch
-// (n, tiles, 2, cout) f32 with tiles = ceil(h / tile_h) * ceil(w / 16), where
-// tile_h is 16 on the tensor-core route (use_tc = 1: bf16, cin and cout
-// multiples of 16) and 8 on the scalar route.  n_split * rows_per_split >=
-// h * w.  Launches on `stream` and does not synchronise.  Returns
+// x: (n, h, w, cin) contiguous; y16, y: (n, h, w, cout); all f32 (is_bf16 =
+// 0) or bf16 (1).  gamma, beta: (cout,) f32.  mean, rsig: (n, cout) f32
+// outputs.  The launch plan comes from the caller (ops/cuda_conv_in.py,
+// conv_plan), and the entry refuses one that is not the route's own:
+//   route 0, scalar: any dtype and channel counts; tile 8 x 16 pixels by 64
+//     channels, no dynamic shared memory; wk (3, 3, cin, cout) in x's dtype.
+//   route 1, wgmma: bf16, cin and cout multiples of 16; tile 8 x 64 pixels
+//     by 64 channels, 4 chunks in the ring, WgPlan::smem(4) dynamic shared
+//     bytes; wk packed (cin / 16, 3, 3, cout, 16).
+// n_sp = ceil(h / tile_h) * ceil(w / tile_w) spatial tiles a sample, and
+// part is scratch (n, n_sp, 2, cout) f32.  n_split * rows_per_split >= h *
+// w.  Launches on `stream` and does not synchronise.  Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for
-// arguments the chosen route does not take.
+// arguments the route does not take.
 extern "C" int sggan_conv3_in_fwd(const void* x, const void* wk,
                                   const void* gamma, const void* beta,
                                   void* y, void* y16, void* mean, void* rsig,
                                   void* part, int n, int h, int w, int cin,
-                                  int cout, int is_bf16, int use_tc,
-                                  int rows_per_split, int n_split, int act,
-                                  float eps, float alpha, void* stream) {
+                                  int cout, int is_bf16, int route,
+                                  int tile_h, int tile_w, int bn, int stages,
+                                  int smem, int n_sp, int rows_per_split,
+                                  int n_split, int act, float eps,
+                                  float alpha, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (h < 2 || w < 2 || n < 1 || n > 65535 || cin < 1 || cout < 1)
+  if (h < 2 || w < 2 || n < 1 || n > 65535 || cin < 1 || cout < 1
+      || (route != kScalar && route != kWgmma))
     return (int)cudaErrorInvalidValue;
-  if (use_tc && (!is_bf16 || cin % 16 || cout % 16))
+  if (route == kWgmma && (!is_bf16 || cin % 16 || cout % 16))
     return (int)cudaErrorInvalidValue;
-  const int tile_h = use_tc ? kTcTH : kScTH;
-  const int tiles_w = (w + kTW - 1) / kTW;
-  const int n_sp = ((h + tile_h - 1) / tile_h) * tiles_w;
-  const int n_ct = (cout + kBN - 1) / kBN;
+  const bool own_tile =
+      route == kScalar
+          ? tile_h == kScTH && tile_w == kScTW && bn == kBN && smem == 0
+          : tile_h == 2 * kWgR && tile_w == kWgTW && bn == kWgBN
+                && stages == kWgStages && smem == WgPlan::smem(kWgStages);
+  const int tiles_w = (w + tile_w - 1) / tile_w;
+  if (!own_tile || n_sp != ((h + tile_h - 1) / tile_h) * tiles_w)
+    return (int)cudaErrorInvalidValue;
+  const int n_ct = (cout + bn - 1) / bn;
   const dim3 grid(n_sp * n_ct, n);
   float* pt = static_cast<float*>(part);
-  if (use_tc) {
-    cudaError_t err = cudaFuncSetAttribute(
-        k2_conv_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  cudaError_t err = cudaSuccess;
+  if (route == kWgmma) {
+    auto kernel = k2_conv_wgmma<kWgBN, kWgR, kWgStages>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    k2_conv_tc<<<grid, kThreads, kTcSmem, st>>>(
+    kernel<<<grid, kThreads, smem, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(wk),
         static_cast<bf16*>(y16), pt, h, w, cin, cout, tiles_w, n_ct);
   } else if (is_bf16) {
@@ -534,7 +668,7 @@ extern "C" int sggan_conv3_in_fwd(const void* x, const void* wk,
         static_cast<const float*>(x), static_cast<const float*>(wk),
         static_cast<float*>(y16), pt, h, w, cin, cout, tiles_w, n_ct);
   }
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   float* mp = static_cast<float*>(mean);

@@ -38,30 +38,38 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def build(name: str) -> Tuple[Path, str]:
+def build(name: str) -> Tuple[Path, str, bool]:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    library's path and nvcc's output (ptxas register and spill report),
-    empty when the library was already built."""
+    library's path, nvcc's output (ptxas register and spill report, kept
+    beside the library, so a later call returns it too) and whether this
+    call compiled it."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
-        return lib, ""
+        return lib, log.read_text() if log.exists() else "", False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    tmp_log = tmp + ".log"
     try:
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
                                f"{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
+        # the log before the library, each atomic: a concurrent loader sees
+        # all of a file or none
+        Path(tmp_log).write_text(proc.stdout + proc.stderr)
+        os.replace(tmp_log, log)
+        os.replace(tmp, lib)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
+        for t in (tmp, tmp_log):
+            if os.path.exists(t):
+                os.unlink(t)
+    return lib, proc.stdout + proc.stderr, True
 
 
 @functools.cache

@@ -21,17 +21,23 @@ Not carried over from the TPU module: ``interpret``, ``tile_h`` and
 divisibility of ``supported``, the 128-lane channel padding and the
 8-aligned width are properties of Mosaic, not of the function.
 
+``conv_plan`` is the launch plan of one call, pure Python: the conv
+route, its tile, ring depth, shared bytes and grid, and the spatial tile
+count that sizes the kernel's scratch of partial sums.  The wrapper
+allocates from it and passes it to the kernel, which refuses a plan that
+is not its route's own.
+
 ``launches`` counts the calls that launched the kernel and
-``route_launches`` which conv route each took: ``tensor_core`` (bf16, Cin
-and Cout multiples of 16) or ``scalar`` (f32, and bf16 at any other
-channel count).  Both routes are kernels of the same source.
+``route_launches`` the conv kernel each ran: ``k2_conv_wgmma`` (bf16, Cin
+and Cout multiples of 16: warpgroup MMA) or ``k2_conv_scalar`` (f32, and
+bf16 at any other channel count).  Both are kernels of the same source.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +49,74 @@ from .norm import (IN_EPS, _ref_forward, instance_norm,
                    instance_norm_bwd_ref)
 
 launches = 0
-route_launches = {"tensor_core": 0, "scalar": 0}
+route_launches = {"k2_conv_wgmma": 0, "k2_conv_scalar": 0}
+
+# csrc/conv3_in.cu's conv routes by the entry's route code
+_ROUTE_CODE = {"scalar": 0, "wgmma": 1}
+SMEM_OPTIN = 232448     # shared bytes a block may use on the H100
+STATIC_SMEM = 4096      # the wgmma kernel's static epilogue sums
+# wgmma route: two warpgroups a block, each 4 output rows of 64 pixels, by
+# 64 output channels; chunks of 16 input channels in a ring of 4 stages;
+# the f32 accumulator tile's row stride is bn + 8.  The one tile the source
+# builds (kWgBN, kWgR, kWgStages), the fastest of those measured at both
+# shapes of perf_conv_in (PERF.md)
+_WG_TW, _WG_BN, _WG_ROWS, _WG_STAGES = 64, 64, 8, 4
+
+
+class ConvPlan(NamedTuple):
+    """How the conv pass of one call runs: ``route`` ("wgmma" or
+    "scalar"); a block's tile of ``tile_h`` x ``tile_w`` output pixels by
+    ``bn`` output channels; ``stages`` chunks in its cp.async ring;
+    ``smem`` dynamic shared bytes a block; ``tiles`` spatial tiles a
+    sample (the second dimension of the partial sums); ``grid`` the
+    launch's (tiles x Cout tiles, N)."""
+    route: str
+    tile_h: int
+    tile_w: int
+    bn: int
+    stages: int
+    smem: int
+    tiles: int
+    grid: Tuple[int, int]
+
+    @property
+    def kernel(self) -> str:
+        """The conv kernel's name in csrc/conv3_in.cu."""
+        return f"k2_conv_{self.route}"
+
+
+def wgmma_smem(bn: int, rows: int, stages: int) -> int:
+    """Dynamic shared bytes of ``k2_conv_wgmma`` with a tile of ``rows``
+    x 64 pixels by ``bn`` channels: the ring of halo + weight stages, or
+    the f32 accumulator tile that reuses it."""
+    halo = (rows + 2) * (_WG_TW + 2) * 16 * 2
+    stage = halo + 9 * bn * 16 * 2
+    return max(stages * stage, rows * _WG_TW * (bn + 8) * 4)
+
+
+def conv_plan(n: int, h: int, w: int, cin: int, cout: int,
+              dtype: torch.dtype) -> ConvPlan:
+    """The conv pass of one K2 forward on an (n, h, w, cin) tensor of
+    ``dtype`` to ``cout`` channels: wgmma for bf16 with Cin and Cout
+    multiples of 16, else scalar.  Raises on a shape the kernel does not
+    take."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv_plan: dtype must be float32 or bfloat16, "
+                         f"got {dtype}")
+    # a sample's plane is indexed in 32 bits
+    if (min(h, w) < 2 or not 1 <= n <= 65535 or min(cin, cout) < 1
+            or h * w * max(cin, cout) >= 2 ** 31):
+        raise ValueError(f"conv_plan: shape {(n, h, w, cin, cout)} out of "
+                         "the kernel's range")
+    if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 16 == 0:
+        route, th, tw, bn, stages = ("wgmma", _WG_ROWS, _WG_TW, _WG_BN,
+                                     _WG_STAGES)
+        smem = wgmma_smem(bn, th, stages)
+    else:
+        route, th, tw, bn, stages, smem = "scalar", 8, 16, 64, 1, 0
+    tiles = -(-h // th) * -(-w // tw)
+    return ConvPlan(route, th, tw, bn, stages, smem, tiles,
+                    (tiles * -(-cout // bn), n))
 
 
 def supported(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -87,9 +160,23 @@ def _kernel():
     lib = _build.load("conv3_in")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd = lib.sggan_conv3_in_fwd
-    fwd.argtypes = [p] * 9 + [i] * 10 + [f, f, p]
+    fwd.argtypes = [p] * 9 + [i] * 16 + [f, f, p]
     fwd.restype = ctypes.c_int
     return fwd
+
+
+def pack_weights(w: torch.Tensor, dtype: torch.dtype,
+                 p: ConvPlan) -> torch.Tensor:
+    """The kernel's layout of a ``(cout, cin, 3, 3)`` kernel, in
+    ``dtype``: on the wgmma route ``(cin / 16, 3, 3, cout, 16)``, one
+    chunk's weights K-major as its descriptor reads them; else ``(3, 3,
+    cin, cout)``."""
+    cout, cin = w.shape[:2]
+    if p.route == "wgmma":
+        src = w.detach().view(cout, cin // 16, 16, 3, 3).permute(1, 3, 4, 0, 2)
+    else:
+        src = w.detach().permute(2, 3, 1, 0)
+    return torch.empty(src.shape, dtype=dtype, device=w.device).copy_(src)
 
 
 def conv3_in_cuda(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
@@ -101,8 +188,9 @@ def conv3_in_cuda(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     ``(cout, cin, 3, 3)`` kernel of any float dtype (cast to x's, as
     ``conv2d`` casts it) and f32 ``gamma``/``beta`` of shape (cout,).
     Returns (y, y16, mean, rsig): y and the conv output y16 in x's dtype,
-    the moments as (N, cout) f32.  Launches on the current stream without
-    synchronising; raises on any input the kernel does not take."""
+    the moments as (N, cout) f32, the conv route and tile from
+    ``conv_plan``.  Launches on the current stream without synchronising;
+    raises on any input the kernel does not take."""
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"the conv3_in kernel needs CUDA tensors, got x on "
@@ -119,16 +207,12 @@ def conv3_in_cuda(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     cout = w.shape[0]
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     cuda_in._check_f32(y, gamma=gamma, beta=beta)
-    if n > 65535 or h * wd >= 2 ** 31:  # grid y and the kernel's int sizes
-        raise ValueError(f"shape {tuple(x.shape)} out of the kernel's range")
-    is_bf16 = x.dtype == torch.bfloat16
-    use_tc = is_bf16 and cin % 16 == 0 and cout % 16 == 0
-    # the kernel's packing: (3, 3, cin, cout) in x's dtype, one small copy
-    wk = torch.empty((3, 3, cin, cout), dtype=x.dtype, device=x.device)
-    wk.copy_(w.detach().permute(2, 3, 1, 0))
-    tile_h = 16 if use_tc else 8
-    tiles = -(-h // tile_h) * -(-wd // 16)
-    part = torch.empty((n, tiles, 2, cout), dtype=torch.float32,
+    p = conv_plan(n, h, wd, cin, cout, x.dtype)
+    if p.route != "scalar" and x.data_ptr() % 16:
+        raise ValueError(f"the {p.route} route reads x in 16-byte packets; "
+                         "x does not start on 16 bytes")
+    wk = pack_weights(w, x.dtype, p)
+    part = torch.empty((n, p.tiles, 2, cout), dtype=torch.float32,
                        device=x.device)
     y16 = torch.empty_like(y)
     mean = torch.empty((n, cout), dtype=torch.float32, device=x.device)
@@ -140,12 +224,14 @@ def conv3_in_cuda(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
         err = _kernel()(x.data_ptr(), wk.data_ptr(), gamma.data_ptr(),
                         beta.data_ptr(), y.data_ptr(), y16.data_ptr(),
                         mean.data_ptr(), rsig.data_ptr(), part.data_ptr(),
-                        n, h, wd, cin, cout, int(is_bf16), int(use_tc),
-                        rows, n_split, cuda_in._ACTS[act], eps, alpha, stream)
+                        n, h, wd, cin, cout, int(x.dtype == torch.bfloat16),
+                        _ROUTE_CODE[p.route], p.tile_h, p.tile_w, p.bn,
+                        p.stages, p.smem, p.tiles, rows, n_split,
+                        cuda_in._ACTS[act], eps, alpha, stream)
     if err:
         raise RuntimeError(f"conv3_in kernel launch failed: CUDA error {err}")
     launches += 1
-    route_launches["tensor_core" if use_tc else "scalar"] += 1
+    route_launches[p.kernel] += 1
     return y, y16, mean, rsig
 
 

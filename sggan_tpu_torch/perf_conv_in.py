@@ -9,8 +9,11 @@ that dominate the train step:
 Port of the repository's root ``perf_conv_in.py``.  The numerics
 cross-check runs first (max |K2 - unfused| printed; above 0.05 it raises),
 so the table is of a verified-equivalent kernel.  Timings are CUDA events
-around ``iters`` calls after a warm-up.  A failed check or a failed variant
-raises: nothing is recorded and skipped over.
+around ``iters`` calls after a warm-up; beside them, torch.profiler's
+device time of K2's conv pass alone (``conv_pass_ms``, with its TF/s) and
+of the cuDNN conv alone (``conv_only_device_ms``), each kernel's mean
+summed as ``perf_in.device_ms`` takes it.  A failed check raises: nothing
+is recorded and skipped over.
 
     python -m sggan_tpu_torch.perf_conv_in [iters]     (prints one JSON line)
 
@@ -31,6 +34,7 @@ import torch
 
 from .ops import cuda_conv_in as cci
 from .ops.layers import _nchw, conv2d_reflect, reflect_pad
+from .perf_in import device_ms
 
 SHAPES = [(16, 64, 128, 256, 256), (16, 256, 512, 64, 64)]
 CPU_SHAPES = [(2, 16, 16, 8, 8)]
@@ -129,6 +133,16 @@ def run(iters: int, device: torch.device, shapes, dtype: torch.dtype,
             row[name + "_tfs"] = fl / dt / 1e3
             print(f"  {name:>16}: {dt * 1e3:8.3f} ms  ({fl / dt / 1e3:6.1f} "
                   "TF/s)", file=sys.stderr, flush=True)
+        if device.type == "cuda":
+            with torch.no_grad():
+                ms = device_ms(k2_f, iters, keys=("k2_conv",))
+                row["conv_pass_ms"], row["conv_pass_tflops"] = ms, gflop / ms
+                row["conv_only_device_ms"] = device_ms(
+                    lambda: torch.nn.functional.conv2d(xp, wc), iters)
+            print(f"  {'conv pass':>16}: {ms:8.3f} ms  ({gflop / ms:6.1f} "
+                  f"TF/s, device); cuDNN conv alone "
+                  f"{row['conv_only_device_ms']:.3f} ms device",
+                  file=sys.stderr, flush=True)
         rows.append(row)
         del x, xp, k2_g, unfused_g
     return {"backend": device.type,

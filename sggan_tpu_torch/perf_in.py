@@ -53,14 +53,15 @@ def alternatives(n: int, h: int, w: int, c: int, dtype: torch.dtype,
     return out
 
 
-def device_ms(fn: Callable, iters: int, tries: int = 3) -> float:
+def device_ms(fn: Callable, iters: int, tries: int = 3,
+              keys: Sequence[str] = ()) -> float:
     """Device time of one call of ``fn``, which launches each of its
     kernels once (as every K1 call does): the mean time torch.profiler
     records for each kernel over ``iters`` calls after a warm-up call,
-    summed over the kernels.  A trace taken right after another may drop
-    or add an event; a mean per kernel is immune to that.  A trace with
-    no kernel at all is taken again, up to ``tries`` times, then
-    raises."""
+    summed over the kernels whose names hold one of ``keys`` (all of them
+    if empty).  A trace taken right after another may drop or add an
+    event; a mean per kernel is immune to that.  A trace with no such
+    kernel is taken again, up to ``tries`` times, then raises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -72,15 +73,17 @@ def device_ms(fn: Callable, iters: int, tries: int = 3) -> float:
         total = 0.0
         for e in prof.key_averages():
             if str(getattr(e, "device_type", "")).endswith("CUDA") \
-                    and e.count:
+                    and e.count and (not keys
+                                     or any(k in e.key for k in keys)):
                 us = getattr(e, "self_device_time_total", None)
                 if us is None:
                     us = getattr(e, "self_cuda_time_total", 0.0)
                 total += us / e.count
         if total > 0:
             return total / 1e3
-    raise RuntimeError(f"the profiler recorded no kernel in {tries} traces "
-                       f"of {iters} calls")
+    raise RuntimeError(f"the profiler recorded no kernel "
+                       f"{'of ' + str(keys) + ' ' if keys else ''}in {tries} "
+                       f"traces of {iters} calls")
 
 
 def host_us(fn: Callable, iters: int) -> float:

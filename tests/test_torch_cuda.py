@@ -339,11 +339,14 @@ def test_train_step_cuda_matches_cpu(dev, monkeypatch):
 # ----------------------------------------------------------------------
 
 # (N, H, W, Cin, Cout): the JAX tests' three, an odd plane, a Cin that is
-# no multiple of 16, then shapes the tensor-core route takes in bf16 (one
-# ragged in rows, columns and the Cout tile; one whose Cin is 32 + 16)
+# no multiple of 16, then shapes the wgmma route takes in bf16 (one ragged
+# in rows, columns and the Cout tile; one whose Cin is 32 + 16; two ragged
+# against its 8 x 64 pixel by 64 channel tile: W of 70 and 130, odd H,
+# Cout 144 and 48, Cin 16 in one chunk, n > 1)
 K2_SHAPES = [(2, 8, 16, 8, 8), (1, 16, 8, 16, 8), (1, 64, 8, 8, 16),
              (2, 7, 9, 5, 6), (1, 9, 33, 24, 40), (2, 16, 16, 16, 16),
-             (1, 20, 37, 32, 80), (1, 8, 8, 48, 32)]
+             (1, 20, 37, 32, 80), (1, 8, 8, 48, 32), (1, 9, 70, 32, 144),
+             (2, 5, 130, 16, 48)]
 
 
 def _k2_inputs(shape, dev, dtype, seed=0):
@@ -361,8 +364,7 @@ def _k2_inputs(shape, dev, dtype, seed=0):
 
 
 def _k2_route(shape, dtype):
-    tc = dtype == torch.bfloat16 and shape[3] % 16 == 0 and shape[4] % 16 == 0
-    return "tensor_core" if tc else "scalar"
+    return cci.conv_plan(*shape, dtype).kernel
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -442,3 +444,9 @@ def test_conv3_in_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cci.conv3_in_cuda(x, wk[:, :, :, :2], g, b)
     with pytest.raises(ValueError, match="on cuda"):
         cci.conv3_in_cuda(x, wk.cpu(), g, b)
+    # bf16 x 8 bytes past a 16-byte boundary, on the wgmma route
+    x_mis = torch.empty(x.numel() + 4, dtype=torch.bfloat16,
+                        device=dev)[4:].view(x.shape)
+    x_mis.copy_(x)
+    with pytest.raises(ValueError, match="16 bytes"):
+        cci.conv3_in_cuda(x_mis, wk, g, b)
