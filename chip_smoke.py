@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``sggan_tpu_torch``).
 
-Drives the port's four paths on one NVIDIA GPU at full width, with random
+Drives the port's paths on one NVIDIA GPU at full width, with random
 weights from a seed: the serving path (the ResNet generator, ngf 64, at
 256x512 behind the HTTP service), the sggan train step (ResNet generator,
 semantic discriminator ndf 64, 34 classes, pool 50, bf16, batch 16), the
 fused conv3x3 + instance norm table (``sggan_tpu_torch.perf_conv_in`` at
-the resblock shape and the wide encoder shape, bf16, batch 16) and the
+the resblock shape and the wide encoder shape, bf16, batch 16), the
 trainer behind ``python -m sggan_tpu_torch.main`` on a synthetic set of
-512x1024 PNGs (batch 12 doubled by augmentation, 256x512 bf16).  Run from
-the repository root:
+512x1024 PNGs (batch 12 doubled by augmentation, 256x512 bf16), and the
+CLI's default nets: the U-Net generator (ngf 64) with the semantic
+discriminator, p2p loss and dropout, through its step, the CLI with no
+net or loss flag (128x128, batch 1 doubled) and the service, and the
+pix2pix pair with batch norm.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -83,10 +86,38 @@ Phases, each of which raises on failure:
      img/s; then one epoch in-process with K1's exact counts per route (37
      forward and 37 backward a step, 23 forward for the eval) and a
      profiler window of 2 steps of the epoch loop, and the batch assembly
-     profiled alone.
+     profiled alone;
+  17. the U-Net and the pix2pix generator at 128x128, ngf 64, b=2, f32:
+     the card's forward (TF32 off) against the CPU's, inference and with
+     dropout masks fed (pix2pix: batch norm on its moving stats, then on
+     the batch's), phase 4's limit; 15 K1 calls a U-Net forward;
+  18. both K1 kernels against their plain versions at every site of the
+     U-Net's paths, f32 and bf16: the p2p step's (the generator's 15
+     and the semantic discriminator's at b and 2b) at 128x128 b=2 and at
+     256x512 b=8, 4 and 2, the eval's and the service's forward; each
+     call on its planned route, the generator's b=2 sites on the route of
+     the plan's table (16-CTA cluster or stream), phase 7's limits; then
+     each width's bf16 time by events and profiler beside the routes the
+     plan did not take;
+  19. the p2p U-Net step (main path): one f32 step card vs CPU at 32x64
+     b=2 with dropout masks fed (phase 8's limits, the full-width ones
+     where a generator gate falls on opposite sides); then bf16 steps at
+     128x128 b=2 and at 256x512 at the largest of b 8, 4, 2 that fits:
+     exactly 27 (29) K1 calls a step each way on the planned routes,
+     finite losses, step ms and img/s, peak memory, a profiler breakdown
+     by kernel and by aten op (conv forward, conv-transpose forward,
+     their backward, dropout's draws and its apply) with the idle share;
+  20. the default CLI (main path): ``python -m sggan_tpu_torch.main
+     --phase train`` with no net or loss flag on phase 16's PNG set at
+     128x128 (train, test, resume; sustained img/s), one in-process epoch
+     with K1's exact calls, then one short ``--use_pix2pix`` epoch whose
+     checkpoint carries moved BN state;
+  21. /translate with the U-Net at 128x128 (15 K1 calls a request) and
+     the U-Net's bf16 forward at b=1 and 16, 128x128 and 256x512.
 
-Prints a JSON line of the trainer's and the preprocess's rates, a JSON
-line of the kernels, then as the last line ``{"ok": true, "device":
+Prints a JSON line of the trainer's and the preprocess's rates, one of
+the default nets' numbers, a JSON line of the kernels, then as the last
+line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing neither,
 when no CUDA device is visible or any phase fails.
 """
@@ -148,13 +179,18 @@ K2_ACTS = (None, "relu", "leaky_relu")
 K2_ITERS = 10
 
 
+def gen_sites(n: int) -> list:
+    """(N, (H, W, C), act, calls) of the ResNet generator's 23 instance
+    norms in one forward at batch ``n``."""
+    return [(n, hwc, act, c) for (hwc, act), c in zip(SITES, SITE_COUNT)]
+
+
 def step_sites(b: int = B_TRAIN):
     """(N, (H, W, C), act, calls per step) of every instance norm of one
     train step at batch ``b``: the generator's 23, the discriminator's 7
     in the generator loss (batch b) and in the one call over [real; fake]
     (batch 2b)."""
-    return ([(b, hwc, act, c) for (hwc, act), c in zip(SITES, SITE_COUNT)]
-            + [(b, hwc, act, 1) for hwc, act in D_SITES]
+    return (gen_sites(b) + [(b, hwc, act, 1) for hwc, act in D_SITES]
             + [(2 * b, hwc, act, 1) for hwc, act in D_SITES])
 
 
@@ -273,6 +309,7 @@ CATEGORIES = [("K1 instance norm", K1_FWD_KERNELS),
               ("residual adds", ("CUDAFunctor_add",))]
 
 
+
 def kernel_times(prof, n_runs: int) -> list:
     """(device ms per run, launches per run, name) of every device kernel
     in a torch.profiler trace of ``n_runs`` runs, the longest first."""
@@ -316,12 +353,12 @@ def profile_forward(gen, n: int, wall_ms: float, card: str) -> None:
     from torch.profiler import ProfilerActivity, profile
     x = torch.round(torch.rand(n, H, W, 3, device="cuda") * 255.0)
     with torch.inference_mode():
-        gen(x, torch.bfloat16)
+        gen(x, {}, torch.bfloat16)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
-                gen(x, torch.bfloat16)
+                gen(x, {}, torch.bfloat16)
             torch.cuda.synchronize()
     print_breakdown(prof, 3, wall_ms, f"[{card}] profiler, b={n} bf16 "
                     "forward", CATEGORIES)
@@ -374,16 +411,20 @@ def print_rows(title: str, rows: list) -> None:
 
 def step_grads(cfg, b: int, dev: str):
     """One f32 step's losses and gradients on ``dev`` from the seeded
-    state, batch and pool draws that every call shares; gradients on the
-    CPU, keyed "gen.*" and "disc.*"."""
+    state, batch, pool draws and dropout masks that every call shares;
+    gradients on the CPU, keyed "gen.*" and "disc.*"."""
     from sggan_tpu_torch.train import pool as tpool
     from sggan_tpu_torch.train import step as tstep
     batch = train_batch(cfg, b, dev, seed=3)
     draws = tpool.pool_draws(torch.Generator().manual_seed(4), b,
                              cfg.max_size)
     st = tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)
+    # the generator's dropout masks (None for the ResNet), drawn on the CPU
+    masks = tstep.dropout_masks(cfg, st.gen_params,
+                                torch.Generator().manual_seed(7), b)
+    masks = masks and [m.to(dev) for m in masks]
     t0 = time.perf_counter()
-    m, gg, dg, _ = tstep.losses_and_grads(cfg, st, batch, draws)
+    m, gg, dg, *_ = tstep.losses_and_grads(cfg, st, batch, draws, masks)
     m = {k: v.item() for k, v in m.items()}
     print(f"  {cfg.image_size}, ngf {cfg.ngf}, ndf {cfg.ndf}, b={b}, {dev}: "
           f"losses and grads in {time.perf_counter() - t0:.2f} s, {m}")
@@ -420,12 +461,14 @@ def library_in(x, gamma, beta, act):
     return y
 
 
-def time_sites(card: str, dev):
+def time_sites(card: str, dev, sites=None,
+               label: str = "the 37 calls of one b=16 step"):
     """Both K1 kernels, their plain versions and PyTorch's instance norm at
-    every instance-norm site of one b=16 bf16 train step, the kernels by
-    CUDA events (wrapper included) and by the profiler (device only), and
-    the routes the plan did not take at each site by events.  Returns the
-    sums over the step's 37 calls and one row per site."""
+    every instance-norm site of ``sites`` ((N, (H, W, C), act, calls), by
+    default one b=16 bf16 train step's), the kernels by CUDA events
+    (wrapper included) and by the profiler (device only), and the routes
+    the plan did not take at each site by events.  Returns the sums over
+    the calls and one row per site."""
     from sggan_tpu_torch.ops import cuda_in
     from sggan_tpu_torch.ops import norm as tnorm
     from sggan_tpu_torch.perf_in import device_ms
@@ -433,7 +476,7 @@ def time_sites(card: str, dev):
         "ms", "device_ms", "plain_ms", "bound_ms", "floor_ms", "library_ms")}
     rows = []
     bf16 = torch.bfloat16
-    for i, (n, hwc, act, calls) in enumerate(step_sites()):
+    for i, (n, hwc, act, calls) in enumerate(sites or step_sites()):
         x, g, b = site_inputs(n, hwc, bf16, dev, seed=i)
         dy = torch.randn(x.shape, device=dev).to(bf16)
         _, mean, rstd = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act,
@@ -516,7 +559,7 @@ def time_sites(card: str, dev):
         del x, dy, y, xr, mean, rstd
     torch.cuda.empty_cache()
     for d in ("fwd", "bwd"):
-        print(f"  [{card}] K1 {d}, the 37 calls of one b=16 step: kernel "
+        print(f"  [{card}] K1 {d}, {label}: kernel "
               f"{tot[d, 'ms']:.3f} ms events, {tot[d, 'device_ms']:.3f} ms "
               f"device, plain {tot[d, 'plain_ms']:.3f} ms, F.instance_norm "
               f"{tot[d, 'library_ms']:.3f} ms, bound {tot[d, 'bound_ms']:.3f}"
@@ -524,22 +567,72 @@ def time_sites(card: str, dev):
     return tot, rows
 
 
-def step_routes(direction: str, b: int = B_TRAIN, steps: int = 1,
-                forwards: int = 0, forward_n: int = 1) -> dict:
-    """K1 calls per route, from the plan, in ``steps`` bf16 train steps at
-    batch ``b`` and ``forwards`` bf16 generator forwards at batch
-    ``forward_n`` (the eval's)."""
+def k1_vs_plain(n, hwc, act, dtype, dev, seed) -> tuple:
+    """Both K1 kernels against their plain twins at one site (phases 7 and
+    18): the site's plan, the forward's output and saved moments, then the
+    backward fed the kernel's own moments; two calls of each bitwise
+    equal.  Returns the largest forward and dx differences; raises outside
+    the limits (tests/test_pallas.py's and tests/test_torch_cuda.py's)."""
     from sggan_tpu_torch.ops import cuda_in
-    out = {}
-    sites = [(n, hwc, calls * steps) for n, hwc, _, calls in step_sites(b)]
-    if direction == "fwd":
-        sites += [(forward_n, hwc, c * forwards)
-                  for (hwc, _), c in zip(SITES, SITE_COUNT)]
-    for n, hwc, calls in sites:
-        if calls:
-            r = cuda_in.plan(n, *hwc, torch.bfloat16, direction).route
-            out[r] = out.get(r, 0) + calls
-    return out
+    from sggan_tpu_torch.ops import norm as tnorm
+    x, g, b = site_inputs(n, hwc, dtype, dev, seed=seed)
+    gd = torch.Generator(device=dev).manual_seed(100 + seed)
+    dy = torch.randn(x.shape, generator=gd, device=dev).to(dtype)
+    # the forward as the train step calls it: output and moments
+    y, mean, rstd = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act, 0.3,
+                                               save_stats=True)
+    again = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act, 0.3,
+                                       save_stats=True)
+    if not all(torch.equal(a, c) for a, c in zip((y, mean, rstd), again)):
+        raise AssertionError("two K1 forward calls differ bitwise")
+    ry, rmean, rrstd = tnorm._ref_forward(x, g, b, 1e-3, act, 0.3)
+    if y.dtype != dtype or mean.shape != (n, hwc[-1]):
+        raise AssertionError(f"forward output {y.dtype}, moments "
+                             f"{tuple(mean.shape)}")
+    dy_ = (y.float() - ry.float()).abs()
+    tol = TOL[dtype]
+    # saved moments: tests/test_torch_cuda.py's tolerances
+    n_bad = (int((dy_ > tol + tol * ry.float().abs()).sum())
+             + int(((mean - rmean).abs() > 1e-5 + 1e-5 * rmean.abs()).sum())
+             + int(((rstd - rrstd).abs() > 1e-5 + 1e-4 * rrstd.abs()).sum()))
+    f_err = max(dy_.max().item(), (mean - rmean).abs().max().item(),
+                (rstd - rrstd).abs().max().item())
+    print(f"  ({n},{','.join(map(str, hwc))}) act={act} "
+          f"{str(dtype)[6:]}: fwd {plan_line(n, hwc, dtype, 'fwd')}"
+          f"; bwd {plan_line(n, hwc, dtype, 'bwd')}")
+    print(f"    fwd y/mean/rstd max abs diff {f_err:.3g}, {n_bad} "
+          "outside; bitwise repeatable")
+    if n_bad:
+        raise AssertionError("forward kernel or its moments disagree with "
+                             "plain")
+    # both backwards fed the kernel's own moments, as the step feeds them:
+    # moments that differ by an ulp flip the act gate of the few elements
+    # whose pre-activation is that near 0, and each flip moves its whole
+    # plane's dx by ~|dy| / (H * W)
+    dx, dg, db = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd, act)
+    again = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd, act)
+    if not all(torch.equal(a, c) for a, c in zip((dx, dg, db), again)):
+        raise AssertionError("two K1 backward calls differ bitwise")
+    rdx, rdg, rdb = tnorm.instance_norm_bwd_ref(x, dy, g, b, mean, rstd, act)
+    if dx.dtype != dtype or dx.shape != x.shape:
+        raise AssertionError(f"backward output {dx.dtype} {tuple(dx.shape)}")
+    d = (dx.float() - rdx.float()).abs()
+    err = d.max().item()
+    scale = rdx.float().abs().max().item()
+    if dtype == torch.float32:  # tests/test_pallas.py's grad tol
+        n_bad = int((d > 1e-5 + 1e-4 * rdx.abs()).sum())
+    else:
+        n_bad = int(err > 2e-2 * scale)
+    e_g = max((dg - rdg).abs().max().item()
+              / max(rdg.abs().max().item(), 1e-30),
+              (db - rdb).abs().max().item()
+              / max(rdb.abs().max().item(), 1e-30))
+    print(f"    bwd dx max abs diff {err:.3g} (max |dx| {scale:.3g}), "
+          f"{n_bad} outside; dgamma/dbeta max rel diff {e_g:.3g} (tol "
+          "1e-4); bitwise repeatable")
+    if n_bad or e_g > 1e-4:
+        raise AssertionError("backward kernel disagrees with plain")
+    return f_err, err
 
 
 # ----------------------------------------------------------------------
@@ -1183,27 +1276,21 @@ def trainer_phase(card: str, dev, work: str) -> dict:
                         for x in (f"--{d}_dir", os.path.join(own, d)))])
     tr = Trainer(cfg, device=dev)
     torch.cuda.empty_cache()
-    # the main path starts here
-    cuda_in.launches = cuda_in.bwd_launches = 0
-    cuda_in.route_launches.update(dict.fromkeys(cuda_in.route_launches, 0))
+    reset_k1()  # the main path starts here
     tr.train()
-    torch.cuda.synchronize()
-    counts = {"fwd": cuda_in.launches, "bwd": cuda_in.bwd_launches}
-    routes = {d: {r: cuda_in.route_launches[d, r]
-                  for r in ("cluster", "stream", "scalar")
-                  if cuda_in.route_launches[d, r]} for d in ("fwd", "bwd")}
-    planned = {d: step_routes(d, b_eff, steps, forwards=int(d == "fwd"),
-                              forward_n=E2E_TEST) for d in ("fwd", "bwd")}
+    counts, routes = read_k1()
+    want = {"fwd": add_routes(planned(step_sites(b_eff), "fwd", steps),
+                              planned(gen_sites(E2E_TEST), "fwd")),
+            "bwd": planned(step_sites(b_eff), "bwd", steps)}
     print(f"  one epoch in-process: K1 forward {counts['fwd']}, backward "
           f"{counts['bwd']} ({steps} steps x {LAUNCHES_PER_STEP} each, plus "
           f"the eval's one forward of {E2E_TEST} images, 23 forward); by "
-          f"route {routes}, planned {planned}")
+          f"route {routes}, planned {want}")
     need(counts["fwd"] == steps * LAUNCHES_PER_STEP + 23
          and counts["bwd"] == steps * LAUNCHES_PER_STEP,
          "the trainer did not run K1 37 + 37 times a step and 23 times in "
          "the eval")
-    need(routes == planned, "the trainer's K1 calls left their planned "
-                            "routes")
+    need(routes == want, "the trainer's K1 calls left their planned routes")
     win = tr._prof
     need(win is not None and win.steps == 2, "no profiler window")
     wall_ms = 1e3 * win.seconds / win.steps
@@ -1236,6 +1323,550 @@ def trainer_phase(card: str, dev, work: str) -> dict:
             "trainer_routes": routes, "loop_step_ms": wall_ms,
             "loop_busy_ms": busy, "loop_idle_share": 1 - busy / wall_ms,
             "assembly_ms": pre_ms}
+
+
+# ----------------------------------------------------------------------
+# The CLI's default nets: the U-Net and the pix2pix pair (phases 17-21)
+# ----------------------------------------------------------------------
+
+UNET_HW = [(128, 128), (256, 512)]
+# the U-Net's 15 instance norms per forward as (C, act): e1, e2, e3,
+# e4-e7, e8, then d1-d4, d5, d6, d7; every one at full resolution
+UNET_SITES = [(64, "leaky_relu"), (128, "leaky_relu"), (256, "leaky_relu"),
+              (512, "leaky_relu"), (512, "relu"), (512, None), (256, None),
+              (128, None), (64, None)]
+UNET_COUNT = [1, 1, 1, 4, 1, 4, 1, 1, 1]
+UNET_B = 2               # the default batch 1, doubled by augmentation
+UNET_WIDE_B = (8, 4, 2)  # 256x512: the largest that fits
+UNET_ITERS = 8
+# the default CLI (no net or loss flag) on phase 16's PNG set, 128x128
+DEFAULT_TRAIN, DEFAULT_EPOCHS, DEFAULT_P2P_TRAIN = 48, 3, 8
+UNET_CATEGORIES = [
+    ("K1 backward", K1_BWD_KERNELS), ("K1 forward", K1_FWD_KERNELS),
+    ("convolutions, all passes (cuDNN)", ("xmma", "conv", "cutlass", "gemm",
+                                          "cudnn")),
+    ("random draws (dropout masks)", ("distribution",)),
+    ("Adam and EMA (foreach)", ("multi_tensor_apply",)),
+    ("copies and casts", ("copy",)),
+    ("reductions", ("reduce_kernel",))]
+# device time by the aten op that launched it: the conv and
+# conv-transpose forwards apart, their backwards together (one aten op for
+# both kinds); dropout's draws (uniforms, compared to keep) and its apply
+# (x / keep, the select, and the select of the backward; the losses'
+# few selects and divides on the logits join them).  The U-Net has no
+# batch norm.
+UNET_OPS = [("conv forward", ("aten::cudnn_convolution",)),
+            ("conv-transpose forward", ("aten::cudnn_convolution_transpose",)),
+            ("conv and conv-transpose backward",
+             ("aten::convolution_backward",)),
+            ("dropout draws: rand, lt", ("aten::rand", "aten::lt")),
+            ("dropout apply: div, where", ("aten::div", "aten::where"))]
+
+
+def d_sites(h: int, w: int, ndf: int = 64) -> list:
+    """((H, W, C), act) of the semantic discriminator's instance norms at an
+    h x w input: h1, h2, h3, then the VALID chain; all leaky_relu."""
+    from sggan_tpu_torch.models.discriminator import _valid_chain
+    hh, ww = h // 8, w // 8
+    out = [(h // 4, w // 4, 2 * ndf), (hh, ww, 4 * ndf), (hh, ww, 8 * ndf)]
+    for st in _valid_chain(hh, ww):
+        hh, ww = (hh - 3) // st + 1, (ww - 3) // st + 1
+        out.append((hh, ww, 8 * ndf))
+    return [(hwc, "leaky_relu") for hwc in out]
+
+
+def unet_sites(b: int, h: int, w: int) -> list:
+    """(N, (H, W, C), act, calls) of the U-Net's 15 instance norms."""
+    return [(b, (h, w, c), act, k)
+            for (c, act), k in zip(UNET_SITES, UNET_COUNT)]
+
+
+def unet_step_sites(b: int, h: int, w: int) -> list:
+    """Every instance norm of one p2p step with the U-Net: the generator's
+    15, the discriminator's in the generator loss (batch b) and in the
+    one call over [real; fake] (batch 2b)."""
+    ds = d_sites(h, w)
+    return (unet_sites(b, h, w) + [(b, hwc, act, 1) for hwc, act in ds]
+            + [(2 * b, hwc, act, 1) for hwc, act in ds])
+
+
+def planned(sites, direction: str, times: int = 1,
+            dtype=torch.bfloat16) -> dict:
+    """K1 calls per route, from the plan, of ``times`` runs of ``sites``."""
+    from sggan_tpu_torch.ops import cuda_in
+    out = {}
+    for n, hwc, _, calls in sites:
+        r = cuda_in.plan(n, *hwc, dtype, direction).route
+        out[r] = out.get(r, 0) + calls * times
+    return out
+
+
+def add_routes(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for r, k in c.items():
+            out[r] = out.get(r, 0) + k
+    return out
+
+
+def reset_k1() -> None:
+    from sggan_tpu_torch.ops import cuda_in
+    cuda_in.launches = cuda_in.bwd_launches = 0
+    cuda_in.route_launches.update(dict.fromkeys(cuda_in.route_launches, 0))
+
+
+def read_k1() -> tuple:
+    """K1's calls since ``reset_k1``: ({direction: calls}, {direction:
+    {route: calls}})."""
+    from sggan_tpu_torch.ops import cuda_in
+    torch.cuda.synchronize()
+    return ({"fwd": cuda_in.launches, "bwd": cuda_in.bwd_launches},
+            {d: {r: cuda_in.route_launches[d, r]
+                 for r in ("cluster", "stream", "scalar")
+                 if cuda_in.route_launches[d, r]} for d in ("fwd", "bwd")})
+
+
+def unet_route(h: int, c: int, dtype, direction: str) -> tuple:
+    """(route, cluster) that K1 must take at a U-Net site at b=2
+    (tests/test_torch_in_plan.py's table): at 128x128 a 16-CTA cluster at
+    C = 64, 256 and 512 and the stream route at C = 128; in f32 the
+    backward streams at every C; at 256x512 every site streams."""
+    if h == 256 or c == 128 or (dtype, direction) == (torch.float32, "bwd"):
+        return "stream", 1
+    return "cluster", 16
+
+
+def op_rows(prof, n_runs: int, wall_ms: float, title: str) -> dict:
+    """Device ms per run by the aten op that launched the kernels
+    (UNET_OPS), the busy time beside them; prints and returns the rows."""
+    busy = sum(k[0] for k in kernel_times(prof, n_runs))
+    # the host-side events: each one's device time is its kernels' and its
+    # child ops'
+    ops = {e.key: e for e in prof.key_averages()
+           if not str(getattr(e, "device_type", "")).endswith("CUDA")}
+
+    def dev_ms(e):
+        us = getattr(e, "device_time_total", None)
+        return (us if us is not None else e.cuda_time_total) / n_runs / 1e3
+    rows = {label: sum(dev_ms(ops[k]) for k in keys if k in ops)
+            for label, keys in UNET_OPS}
+    print(f"  {title}, by op: busy {busy:.3f} ms of {wall_ms:.3f} ms wall")
+    for label, ms in rows.items():
+        print(f"    {label:34s} {ms:8.4f} ms")
+    return rows
+
+
+def unet_gates(gen, x, cd, masks) -> list:
+    """The pre-activations at the U-Net's 10 gates (e1-e8 after IN, the
+    sums before the relus of d3 and d7) in one forward, read by wrapping
+    the module's own instance norm and relu."""
+    import sggan_tpu_torch.models.generator_unet as gu
+    pres = []
+    real_in, real_relu = gu.instance_norm, gu.relu
+
+    def rec_in(p, v, act=None, **kw):
+        if act is not None:
+            pres.append(real_in(p, v).float().cpu())
+        return real_in(p, v, act=act, **kw)
+
+    def rec_relu(v):
+        pres.append(v.float().cpu())
+        return real_relu(v)
+    gu.instance_norm, gu.relu = rec_in, rec_relu
+    try:
+        with torch.no_grad():
+            gen(x, {}, cd, masks)
+    finally:
+        gu.instance_norm, gu.relu = real_in, real_relu
+    return pres
+
+
+def unet_forward_phase(card: str, dev) -> dict:
+    """Phase 17.  The U-Net (15 K1 calls a forward, with and without
+    dropout masks) and the pix2pix generator (batch norm on its fresh
+    moving stats, then on the batch's with masks) at 128x128, ngf 64, b=2,
+    f32: the card's forward (TF32 off) against the same module's CPU
+    forward, at phase 4's limit on the tanh output."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.ops import cuda_in
+    from sggan_tpu_torch.train import evaluate
+    from sggan_tpu_torch.train import step as tstep
+    x = torch.rand(UNET_B, 128, 128, 3, generator=torch.Generator()
+                   .manual_seed(17))
+    errs = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for net, kw, k1_calls in (("U-Net", {}, 30),
+                                  ("pix2pix", {"use_pix2pix": True}, 0)):
+            cfg = Config(ngf=NGF, compute_dtype="float32", **kw)
+            gen = evaluate.build_generator(cfg)
+            masks = tstep.dropout_masks(cfg, gen, torch.Generator()
+                                        .manual_seed(18), UNET_B)
+
+            def runs(g, xx, mm, on):
+                st = g.init_bn_state(on)  # fresh moving stats; U-Net {}
+                return {"inference": g(xx, st, torch.float32)[0],
+                        "training, dropout": g(xx, st, torch.float32, mm,
+                                               train=True)[0]}
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                ref = runs(gen, x, masks, "cpu")
+                cpu_s = time.perf_counter() - t0
+                before = cuda_in.launches
+                got = runs(gen.to(dev), x.to(dev), [m.to(dev) for m in masks],
+                           dev)
+                calls = cuda_in.launches - before
+            if calls != k1_calls:
+                raise AssertionError(f"{net}: {calls} K1 calls in two "
+                                     "forwards")
+            for mode, r in ref.items():
+                g = got[mode].cpu()
+                d = (g - r).abs().max().item()
+                errs[f"{net} {mode}"] = d
+                print(f"  {net} f32 {mode} b={UNET_B} 128x128: card vs CPU "
+                      f"max abs diff {d:.3g} (atol {SLICE_ATOL}); CPU pair "
+                      f"{cpu_s:.1f} s; K1 calls on the card {calls}")
+                if not (g.shape == r.shape == (UNET_B, 128, 128, 3)
+                        and torch.isfinite(g).all() and d <= SLICE_ATOL):
+                    raise AssertionError(f"{net} {mode} card forward "
+                                         "disagrees with the CPU")
+            del gen
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return errs
+
+
+def unet_k1_sites() -> list:
+    """(N, (H, W, C), act), once each, of every instance norm on the U-Net
+    paths that phases 19-21 drive: the p2p step's (``unet_step_sites``) at
+    128x128 b=2 and at 256x512 at every b of UNET_WIDE_B, the eval's
+    forward of E2E_TEST images and the service's b=1 forward at 128x128."""
+    sites = [s for b, h, w in ((UNET_B, 128, 128),
+                               *((b, 256, 512) for b in UNET_WIDE_B))
+             for s in unet_step_sites(b, h, w)]
+    sites += unet_sites(E2E_TEST, 128, 128) + unet_sites(1, 128, 128)
+    return list(dict.fromkeys((n, hwc, act) for n, hwc, act, _ in sites))
+
+
+def unet_k1_phase(card: str, dev, errs: dict, bwd_errs: dict) -> dict:
+    """Phase 18.  Both K1 kernels against their plain twins at every site
+    of ``unet_k1_sites``, f32 and bf16, each call on the route its plan
+    names, the generator's sites at b=2 on the route of ``unet_route``
+    too; then the bf16 times of the generator's b=2 sites against the
+    routes the plan did not take (``time_sites``).  Returns {(h, w):
+    (sums, rows)}."""
+    from sggan_tpu_torch.ops import cuda_in
+    sites = unet_k1_sites()
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (n, (h, w, c), act) in enumerate(sites):
+            p = {d: cuda_in.plan(n, h, w, c, dtype, d)
+                 for d in ("fwd", "bwd")}
+            if n == UNET_B and (c, act) in UNET_SITES and (h, w) in UNET_HW:
+                for d in ("fwd", "bwd"):
+                    if (p[d].route, p[d].cluster) != unet_route(h, c, dtype,
+                                                                d):
+                        raise AssertionError(f"K1 plan at ({n},{h},{w},{c})"
+                                             f" {dtype} {d}: {p[d]}")
+            reset_k1()
+            f_err, b_err = k1_vs_plain(n, (h, w, c), act, dtype, dev,
+                                       seed=200 + i)
+            _, routes = read_k1()
+            if routes != {d: {p[d].route: 2} for d in ("fwd", "bwd")}:
+                raise AssertionError(f"K1 calls left their planned route: "
+                                     f"{routes}, plan {p}")
+            errs[dtype] = max(errs[dtype], f_err)
+            bwd_errs[dtype] = max(bwd_errs[dtype], b_err)
+        torch.cuda.empty_cache()
+    print(f"  K1 held to its plain twins on its planned routes at "
+          f"{len(sites)} U-Net path sites x 2 dtypes")
+    out = {}
+    for h, w in UNET_HW:
+        # one act a width: the act changes one select, not the traffic
+        sites = [(UNET_B, (h, w, c), "leaky_relu", k)
+                 for c, k in ((64, 2), (128, 2), (256, 2), (512, 9))]
+        out[h, w] = time_sites(card, dev, sites, f"the U-Net's 15 calls at "
+                               f"{h}x{w} b={UNET_B}")
+    return out
+
+
+def unet_step_cell(card: str, dev, h: int, w: int, b: int,
+                   n_steps: int) -> dict:
+    """The bf16 p2p step with the U-Net (the default nets, dropout on) at
+    h x w, batch b: ``n_steps`` steps from counts of 0 with K1's exact
+    calls per step by route; then img/s by CUDA events, peak memory and a
+    profiler breakdown of 2 steps (by kernel and by op) with the idle
+    share.  Raises torch.cuda.OutOfMemoryError if it does not fit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import step as tstep
+    cfg = Config(image_height=h, image_width=w, ngf=NGF, ndf=64,
+                 segment_class=N_CLASS, batch_size=b,
+                 compute_dtype="bfloat16")
+    holder = [tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)]
+    batch = train_batch(cfg, b, dev, seed=5)
+    step_fn = tstep.build_step_fn(cfg)
+    mask_gen = torch.Generator(device=dev).manual_seed(8)
+
+    def one():
+        masks = tstep.dropout_masks(cfg, holder[0].gen_params, mask_gen, b)
+        holder[0], m = step_fn(holder[0], batch, 1e-3, None, masks)
+        return m
+    torch.cuda.reset_peak_memory_stats()
+    reset_k1()  # this cell's main path starts here
+    losses = torch.stack([torch.stack(list(one().values()))
+                          for _ in range(n_steps)]).cpu()
+    counts, routes = read_k1()
+    sites = unet_step_sites(b, h, w)
+    per = sum(c for *_, c in sites)
+    want = {d: planned(sites, d, n_steps) for d in ("fwd", "bwd")}
+    print(f"  [{card}] p2p U-Net step bf16 {h}x{w} b={b}: {n_steps} steps, "
+          f"K1 forward {counts['fwd']}, backward {counts['bwd']} ({per} "
+          f"each a step expected); by route {routes}, planned {want}; "
+          f"losses {[round(v, 4) for v in losses.flatten().tolist()]}")
+    need(counts == {"fwd": per * n_steps, "bwd": per * n_steps}
+         and routes == want, "the U-Net step's K1 calls left their count "
+                             "or their planned routes")
+    need(bool(torch.isfinite(losses).all()) and holder[0].step == n_steps,
+         "the U-Net step's losses are not finite")
+    iters = UNET_ITERS if b * h * w <= 2 * 128 * 128 else 4
+    ms = cuda_ms(one, iters, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  [{card}] p2p U-Net step bf16 {h}x{w} b={b}: {ms:.3f} ms, "
+          f"{1e3 * b / ms:.1f} img/s, peak memory {peak:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+    title = f"[{card}] profiler, p2p U-Net step bf16 {h}x{w} b={b}"
+    print_breakdown(prof, 2, ms, title, UNET_CATEGORIES)
+    busy = sum(k[0] for k in kernel_times(prof, 2))
+    rows = op_rows(prof, 2, ms, title)
+    return {"hw": [h, w], "batch": b, "step_ms": ms,
+            "img_per_s": 1e3 * b / ms, "peak_gib": peak, "busy_ms": busy,
+            "idle_share": 1 - busy / ms, "by_op_ms": rows,
+            "k1_per_step": {d: counts[d] // n_steps for d in counts},
+            "k1_routes_per_step": {d: {r: k // n_steps for r, k in v.items()}
+                                   for d, v in routes.items()}}
+
+
+def unet_step_phase(card: str, dev) -> dict:
+    """Phase 19.  One f32 p2p U-Net step, card against CPU, at 32x64 b=2
+    with dropout masks fed (phase 8's limits; a generator gate within f32
+    noise of 0 that the two devices put on opposite sides moves every
+    gradient upstream of it, and then the full-width limits apply, as
+    tests/test_torch_unet.py explains); then the bf16 step cells at
+    128x128 b=2 and at 256x512 at the largest of UNET_WIDE_B that fits."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import step as tstep
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = Config(image_height=32, image_width=64, ngf=4, ndf=4,
+                   segment_class=8, batch_size=2, compute_dtype="float32")
+    loss_err, rows, _, dead_live = step_card_vs_cpu(small, 2)
+    st = tstep.init_state(small, torch.Generator().manual_seed(0), "cpu")
+    masks = tstep.dropout_masks(small, st.gen_params,
+                                torch.Generator().manual_seed(7), 2)
+    x = train_batch(small, 2, "cpu", seed=3)["real_a"]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_g = unet_gates(st.gen_params, x, torch.float32, masks)
+    card_g = unet_gates(st.gen_params.to(dev), x.to(dev), torch.float32,
+                        [m.to(dev) for m in masks])
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    flips = sum(int(((a >= 0) != (c >= 0)).sum())
+                for a, c in zip(cpu_g, card_g))
+    lim = (1e-3, float("inf")) if not flips else (STEP_MAX_REL, STEP_NORM_REL)
+    print(f"    generator gates on opposite sides, card vs CPU: {flips}; "
+          f"held at max |diff| / max |g| <= {lim[0]}"
+          + (f", |diff| / |g| <= {lim[1]}" if flips else ""))
+    need(loss_err <= 1e-4 and not dead_live
+         and max(r[0] for r in rows) <= lim[0]
+         and max(r[1] for r in rows) <= lim[1],
+         "the card's U-Net step disagrees with the CPU's")
+    cells = {}
+    for (h, w), bs, n in (((128, 128), (UNET_B,), 6),
+                          ((256, 512), UNET_WIDE_B, 2)):
+        for b in bs:
+            try:
+                cells[f"{h}x{w}"] = unet_step_cell(card, dev, h, w, b, n)
+                break
+            except torch.cuda.OutOfMemoryError:
+                print(f"  [{card}] p2p U-Net step bf16 {h}x{w} b={b}: out "
+                      "of memory")
+            finally:
+                torch.cuda.empty_cache()
+        need(f"{h}x{w}" in cells, f"no U-Net step fits at {h}x{w}")
+    return cells
+
+
+def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
+    """Phase 20.  ``python -m sggan_tpu_torch.main --phase train`` with no
+    net or loss flag (the U-Net with the semantic discriminator, p2p loss,
+    dropout on, b=1 doubled to 2, 128x128, bf16) on phase 16's PNG set,
+    ``--train_size`` 48: train, test and resume, checked as phase 16 checks
+    them; one in-process epoch with K1's exact calls a step; then one
+    short epoch with ``--use_pix2pix`` whose checkpoint carries both nets'
+    BN state, moved by the steps."""
+    from sggan_tpu_torch.config import parse_args
+    from sggan_tpu_torch.train.trainer import Trainer
+    from sggan_tpu_torch.utils.summary import read_scalars
+    args = ["--dataset_dir", root, "--train_size", str(DEFAULT_TRAIN),
+            "--print_freq", "1000", "--data_seed", "23"]
+    run_dir = os.path.join(work, "default_cli")
+    os.makedirs(run_dir)
+    ck = os.path.join(run_dir, "checkpoint", "city")
+    out, _ = run_cli(run_dir, f"no net or loss flag, train "
+                     f"{DEFAULT_EPOCHS} epochs",
+                     ["--phase", "train", "--epoch", str(DEFAULT_EPOCHS),
+                      *args])
+    need(" [*] training split resident" in out,
+         "the default run did not take the resident split")
+    losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
+    need(len(losses) == DEFAULT_EPOCHS
+         and all(math.isfinite(v) for p in losses for v in p),
+         f"losses not finite at every print: {losses}")
+    m = re.search(r"Training finished: step (\d+), (\d+) images in "
+                  r"([\d.]+) s", out)
+    need(m and int(m.group(1)) == DEFAULT_EPOCHS * DEFAULT_TRAIN,
+         "the default run did not finish its steps")
+    wall_rate = int(m.group(2)) / float(m.group(3))
+    gen_cp = torch.load(os.path.join(
+        ck, "gen", f"cp-{DEFAULT_EPOCHS - 1:04d}.pt"), weights_only=True)
+    need("e8.w" in gen_cp["params"] and gen_cp["bn"] == {},
+         "the default run's checkpoint is not the U-Net's")
+    events = glob.glob(os.path.join(run_dir, "logs", "*", "train",
+                                    "events.out.tfevents.*"))
+    need(len(events) == 1, "no tfevents file")
+    rates = [v for _, v in read_scalars(events[0])["Images/sec"]]
+    need(len(rates) == DEFAULT_EPOCHS, "no Images/sec per epoch")
+    sustained = float(np.mean(rates[1:]))
+    print(f"  [{card}] default config (U-Net, p2p, 128x128, b=1 doubled to "
+          f"2): epoch img/s {[round(r, 2) for r in rates]} (StepTimer), "
+          f"sustained (epochs >= 1) {sustained:.2f} img/s, whole run "
+          f"{wall_rate:.2f} img/s")
+    out, _ = run_cli(run_dir, "test", ["--phase", "test", *args])
+    need(" [*] Load SUCCESS" in out and all(os.path.isfile(os.path.join(
+        run_dir, "test", f"real_s{i:04d}.png")) for i in range(E2E_TEST)),
+        "--phase test did not load or wrote no PNGs")
+    out, _ = run_cli(run_dir, "resume for 1 epoch",
+                     ["--phase", "train", "--continue_train", "--epoch", "1",
+                      *args])
+    resumed = torch.load(os.path.join(ck, "train", f"cp-"
+                                      f"{DEFAULT_EPOCHS:04d}.pt"),
+                         weights_only=True)["step"]
+    need(" [*] Load SUCCESS" in out
+         and resumed == (DEFAULT_EPOCHS + 1) * DEFAULT_TRAIN,
+         "--continue_train did not resume at the saved step")
+
+    # one epoch in-process: K1's calls a step and by route
+    own = os.path.join(work, "default_inproc")
+    cfg = parse_args(["--phase", "train", "--epoch", "1", *args,
+                      *(x for d in ("checkpoint", "test", "sample", "log")
+                        for x in (f"--{d}_dir", os.path.join(own, d)))])
+    tr = Trainer(cfg, device=dev)
+    reset_k1()  # this main path starts here
+    tr.train()
+    counts, routes = read_k1()
+    sites = unet_step_sites(UNET_B, 128, 128)
+    per = sum(c for *_, c in sites)
+    want = {"fwd": add_routes(planned(sites, "fwd", DEFAULT_TRAIN),
+                              planned(unet_sites(E2E_TEST, 128, 128), "fwd")),
+            "bwd": planned(sites, "bwd", DEFAULT_TRAIN)}
+    print(f"  one default epoch in-process: K1 forward {counts['fwd']}, "
+          f"backward {counts['bwd']} ({DEFAULT_TRAIN} steps x {per} each, "
+          f"plus the eval's forward of {E2E_TEST} images, 15 forward); by "
+          f"route {routes}, planned {want}")
+    need(counts == {"fwd": DEFAULT_TRAIN * per + 15,
+                    "bwd": DEFAULT_TRAIN * per} and routes == want,
+         "the default trainer's K1 calls left their count or routes")
+    del tr
+    torch.cuda.empty_cache()
+
+    p2p_dir = os.path.join(work, "pix2pix_cli")
+    os.makedirs(p2p_dir)
+    out, _ = run_cli(p2p_dir, "--use_pix2pix, 1 epoch",
+                     ["--phase", "train", "--epoch", "1", "--use_pix2pix",
+                      "--dataset_dir", root, "--train_size",
+                      str(DEFAULT_P2P_TRAIN), "--print_freq", "1"])
+    losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
+    need(len(losses) == DEFAULT_P2P_TRAIN
+         and all(math.isfinite(v) for p in losses for v in p),
+         f"pix2pix losses not finite: {losses}")
+    pck = os.path.join(p2p_dir, "checkpoint", "city")
+    gen_cp = torch.load(os.path.join(pck, "gen", "cp-0000.pt"),
+                        weights_only=True)
+    disc_cp = torch.load(os.path.join(pck, "disc", "cp-0000.pt"),
+                         weights_only=True)
+    moved = gen_cp["bn"].get("up0_bn", {}).get("moving_mean")
+    print(f"  pix2pix epoch: losses {losses[-1]}; checkpoint BN state: "
+          f"generator {len(gen_cp['bn'])} norms, discriminator "
+          f"{len(disc_cp['bn'])}")
+    # at 128x128: 7 down blocks (BN on 6), 6 up blocks (BN on each)
+    need(set(gen_cp["bn"]) == {*(f"down{i}_bn" for i in range(1, 7)),
+                               *(f"up{i}_bn" for i in range(6))}
+         and set(disc_cp["bn"]) == {"down1_bn", "down2_bn", "conv_bn"}
+         and moved is not None and bool(moved.abs().max() > 0),
+         "the pix2pix checkpoint carries no moved BN state")
+    return {"sustained_img_per_s": sustained, "epoch_img_per_s": rates,
+            "wall_img_per_s": wall_rate, "k1_per_step": per,
+            "trainer_launches": counts, "trainer_routes": routes}
+
+
+def unet_serve_phase(card: str, dev) -> dict:
+    """Phase 21.  /translate with the U-Net at 128x128 (15 K1 calls a
+    request), then the U-Net's bf16 forward ms at b=1 and b=16, 128x128
+    and 256x512."""
+    from PIL import Image
+
+    from sggan_tpu_torch import serve as srv
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.ops import cuda_in
+    from sggan_tpu_torch.train import evaluate
+    cfg = Config(ngf=NGF, compute_dtype="bfloat16")
+    httpd = srv.serve(cfg, port=0, block=False, device="cuda")
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    lat = []
+    try:
+        port = httpd.server_address[1]
+        rng = np.random.default_rng(21)
+        for ih, iw in ((128, 128), (512, 1024), (128, 128), (128, 128)):
+            before = cuda_in.launches
+            t0 = time.perf_counter()
+            status, data = post(port, png(rng.integers(0, 256, (ih, iw, 3),
+                                                       np.uint8)))
+            lat.append((time.perf_counter() - t0) * 1e3)
+            out = np.asarray(Image.open(io.BytesIO(data)))
+            calls = cuda_in.launches - before
+            print(f"  POST {ih}x{iw} to the U-Net: {status}, {out.shape}, "
+                  f"{lat[-1]:.1f} ms, +{calls} K1 calls")
+            need(status == 200 and out.shape == (128, 128, 3)
+                 and out.std() > 0 and calls == 15, "bad U-Net translation")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    gen = evaluate.build_generator(cfg).to(dev)
+    fwd = {}
+    with torch.inference_mode():
+        for h, w in UNET_HW:
+            for n, iters in ((1, 20), (16, 5)):
+                x = torch.rand(n, h, w, 3, device=dev)
+                fwd[f"{h}x{w}_b{n}"] = ms = cuda_ms(
+                    lambda: gen(x, {}, torch.bfloat16), iters)
+                print(f"  [{card}] U-Net forward bf16 {h}x{w} b={n}: "
+                      f"{ms:.3f} ms ({ms / n:.3f} ms/image)")
+                del x
+    del gen
+    torch.cuda.empty_cache()
+    return {"translate_ms": lat, "forward_ms": fwd}
 
 
 def main() -> int:
@@ -1332,15 +1963,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.inference_mode():
         t0 = time.perf_counter()
-        ref = gen(x_cpu, torch.float32)
+        ref = gen(x_cpu, {}, torch.float32)[0]
         cpu_fwd_s = time.perf_counter() - t0
         print(f"  cpu f32 forward {cpu_fwd_s:.2f} s")
         gen = gen.to(dev)
         before = cuda_in.launches
-        out32 = gen(x_cpu.to(dev), torch.float32).cpu()
+        out32 = gen(x_cpu.to(dev), {}, torch.float32)[0].cpu()
         if cuda_in.launches - before != 23:
             raise AssertionError("card forward did not run 23 kernel IN")
-        out16 = gen(x_cpu.to(dev), torch.bfloat16).cpu()
+        out16 = gen(x_cpu.to(dev), {}, torch.bfloat16)[0].cpu()
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
     d32 = (out32 - ref).abs().max().item()
@@ -1420,7 +2051,7 @@ def main() -> int:
     with torch.inference_mode():
         for n, iters in ((1, 20), (16, 5)):
             x = torch.round(torch.rand(n, H, W, 3, device=dev) * 255.0)
-            fwd_ms[n] = cuda_ms(lambda: gen(x, torch.bfloat16), iters)
+            fwd_ms[n] = cuda_ms(lambda: gen(x, {}, torch.bfloat16), iters)
             print(f"  [{card}] generator forward bf16 b={n}: "
                   f"{fwd_ms[n]:.3f} ms ({fwd_ms[n] / n:.3f} ms/image)")
     k_ms, p_ms = {}, {}
@@ -1480,74 +2111,9 @@ def main() -> int:
                 for hwc, act in D_SITES])
     for dtype in (torch.float32, torch.bfloat16):
         for i, (n, hwc, act) in enumerate(cases):
-            x, g, b = site_inputs(n, hwc, dtype, dev, seed=i)
-            gd = torch.Generator(device=dev).manual_seed(100 + i)
-            dy = torch.randn(x.shape, generator=gd, device=dev).to(dtype)
-            # the forward as the train step calls it: output and moments
-            y, mean, rstd = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act,
-                                                       0.3, save_stats=True)
-            again = cuda_in.instance_norm_cuda(x, g, b, 1e-3, act, 0.3,
-                                               save_stats=True)
-            if not all(torch.equal(a, c) for a, c in zip((y, mean, rstd),
-                                                         again)):
-                raise AssertionError("two K1 forward calls differ bitwise")
-            ry, rmean, rrstd = tnorm._ref_forward(x, g, b, 1e-3, act, 0.3)
-            if y.dtype != dtype or mean.shape != (n, hwc[-1]):
-                raise AssertionError(f"forward output {y.dtype}, moments "
-                                     f"{tuple(mean.shape)}")
-            dy_ = (y.float() - ry.float()).abs()
-            tol = TOL[dtype]
-            # saved moments: tests/test_torch_cuda.py's tolerances
-            n_bad = (int((dy_ > tol + tol * ry.float().abs()).sum())
-                     + int(((mean - rmean).abs()
-                            > 1e-5 + 1e-5 * rmean.abs()).sum())
-                     + int(((rstd - rrstd).abs()
-                            > 1e-5 + 1e-4 * rrstd.abs()).sum()))
-            f_err = max(dy_.max().item(), (mean - rmean).abs().max().item(),
-                        (rstd - rrstd).abs().max().item())
+            f_err, b_err = k1_vs_plain(n, hwc, act, dtype, dev, seed=i)
             errs[dtype] = max(errs[dtype], f_err)
-            print(f"  ({n},{','.join(map(str, hwc))}) act={act} "
-                  f"{str(dtype)[6:]}: fwd {plan_line(n, hwc, dtype, 'fwd')}"
-                  f"; bwd {plan_line(n, hwc, dtype, 'bwd')}")
-            print(f"    fwd y/mean/rstd max abs diff {f_err:.3g}, {n_bad} "
-                  "outside; bitwise repeatable")
-            if n_bad:
-                raise AssertionError("forward kernel or its moments "
-                                     "disagree with plain")
-            # both backwards fed the kernel's own moments, as the step
-            # feeds them: moments that differ by an ulp flip the act gate
-            # of the few elements whose pre-activation is that near 0, and
-            # each flip moves its whole plane's dx by ~|dy| / (H * W)
-            dx, dg, db = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean,
-                                                        rstd, act)
-            again = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd,
-                                                   act)
-            if not all(torch.equal(a, c) for a, c in zip((dx, dg, db),
-                                                         again)):
-                raise AssertionError("two K1 backward calls differ bitwise")
-            rdx, rdg, rdb = tnorm.instance_norm_bwd_ref(x, dy, g, b, mean,
-                                                        rstd, act)
-            if dx.dtype != dtype or dx.shape != x.shape:
-                raise AssertionError(f"backward output {dx.dtype} "
-                                     f"{tuple(dx.shape)}")
-            d = (dx.float() - rdx.float()).abs()
-            err = d.max().item()
-            scale = rdx.float().abs().max().item()
-            if dtype == torch.float32:  # tests/test_pallas.py's grad tol
-                n_bad = int((d > 1e-5 + 1e-4 * rdx.abs()).sum())
-            else:
-                n_bad = int(err > 2e-2 * scale)
-            e_g = max((dg - rdg).abs().max().item()
-                      / max(rdg.abs().max().item(), 1e-30),
-                      (db - rdb).abs().max().item()
-                      / max(rdb.abs().max().item(), 1e-30))
-            bwd_errs[dtype] = max(bwd_errs[dtype], err)
-            print(f"    bwd dx max abs diff {err:.3g} (max |dx| "
-                  f"{scale:.3g}), {n_bad} outside; dgamma/dbeta max rel "
-                  f"diff {e_g:.3g} (tol 1e-4); bitwise repeatable")
-            if n_bad or e_g > 1e-4:
-                raise AssertionError("backward kernel disagrees with plain")
-            del x, dy, y, ry, dy_, dx, rdx, d, again
+            bwd_errs[dtype] = max(bwd_errs[dtype], b_err)
     torch.cuda.empty_cache()
 
     phase("8 train step f32, card vs CPU")
@@ -1601,16 +2167,14 @@ def main() -> int:
     batch = train_batch(cfg, B_TRAIN, dev, seed=5)
     step_fn = tstep.build_step_fn(cfg)
     draw_gen = torch.Generator().manual_seed(6)
-    # the main path starts here
-    cuda_in.launches = cuda_in.bwd_launches = 0
-    cuda_in.route_launches.update(dict.fromkeys(cuda_in.route_launches, 0))
+    reset_k1()  # the main path starts here
     step_losses = []
     for _ in range(N_STEPS):
         state, m = step_fn(state, batch, 1e-3, tpool.pool_draws(
             draw_gen, B_TRAIN, cfg.max_size))
         step_losses.append(torch.stack([m["gen_loss"], m["disc_loss"]]))
-    torch.cuda.synchronize()
-    train_fwd, train_bwd = cuda_in.launches, cuda_in.bwd_launches
+    counts, by_route = read_k1()
+    train_fwd, train_bwd = counts["fwd"], counts["bwd"]
     step_losses = torch.stack(step_losses).cpu()
     print(f"  {N_STEPS} steps: K1 launches forward {train_fwd}, backward "
           f"{train_bwd} ({LAUNCHES_PER_STEP} each per step expected); pool "
@@ -1623,13 +2187,12 @@ def main() -> int:
                              "backward kernel launches per step")
     if not torch.isfinite(step_losses).all() or state.step != N_STEPS:
         raise AssertionError("train step losses not finite")
-    routes = {d: {r: cuda_in.route_launches[d, r] // N_STEPS
-                  for r in ("cluster", "stream", "scalar")
-                  if cuda_in.route_launches[d, r]} for d in ("fwd", "bwd")}
-    print(f"  K1 calls per step by route: {routes} (planned "
-          f"{ {d: step_routes(d) for d in ('fwd', 'bwd')} })")
+    routes = {d: {r: k // N_STEPS for r, k in v.items()}
+              for d, v in by_route.items()}
+    want = {d: planned(step_sites(), d) for d in ("fwd", "bwd")}
+    print(f"  K1 calls per step by route: {routes} (planned {want})")
     for d in ("fwd", "bwd"):
-        if routes[d] != step_routes(d) or "scalar" in routes[d]:
+        if routes[d] != want[d] or "scalar" in routes[d]:
             raise AssertionError(f"the step's K1 {d} calls did not take the "
                                  "planned 16-byte routes")
 
@@ -1790,7 +2353,27 @@ def main() -> int:
     if os.path.isdir(work):
         shutil.rmtree(work)
     e2e = trainer_phase(card, dev, work)
+
+    phase("17 U-Net and pix2pix forward at 128x128, ngf 64, f32, card vs "
+          "CPU")
+    unet_fwd_errs = unet_forward_phase(card, dev)
+
+    phase("18 K1 forward and backward vs plain at every site of the U-Net's "
+          "paths")
+    unet_k1 = unet_k1_phase(card, dev, errs, bwd_errs)
+
+    phase("19 the p2p U-Net step on the card (main path)")
+    unet_cells = unet_step_phase(card, dev)
+
+    phase("20 the default CLI end to end (main path): python -m "
+          "sggan_tpu_torch.main with no net or loss flag, then "
+          "--use_pix2pix")
+    dflt = default_cli_phase(card, dev, work,
+                             os.path.join(work, "datasets", "city"))
     shutil.rmtree(work)
+
+    phase("21 /translate with the U-Net at 128x128 and its forward times")
+    unet_srv = unet_serve_phase(card, dev)
 
     def entry(name, d, replaces, launches, errs_d):
         return {"name": name, "route": "cuda",
@@ -1833,6 +2416,32 @@ def main() -> int:
             "calls in one in-process epoch of the trainer (phase 16): "
             f"{E2E_TRAIN // E2E_B} steps at b={2 * E2E_B}"
             + (" and the eval's generator forward" if d == "fwd" else ""))
+        # the default nets (phases 18-20)
+        ent["launches_default_cli"] = dflt["trainer_launches"][d]
+        ent["routes_default_cli"] = dflt["trainer_routes"][d]
+        ent["launches_default_cli_is"] = (
+            "calls in one in-process epoch of the default config (phase "
+            f"20): {DEFAULT_TRAIN} U-Net p2p steps at b={UNET_B}, 128x128"
+            + (" and the eval's generator forward" if d == "fwd" else ""))
+        ent["unet_step_per_step"] = {
+            k: {"calls": c["k1_per_step"][d],
+                "routes": c["k1_routes_per_step"][d]}
+            for k, c in unet_cells.items()}
+        ent["unet"] = {
+            f"{h}x{w}": {"ms": tot[d, "ms"], "device_ms": tot[d, "device_ms"],
+                         "plain_ms": tot[d, "plain_ms"],
+                         "bound_ms": tot[d, "bound_ms"],
+                         "library_ms": tot[d, "library_ms"],
+                         "sites": [{"site": [r["n"], *r["hwc"]],
+                                    "calls": r["calls"],
+                                    "route": r[f"{d}_route"],
+                                    **{k[len(d) + 1:]: v for k, v in r.items()
+                                       if k.startswith(d + "_")
+                                       and k.endswith("_ms")}}
+                                   for r in rows]}
+            for (h, w), (tot, rows) in unet_k1.items()}
+        ent["unet_is"] = ("the U-Net's 15 calls of one b=2 bf16 forward or "
+                          "backward at each size, by site (phase 18)")
     print(card)
     print(json.dumps({"e2e": {
         "config": "perf_epoch_e2e fused-aug: 96 PNG triplets 512x1024, "
@@ -1842,6 +2451,16 @@ def main() -> int:
         "preprocess_img_per_s": {
             f"ds{ds}_photometric_{'on' if pho else 'off'}": r
             for (ds, pho), r in pre_rates.items()}}}))
+    print(card)
+    print(json.dumps({"unet": {
+        "config": "the CLI default: U-Net generator ngf 64, semantic "
+                  "discriminator ndf 64, p2p loss, dropout on, bf16, 34 "
+                  "classes; step cells from synthetic batches (phase 19), "
+                  "the CLI on phase 16's PNG set at 128x128 (phase 20)",
+        "f32_card_vs_cpu_max_abs": unet_fwd_errs, "step": unet_cells,
+        "default_cli": {k: v for k, v in dflt.items()
+                        if not k.startswith("trainer_")},
+        **unet_srv}}))
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k2]}))
     print(json.dumps({"ok": True, "device": {

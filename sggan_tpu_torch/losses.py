@@ -35,9 +35,16 @@ def mae_criterion(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """tf.nn.sigmoid_cross_entropy_with_logits, elementwise."""
+    """tf.nn.sigmoid_cross_entropy_with_logits, elementwise.  At a logit of
+    exactly 0 the gradient follows JAX's subgradients (``maximum`` splits
+    a tie, ``abs`` takes +1), so it is ``-z`` there as in the JAX package,
+    not torch's ``1 - z``: the semantic discriminator's logits are exactly
+    0 at init wherever its last instance norm sees a 1x1 plane (128x128
+    and 32x32 inputs)."""
     x, z = logits.float(), labels.float()
-    return torch.clamp_min(x, 0) - x * z + torch.log1p(torch.exp(-x.abs()))
+    ax = torch.where(x >= 0, x, -x)
+    return (torch.maximum(x, torch.zeros_like(x)) - x * z
+            + torch.log1p(torch.exp(-ax)))
 
 
 def sce_criterion(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

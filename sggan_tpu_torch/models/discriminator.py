@@ -19,11 +19,10 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
-from torch import nn
 
 from ..ops import (conv2d, conv2d_init, instance_norm, instance_norm_init,
                    leaky_relu)
-from .generator_resnet import _params
+from .base import Net, _params
 
 
 def _valid_chain(h: int, w: int) -> List[int]:
@@ -39,7 +38,7 @@ def _valid_chain(h: int, w: int) -> List[int]:
     return chain
 
 
-class Discriminator(nn.Module):
+class Discriminator(Net):
     def __init__(self, ndf: int = 64, input_nc: int = 3, n_class: int = 34,
                  image_size: Tuple[int, int] = (128, 128),
                  head: str = "global",

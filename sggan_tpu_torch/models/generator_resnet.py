@@ -16,7 +16,7 @@ same math in another summation order, shaped for the TPU's matrix unit.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -24,15 +24,12 @@ from torch import nn
 from ..ops import (conv2d, conv2d_init, conv2d_reflect, conv2d_transpose,
                    conv2d_transpose_init, instance_norm, instance_norm_init,
                    reflect_pad, tanh)
+from .base import BNState, Net, _params
 
 N_BLOCKS = 9
 
 
-def _params(d: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in d.items()})
-
-
-class GeneratorResnet(nn.Module):
+class GeneratorResnet(Net):
     def __init__(self, ngf: int = 64, input_nc: int = 3, output_nc: int = 3,
                  generator: Optional[torch.Generator] = None):
         """Keras-default init (glorot kernels, zero biases, IN gamma 1 /
@@ -68,10 +65,14 @@ class GeneratorResnet(nn.Module):
         y = instance_norm(b["in2"], y)
         return y + x
 
-    def forward(self, x: torch.Tensor,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, state: BNState,
+                compute_dtype: Optional[torch.dtype] = None,
+                drop_masks: Optional[Sequence[torch.Tensor]] = None,
+                train: bool = False) -> Tuple[torch.Tensor, BNState]:
         """x: (N, H, W, C) with H, W divisible by 4.  Returns the float32
-        tanh image, NHWC."""
+        tanh image, NHWC, and ``state`` as it came: the net has no batch
+        norm and no dropout, so ``state`` is {} and ``drop_masks`` and
+        ``train`` change nothing (the generators' common signature)."""
         cd = compute_dtype or x.dtype
         y = conv2d_reflect(self.c1, x.to(cd), cd, bias=False)
         y = instance_norm(self.c1_in, y, act="relu")
@@ -86,4 +87,4 @@ class GeneratorResnet(nn.Module):
         y = conv2d_transpose(self.d2, y, 2, "SAME", cd, bias=False)
         y = instance_norm(self.d2_in, y, act="relu")
         y = conv2d(self.out, reflect_pad(y, 3), 1, "VALID", cd)
-        return tanh(y.float())
+        return tanh(y.float()), state

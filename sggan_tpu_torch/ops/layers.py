@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Mapping, Sequence, Tuple, Union
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -56,10 +56,19 @@ def glorot_uniform(shape: Sequence[int], generator: torch.Generator,
     return u * (2 * limit) - limit
 
 
+def normal_init(stddev: float = 0.02):
+    """Keras RandomNormal(0, stddev), the pix2pix nets' kernel init."""
+    def init(shape: Sequence[int], generator: torch.Generator,
+             dtype=torch.float32) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=generator,
+                           dtype=dtype) * stddev
+    return init
+
+
 def conv2d_init(kh: int, kw: int, cin: int, cout: int,
                 generator: torch.Generator, use_bias: bool = True,
-                dtype=torch.float32) -> dict:
-    w = glorot_uniform((kh, kw, cin, cout), generator, dtype)
+                dtype=torch.float32, kernel_init=glorot_uniform) -> dict:
+    w = kernel_init((kh, kw, cin, cout), generator, dtype)
     p = {"w": w.permute(3, 2, 0, 1).contiguous()}
     if use_bias:
         p["b"] = torch.zeros(cout, dtype=dtype)
@@ -68,10 +77,11 @@ def conv2d_init(kh: int, kw: int, cin: int, cout: int,
 
 def conv2d_transpose_init(kh: int, kw: int, cin: int, cout: int,
                           generator: torch.Generator, use_bias: bool = True,
-                          dtype=torch.float32) -> dict:
+                          dtype=torch.float32,
+                          kernel_init=glorot_uniform) -> dict:
     # drawn in TF Conv2DTranspose layout (kh, kw, cout, cin), as the JAX
     # package draws it, then moved to torch's (cin, cout, kh, kw)
-    w = glorot_uniform((kh, kw, cout, cin), generator, dtype)
+    w = kernel_init((kh, kw, cout, cin), generator, dtype)
     p = {"w": w.permute(3, 2, 0, 1).contiguous()}
     if use_bias:
         p["b"] = torch.zeros(cout, dtype=dtype)
@@ -133,21 +143,29 @@ def conv2d_transpose(params: Mapping, x: torch.Tensor, stride: Stride = 1,
     same stride and padding.  SAME gives ``in * stride``: the full
     transposed conv, cropped by the forward conv's SAME pads (for k=3,
     s=2 that drops the last row and column; ``padding=1,
-    output_padding=1`` would crop the wrong side)."""
+    output_padding=1`` would crop the wrong side).  Where those pads are
+    symmetric and the output is ``in`` (stride 1, odd k), they go to
+    ``F.conv_transpose2d(padding=...)``, which crops nothing: no full-size
+    intermediate and no copy of the crop."""
     cd = compute_dtype or x.dtype
     w = params["w"].to(cd)
     sh, sw = _pair(stride)
     kh, kw = w.shape[2], w.shape[3]
     if kh < sh or kw < sw:
         raise ValueError(f"kernel {(kh, kw)} smaller than stride {(sh, sw)}")
-    y = F.conv_transpose2d(_nchw(x.to(cd)), w, stride=(sh, sw))
-    if padding == "SAME":
-        h, wd = x.shape[1] * sh, x.shape[2] * sw
-        ht = _same_pads(h, kh, sh)[0]
-        wl = _same_pads(wd, kw, sw)[0]
-        y = y[:, :, ht:ht + h, wl:wl + wd]
-    elif padding != "VALID":
+    if padding not in ("SAME", "VALID"):
         raise ValueError(f"padding={padding!r} — must be 'SAME' or 'VALID'")
+    xc = _nchw(x.to(cd))
+    if padding == "VALID":
+        y = F.conv_transpose2d(xc, w, stride=(sh, sw))
+        return _add_bias(_nhwc(y), params, bias, cd)
+    h, wd = x.shape[1] * sh, x.shape[2] * sw
+    (ht, hb), (wl, wr) = _same_pads(h, kh, sh), _same_pads(wd, kw, sw)
+    if (sh, sw) == (1, 1) and ht == hb and wl == wr:
+        y = F.conv_transpose2d(xc, w, padding=(ht, wl))
+    else:
+        y = F.conv_transpose2d(xc, w, stride=(sh, sw))
+        y = y[:, :, ht:ht + h, wl:wl + wd]
     return _add_bias(_nhwc(y), params, bias, cd)
 
 
@@ -168,6 +186,31 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.3) -> torch.Tensor:
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Inverted dropout (Keras semantics) with an explicit keep mask: ``x /
+    keep`` where ``mask`` holds, else 0, in x's dtype, as the JAX
+    package's ``dropout`` does after its ``jax.random.bernoulli`` draw.
+    ``mask`` None (no draw: deterministic) or ``rate`` 0 is the
+    identity."""
+    if mask is None or rate == 0.0:
+        return x
+    if mask.shape != x.shape:
+        raise ValueError(f"dropout mask {tuple(mask.shape)} for an input "
+                         f"of {tuple(x.shape)}")
+    return torch.where(mask, x / (1.0 - rate), 0.0)
+
+
+def dropout_masks(generator: torch.Generator, shapes: Sequence[Sequence[int]],
+                  rate: float) -> Tuple[torch.Tensor, ...]:
+    """One keep mask per shape, True with probability ``1 - rate``
+    (``jax.random.bernoulli``'s uniform < p), drawn from ``generator`` on
+    its own device."""
+    return tuple(torch.rand(tuple(s), generator=generator,
+                            device=generator.device) < 1.0 - rate
+                 for s in shapes)
 
 
 @functools.lru_cache(maxsize=64)

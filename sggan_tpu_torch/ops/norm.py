@@ -1,4 +1,5 @@
-"""Instance norm (tfa InstanceNormalization semantics) on NHWC tensors.
+"""Instance norm (tfa InstanceNormalization semantics) and batch norm
+(Keras BatchNormalization semantics) on NHWC tensors.
 
 Port of ``sggan_tpu/ops/norm.py``: per-sample, per-channel moments over
 the spatial plane, eps 1e-3, affine gamma/beta, then an optional relu or
@@ -9,6 +10,9 @@ the JAX package's custom VJP (``norm._in_fused_bwd``).  On a CUDA tensor
 both directions run the hand-written kernels (``cuda_in``); on a CPU
 tensor they run the plain versions ``instance_norm_ref`` and
 ``instance_norm_bwd_ref``.  There is no fallback from one to the other.
+
+``batch_norm`` (the pix2pix nets') is plain torch ops in f32, as the JAX
+package's is XLA code: no kernel of its own.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 from . import cuda_in
 
 IN_EPS = 1e-3  # tfa GroupNormalization default
+BN_EPS = 1e-3  # Keras BatchNormalization default
+BN_MOMENTUM = 0.99
 
 
 def instance_norm_init(c: int, dtype=torch.float32) -> dict:
@@ -128,3 +134,40 @@ def instance_norm(params: Mapping, x: torch.Tensor, act: Optional[str] = None,
     act: None | 'relu' | 'leaky_relu'."""
     return _InstanceNorm.apply(x, params["gamma"], params["beta"], eps, act,
                                alpha)
+
+
+def batch_norm_init(c: int, dtype=torch.float32) -> Tuple[dict, dict]:
+    """(params, state): gamma 1 and beta 0, and the moving stats (mean 0,
+    var 1) that the train step threads as explicit state."""
+    return ({"gamma": torch.ones(c, dtype=dtype),
+             "beta": torch.zeros(c, dtype=dtype)},
+            {"moving_mean": torch.zeros(c, dtype=dtype),
+             "moving_var": torch.ones(c, dtype=dtype)})
+
+
+def batch_norm(params: Mapping, state: Mapping, x: torch.Tensor,
+               training: bool, momentum: float = BN_MOMENTUM,
+               eps: float = BN_EPS) -> Tuple[torch.Tensor, dict]:
+    """Returns ``(y, new_state)``, port of ``norm.batch_norm``.  Not
+    ``nn.BatchNorm2d``: eps is 1e-3; the statistics are f32 over (N, H, W);
+    training normalizes by the batch's mean and *biased* variance and
+    moves the stats as ``m * old + (1 - m) * batch`` with m = 0.99 (the
+    inverse of torch's momentum, and torch keeps the unbiased variance);
+    inference normalizes by the moving stats and returns ``state`` as it
+    is.  The new state carries no gradient."""
+    xf = x.float()
+    if training:
+        mean = xf.mean((0, 1, 2))
+        var = (xf - mean).square().mean((0, 1, 2))
+        m_mean, m_var = state["moving_mean"], state["moving_var"]
+        new = {"moving_mean": (momentum * m_mean + (1 - momentum)
+                               * mean.detach()).to(m_mean.dtype),
+               "moving_var": (momentum * m_var + (1 - momentum)
+                              * var.detach()).to(m_var.dtype)}
+    else:
+        mean = state["moving_mean"].float()
+        var = state["moving_var"].float()
+        new = state
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["gamma"].float() + params["beta"].float()
+    return y.to(x.dtype), new

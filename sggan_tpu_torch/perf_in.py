@@ -53,7 +53,7 @@ def alternatives(n: int, h: int, w: int, c: int, dtype: torch.dtype,
     return out
 
 
-def device_ms(fn: Callable, iters: int, tries: int = 3,
+def device_ms(fn: Callable, iters: int, tries: int = 6,
               keys: Sequence[str] = ()) -> float:
     """Device time of one call of ``fn``, which launches each of its
     kernels once (as every K1 call does): the mean time torch.profiler
@@ -61,11 +61,14 @@ def device_ms(fn: Callable, iters: int, tries: int = 3,
     summed over the kernels whose names hold one of ``keys`` (all of them
     if empty).  A trace taken right after another may drop or add an
     event; a mean per kernel is immune to that.  A trace with no such
-    kernel is taken again, up to ``tries`` times, then raises."""
+    kernel (the profiler now and then records none, even of a kernel that
+    ran) is taken again after a pause that grows, up to ``tries`` times,
+    then raises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(tries):
+        time.sleep(0.05 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()

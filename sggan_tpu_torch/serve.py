@@ -7,6 +7,10 @@ the JAX service.
     python -m sggan_tpu_torch.serve --use_resnet --img_height 256 \
         --img_width 512 --port 8000
 
+Every generator the CLI selects serves: the ResNet (``--use_resnet``),
+the pix2pix U-Net (``--use_pix2pix``, batch norm on its moving stats) or
+the default U-Net.
+
 The JAX service's checkpoints (Orbax) and AOT artifacts (StableHLO) need
 JAX to read, so this service serves a fresh init drawn from
 ``--data_seed`` (``checkpoint_loaded: false``, as the JAX service reports
@@ -50,6 +54,9 @@ class _Service:
         if self.loaded:
             gen.load_state_dict(state_dict)
         self.gen = gen.to(self.device).eval()
+        # the pix2pix batch norms' fresh moving stats, as the JAX
+        # service's fresh train state holds them; {} for the other nets
+        self.gen_bn = gen.init_bn_state(self.device)
         self.device_name = (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu")
         self._lock = threading.Lock()
@@ -58,7 +65,8 @@ class _Service:
         self._fn(np.zeros((1, h, w, 3), np.float32))
 
     def _fn(self, x: np.ndarray) -> np.ndarray:
-        return evaluate.generate(self.cfg, self.gen, x, self.device)
+        return evaluate.generate(self.cfg, self.gen, x, self.device,
+                                 gen_bn=self.gen_bn)
 
     def translate_png(self, png_bytes: bytes) -> bytes:
         img = Image.open(io.BytesIO(png_bytes)).convert("RGB")

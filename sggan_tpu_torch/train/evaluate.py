@@ -8,7 +8,10 @@ TensorBoard scalars (``test_during_train``), the inference CLI
 The loop functions take the trainer (``tr``: its ``cfg``, ``state``,
 ``device``, dataset ``root``, ``max_src_hw`` and eval caches), as the JAX
 ones do.  Under ``--gen_ema`` they run the EMA shadow, not the trained
-parameters (``eval_generator``).  ``--eval_crf`` is not ported yet.
+parameters (``eval_generator``).  Every net runs in inference mode: the
+pix2pix generator's batch norms on the moving stats of the train state
+(``state.gen_bn``), under ``--gen_ema`` too, and no dropout.
+``--eval_crf`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,10 +28,10 @@ from ..config import Config
 from ..data.loader import load_test_triplet, test_files
 from ..data.preprocess import fake_u8, preprocess_test, seg_labels_u8
 from ..metrics.scores import scores, scores_seg_fake
-from ..models.generator_resnet import GeneratorResnet
 from ..utils import checkpoint as ckpt
 from ..utils.images import imsave, merge, save_images
 from ..utils.summary import SummaryWriter
+from .step import new_generator
 
 CRF_TODO = ("--eval_crf is not ported yet (ROADMAP Queue 1: eval, "
             "checkpoints, summaries: the CRF)")
@@ -48,32 +51,24 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def _require_ported(cfg: Config) -> None:
-    if cfg.use_pix2pix or not cfg.use_resnet:
-        net = "pix2pix" if cfg.use_pix2pix else "U-Net"
-        raise NotImplementedError(
-            f"the {net} generator is not ported yet (ROADMAP Queue 1: "
-            "U-Net generator and p2p serving); pass --use_resnet")
+def build_generator(cfg: Config) -> torch.nn.Module:
+    """The generator ``cfg`` selects (``models.build``), fresh-initialised
+    from ``cfg.data_seed`` on the CPU, as ``step.init_state`` draws it."""
+    return new_generator(cfg, torch.Generator().manual_seed(cfg.data_seed))
 
 
-def build_generator(cfg: Config) -> GeneratorResnet:
-    """The generator ``cfg`` selects, fresh-initialised from
-    ``cfg.data_seed`` on the CPU."""
-    _require_ported(cfg)
-    g = torch.Generator().manual_seed(cfg.data_seed)
-    return GeneratorResnet(ngf=cfg.ngf, input_nc=cfg.input_nc,
-                           output_nc=cfg.output_nc, generator=g)
-
-
-def gen_forward(cfg: Config, gen: GeneratorResnet,
-                x: torch.Tensor) -> torch.Tensor:
-    _require_ported(cfg)
-    return gen(x, compute_dtype=compute_dtype(cfg))
+def gen_forward(cfg: Config, gen: torch.nn.Module, x: torch.Tensor,
+                gen_bn: Optional[dict] = None) -> torch.Tensor:
+    """The generator's inference forward (evaluate.py:47-63): no dropout;
+    the pix2pix batch norms on ``gen_bn``'s moving stats (None: the net
+    has no batch norm)."""
+    return gen(x, {} if gen_bn is None else gen_bn, compute_dtype(cfg))[0]
 
 
 @torch.inference_mode()
-def generate(cfg: Config, gen: GeneratorResnet, images01,
-             device: torch.device, as_u8: bool = False) -> np.ndarray:
+def generate(cfg: Config, gen: torch.nn.Module, images01,
+             device: torch.device, as_u8: bool = False,
+             gen_bn: Optional[dict] = None) -> np.ndarray:
     """Generator forward on [0, 1]-range NHWC images (a numpy array, or a
     tensor, which stays on the device), honouring the test-time
     input-scale flag (``round(x * 255)`` under ``--test_uint8_input``,
@@ -90,7 +85,7 @@ def generate(cfg: Config, gen: GeneratorResnet, images01,
         if cfg.test_uint8_input:
             x = np.round(x * 255.0)
         x = torch.as_tensor(x).to(device)
-    y = gen_forward(cfg, gen, x)
+    y = gen_forward(cfg, gen, x, gen_bn)
     if cfg.eval_sharpen != 1.0:
         y = sharpen(y, cfg.eval_sharpen)
     if as_u8:
@@ -98,7 +93,7 @@ def generate(cfg: Config, gen: GeneratorResnet, images01,
     return y.cpu().numpy()
 
 
-def eval_generator(tr) -> GeneratorResnet:
+def eval_generator(tr) -> torch.nn.Module:
     """The generator that eval, test and sampling run: under
     ``--gen_ema`` a copy of the net holding the EMA shadow
     (evaluate.py:101-103), refreshed at each call; else the trained net."""
@@ -157,7 +152,8 @@ def test_during_train(tr, epoch: int,
                  for p in paths]
         trips += [trips[-1]] * (chunk - len(paths))
         img, seg = _test_inputs(tr, trips)
-        fakes = generate(cfg, gen, img, tr.device, as_u8=True)
+        fakes = generate(cfg, gen, img, tr.device, as_u8=True,
+                         gen_bn=tr.state.gen_bn)
         seg_key = (tuple(paths), cfg.image_size)
         seg_np = tr._eval_seg_cache.get(seg_key)
         if seg_np is None:
@@ -201,7 +197,8 @@ def run_test(tr) -> None:
     for path in test_files(tr.root):
         print("Processing image: " + path)
         img, _ = _test_inputs(tr, [load_test_triplet(path)])
-        fake = generate(cfg, gen, img, tr.device, as_u8=True)
+        fake = generate(cfg, gen, img, tr.device, as_u8=True,
+                        gen_bn=tr.state.gen_bn)
         base = os.path.basename(path)
         # the reference saves the real copy through inverse_transform of
         # [0, 1]-range data (model.py:566): reproduced exactly
@@ -224,7 +221,8 @@ def sample_model(tr, epoch: int, idx: int) -> None:
     img, _ = _test_inputs(tr, [load_test_triplet(
         p, cache_mb=cfg.decode_cache_mb, max_hw=tr.max_src_hw)
         for p in paths])
-    fake = generate(cfg, eval_generator(tr), img, tr.device, as_u8=True)
+    fake = generate(cfg, eval_generator(tr), img, tr.device, as_u8=True,
+                    gen_bn=tr.state.gen_bn)
     os.makedirs(cfg.sample_dir, exist_ok=True)
     name = os.path.basename(paths[0]).split(".")[0]
     imsave(fake, [fake.shape[0], 1],

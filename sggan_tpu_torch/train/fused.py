@@ -12,9 +12,9 @@ nothing on one card needs them: the scan program itself, its fallback on
 a memory failure (``is_hbm_failure``) and the relay fences.
 
 Each step uploads nothing: the epoch's order goes to the device once, the
-data draws come from the trainer's device generator, and the pool's
-draws from its host generator, since the pool plans on the host
-(``train/pool.py``).
+data draws and the generator's dropout masks come from the trainer's
+device generator, and the pool's draws from its host generator, since
+the pool plans on the host (``train/pool.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ..data.loader import epoch_order
 from ..data.preprocess import (PreprocessDraws, draw_preprocess,
                                preprocess_train)
 from .pool import pool_draws
+from .step import dropout_masks
 
 
 def make_batch_fn(cfg):
@@ -61,13 +62,15 @@ def effective_batch(cfg) -> int:
 
 
 def step_draws(tr, src_h: int):
-    """One step's draws: the preprocess's from the trainer's device
-    generator, the pool's from its host generator."""
+    """One step's draws: the preprocess's and then the dropout masks
+    (None for a net without dropout) from the trainer's device generator,
+    the pool's from its host generator."""
     cfg = tr.cfg
     b_eff = effective_batch(cfg)
     return (draw_preprocess(tr.data_gen, b_eff, src_h, cfg.image_size,
                             cfg.use_photometric),
-            pool_draws(tr.pool_gen, b_eff, cfg.max_size))
+            pool_draws(tr.pool_gen, b_eff, cfg.max_size),
+            dropout_masks(cfg, tr.state.gen_params, tr.data_gen, b_eff))
 
 
 def end_step(tr, epoch: int, idx: int, m: dict, n_images: int,
@@ -109,9 +112,9 @@ def run_epoch_fused(tr, epoch: int, lr: float, dev_ds, make_batch,
                                          epoch)).to(dev_ds.img.device)
     src_h = dev_ds.img.shape[1]
     for done in range(len(dev_ds) // b):
-        draws, pdraws = step_draws(tr, src_h)
+        draws, pdraws, masks = step_draws(tr, src_h)
         batch = make_batch(*arrays, order[done * b:(done + 1) * b], draws)
-        tr.state, m = tr.step_fn(tr.state, batch, lr, pdraws)
+        tr.state, m = tr.step_fn(tr.state, batch, lr, pdraws, masks)
         global_step = end_step(tr, epoch, done, m, effective_batch(cfg),
                                g_losses, d_losses, global_step, start_time)
     return global_step

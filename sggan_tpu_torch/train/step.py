@@ -10,9 +10,14 @@ loss and its gradient; then one Adam update per net and the optional EMA.
 
 Ported: the sggan branch (``--loss_mode sggan``, the full SG-GAN objective
 with the (fake, mask) pool) and the p2p and simple branches that share its
-body, with the ResNet generator.  Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP item: the U-Net and pix2pix
-nets, ``--compat_fake_history``, ``--remat``, the cycle mode and data
+body, with every net the CLI selects (``models.build``): the ResNet or
+U-Net generator with the semantic discriminator, or the pix2pix pair.
+Under pix2pix the discriminator's batch norm makes the JAX step's two
+calls, real then fake, threading the BN state, and the generator loss's
+call runs in inference mode on the pre-step state (``_gen_fwd`` and
+``_disc_fwd`` of the JAX step); the pix2pix pool holds fakes only.  Not
+ported yet, each raising ``NotImplementedError`` that names its ROADMAP
+item: ``--compat_fake_history``, ``--remat``, the cycle mode and data
 parallelism (``axis_name``).
 
 Adam is optax's ``scale_by_adam`` (betas (beta1, 0.999), eps 1e-7, the
@@ -29,21 +34,25 @@ precision, and tests hold it to the JAX step.  bf16 mode computes its
 convs in bf16 and is not affected.
 
 The random draws are explicit: the pool's come in as ``PoolDraws``
-(``pool.pool_draws``).  The step keeps its losses on the device: it makes
-no host sync.
+(``pool.pool_draws``), the generator's dropout keep masks as a tuple
+(``dropout_masks``).  ``--dropout_mode intended`` (the default) trains
+with dropout, and the pix2pix batch norms on batch statistics;
+``keras_quirk`` makes the generator's forward deterministic and every
+batch norm use its moving stats, as the JAX step's ``deterministic`` does.
+The step keeps its losses on the device: it makes no host sync.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import losses
-from ..models.discriminator import Discriminator
-from ..models.generator_resnet import GeneratorResnet
+from ..models import build
+from ..ops import dropout_masks as _draw_masks
 from .pool import PoolDraws, PoolState, pool_init, pool_update
 
 ADAM_EPS = 1e-7
@@ -58,9 +67,9 @@ class AdamState(NamedTuple):
 
 
 class TrainState(NamedTuple):
-    gen_params: GeneratorResnet  # the nets hold their parameters
-    gen_bn: dict                 # {} for IN models
-    disc_params: Discriminator
+    gen_params: torch.nn.Module  # the nets hold their parameters
+    gen_bn: dict                 # BN moving stats; {} for IN models
+    disc_params: torch.nn.Module
     disc_bn: dict
     g_opt: AdamState
     d_opt: AdamState
@@ -85,10 +94,7 @@ def _dtype(cfg) -> torch.dtype:
 
 def _require_ported(cfg, axis_name=None) -> None:
     todo = None
-    if cfg.use_pix2pix or not cfg.use_resnet:
-        todo = (f"the {'pix2pix' if cfg.use_pix2pix else 'U-Net'} nets "
-                "(ROADMAP Queue 1: U-Net generator and p2p serving)")
-    elif cfg.loss_mode == "cycle":
+    if cfg.loss_mode == "cycle":
         todo = "loss_mode cycle (ROADMAP Queue 1: train/cycle.py)"
     elif cfg.loss_mode == "p2p" and cfg.compat_fake_history:
         todo = ("--compat_fake_history (ROADMAP Queue 1: "
@@ -98,9 +104,9 @@ def _require_ported(cfg, axis_name=None) -> None:
     elif axis_name is not None or cfg.mesh_data > 1 or cfg.mesh_space > 1:
         todo = "data and spatial parallelism (ROADMAP Queue 1: parallel)"
     if todo:
-        raise NotImplementedError(f"{todo} is not ported yet; pass "
-                                  "--use_resnet and one of --loss_mode "
-                                  "sggan/p2p/simple on one device")
+        raise NotImplementedError(f"{todo} is not ported yet; pass one "
+                                  "of --loss_mode sggan/p2p/simple on one "
+                                  "device")
 
 
 def adam_init(net: torch.nn.Module) -> AdamState:
@@ -108,36 +114,71 @@ def adam_init(net: torch.nn.Module) -> AdamState:
     return AdamState(0, zeros, {k: z.clone() for k, z in zeros.items()})
 
 
+def new_generator(cfg, generator: Optional[torch.Generator] = None):
+    """The generator that ``cfg`` selects, drawn on the CPU from
+    ``generator``; ``init_state`` draws it first, then the
+    discriminator from the same generator (``new_discriminator``)."""
+    kw = dict(ngf=cfg.ngf, input_nc=cfg.input_nc, output_nc=cfg.output_nc,
+              generator=generator)
+    if cfg.use_pix2pix:
+        kw["image_size"] = cfg.image_height
+    return build(cfg)[0](**kw)
+
+
+def new_discriminator(cfg, generator: Optional[torch.Generator] = None):
+    """The discriminator that ``cfg`` selects, drawn on the CPU from
+    ``generator``."""
+    kw = dict(ndf=cfg.ndf, input_nc=cfg.input_nc, generator=generator)
+    if not cfg.use_pix2pix:
+        kw.update(n_class=cfg.segment_class, image_size=cfg.image_size)
+    return build(cfg)[1](**kw)
+
+
 def init_state(cfg, generator: torch.Generator,
                device="cuda") -> TrainState:
     """Fresh nets drawn on the CPU from ``generator`` (generator first,
-    then discriminator), zero Adam state and an empty pool, on
-    ``device``."""
+    then discriminator), fresh BN moving stats, zero Adam state and an
+    empty pool, on ``device``."""
     _require_ported(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "visible")
     h, w = cfg.image_size
-    gen = GeneratorResnet(ngf=cfg.ngf, input_nc=cfg.input_nc,
-                          output_nc=cfg.output_nc, generator=generator)
-    disc = Discriminator(ndf=cfg.ndf, input_nc=cfg.input_nc,
-                         n_class=cfg.segment_class, image_size=(h, w),
-                         generator=generator)
-    gen, disc = gen.to(device), disc.to(device)
+    gen = new_generator(cfg, generator).to(device)
+    disc = new_discriminator(cfg, generator).to(device)
     # pooled entries only feed discriminator forwards, which cast to the
     # compute dtype: a buffer in that dtype loses nothing
     if cfg.loss_mode == "sggan":
-        shapes = {"fake": (h, w, cfg.output_nc),
-                  "mask": (*cfg.mask_hw, cfg.segment_class)}
+        shapes = {"fake": (h, w, cfg.output_nc)}
+        if not cfg.use_pix2pix:  # the semantic D judges a fake by its mask
+            shapes["mask"] = (*cfg.mask_hw, cfg.segment_class)
         pool = pool_init(cfg.max_size, shapes, _dtype(cfg), device)
     else:
         pool = pool_init(1, {"fake": (h, w, cfg.output_nc)}, _dtype(cfg),
                          device)
     ema = ({k: p.detach().clone() for k, p in gen.named_parameters()}
            if cfg.gen_ema > 0 else None)
-    return TrainState(gen, {}, disc, {}, adam_init(gen), adam_init(disc),
-                      pool, 0, ema)
+    return TrainState(gen, gen.init_bn_state(device), disc,
+                      disc.init_bn_state(device), adam_init(gen),
+                      adam_init(disc), pool, 0, ema)
+
+
+def deterministic(cfg) -> bool:
+    """``--dropout_mode keras_quirk``: no dropout, batch norm on its moving
+    stats (the JAX step's ``deterministic``)."""
+    return cfg.dropout_mode == "keras_quirk"
+
+
+def dropout_masks(cfg, gen: torch.nn.Module, generator: torch.Generator,
+                  n: int) -> Optional[Tuple[torch.Tensor, ...]]:
+    """The generator's dropout keep masks for one step at batch ``n``,
+    drawn from ``generator`` on its device; None where the net has no
+    dropout (the ResNet) or under ``--dropout_mode keras_quirk``."""
+    if deterministic(cfg) or not gen.drop_rate:
+        return None
+    return _draw_masks(generator, gen.drop_shapes(n, *cfg.image_size),
+                       gen.drop_rate)
 
 
 @contextlib.contextmanager
@@ -159,20 +200,44 @@ def _grads(loss: torch.Tensor,
                                                materialize_grads=True)))
 
 
+def _gen_fwd(cfg, gen, gen_bn, x, drop_masks, cd):
+    """(fake, new generator BN state), as the JAX step's ``_gen_fwd``."""
+    train = not deterministic(cfg)
+    if train and drop_masks is None and gen.drop_rate:
+        raise ValueError("--dropout_mode intended: the step needs the "
+                         "generator's dropout masks (step.dropout_masks)")
+    return gen(x, gen_bn, cd, drop_masks if train else None, train=train)
+
+
+def _disc_fwd(cfg, disc, disc_bn, img, mask_or_tar, cd, train):
+    """(logits, new discriminator BN state), as ``_disc_fwd``."""
+    if cfg.use_pix2pix:
+        return disc(img, mask_or_tar, disc_bn, cd, train=train)
+    return disc(img, mask_or_tar, cd), disc_bn
+
+
 def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
-                     draws: Optional[PoolDraws]):
+                     draws: Optional[PoolDraws],
+                     drop_masks: Optional[Sequence[torch.Tensor]] = None):
     """The step's forward and backward, without the updates.
 
-    Returns ``(metrics, gen grads, disc grads, new pool)``; the grads are
-    keyed by parameter name.  ``state`` is not changed."""
+    Returns ``(metrics, gen grads, disc grads, new pool, (new gen BN
+    state, new disc BN state))``; the grads are keyed by parameter name.
+    ``state`` is not changed."""
     cd = _dtype(cfg)
+    bn_train = not deterministic(cfg)
     gen, disc = state.gen_params, state.disc_params
     real_a = batch["real_a"].float()
     seg_a = batch["seg_a"].float()
-    mask_a = batch["mask_a"]
+    mask_a = batch.get("mask_a")
+    p2p_nets = cfg.use_pix2pix
     with _conv_precision(cd):
-        fake = gen(real_a, cd)
-        da_fake = disc(fake, mask_a, cd)
+        fake, new_gbn = _gen_fwd(cfg, gen, state.gen_bn, real_a, drop_masks,
+                                 cd)
+        # the generator loss's D call: inference mode, pre-step state
+        da_fake, _ = _disc_fwd(cfg, disc, state.disc_bn,
+                               *((seg_a, fake) if p2p_nets
+                                 else (fake, mask_a)), cd, False)
         if cfg.loss_mode == "sggan":
             g_loss = losses.gen_loss_sggan(
                 da_fake, real_a, fake, seg_a, use_lsgan=cfg.use_lsgan,
@@ -187,15 +252,27 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
 
         fake_sg, mask_for_d, new_pool = fake.detach(), mask_a, state.pool
         if cfg.loss_mode == "sggan" and cfg.max_size > 0:
-            new_pool, pooled = pool_update(
-                state.pool, {"fake": fake_sg, "mask": mask_a}, draws)
-            fake_sg, mask_for_d = pooled["fake"], pooled["mask"]
-        # one call over [real; fake]: instance norm is per sample, so this
-        # equals two calls, with the convs at twice the batch
-        both = disc(torch.cat([seg_a, fake_sg]),
-                    torch.cat([mask_a, mask_for_d]), cd)
-        n = seg_a.shape[0]
-        da_real, da_fake_s = both[:n], both[n:]
+            items = {"fake": fake_sg}
+            if not p2p_nets:
+                items["mask"] = mask_a
+            new_pool, pooled = pool_update(state.pool, items, draws)
+            fake_sg, mask_for_d = pooled["fake"], pooled.get("mask")
+        if p2p_nets:
+            # batch norm couples the samples: two calls, real then fake,
+            # threading the state
+            da_real, dbn1 = _disc_fwd(cfg, disc, state.disc_bn, seg_a, seg_a,
+                                      cd, bn_train)
+            da_fake_s, new_dbn = _disc_fwd(cfg, disc, dbn1, seg_a, fake_sg,
+                                           cd, bn_train)
+        else:
+            # one call over [real; fake]: instance norm is per sample, so
+            # this equals two calls, with the convs at twice the batch
+            both, new_dbn = _disc_fwd(cfg, disc, state.disc_bn,
+                                      torch.cat([seg_a, fake_sg]),
+                                      torch.cat([mask_a, mask_for_d]), cd,
+                                      False)
+            n = seg_a.shape[0]
+            da_real, da_fake_s = both[:n], both[n:]
         if cfg.loss_mode == "sggan":
             d_loss = losses.disc_loss_sggan(da_real, da_fake_s,
                                             use_lsgan=cfg.use_lsgan)
@@ -205,7 +282,7 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
             d_loss = losses.disc_loss_p2p(da_real, da_fake_s)
         d_grads = _grads(d_loss, disc)
     metrics = {"gen_loss": g_loss.detach(), "disc_loss": d_loss.detach()}
-    return metrics, g_grads, d_grads, new_pool
+    return metrics, g_grads, d_grads, new_pool, (new_gbn, new_dbn)
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -256,25 +333,31 @@ def _ema_update(cfg, ema, gen: torch.nn.Module):
 
 
 def build_step_fn(cfg, axis_name: Optional[str] = None):
-    """The step: ``(state, batch, lr, pool_draws) -> (state, metrics)``.
+    """The step: ``(state, batch, lr, pool_draws, drop_masks=None) ->
+    (state, metrics)``.
 
     batch: {"real_a": (B,H,W,3) [0,1] float, "seg_a": (B,H,W,3),
-    "mask_a": (B,hm,wm,n_class) one-hot}; ``pool_draws`` from
-    ``pool.pool_draws(generator, B, cfg.max_size)`` (unused, may be None,
-    outside the sggan mode or with ``max_size`` 0).  The nets' parameters
-    and the EMA are updated in place; metrics are device scalars."""
+    "mask_a": (B,hm,wm,n_class) one-hot (unused by the pix2pix nets)};
+    ``pool_draws`` from ``pool.pool_draws(generator, B, cfg.max_size)``
+    (unused, may be None, outside the sggan mode or with ``max_size`` 0);
+    ``drop_masks`` from ``dropout_masks(cfg, state.gen_params, generator,
+    B)`` (None for the ResNet or under ``--dropout_mode keras_quirk``).
+    The nets' parameters and the EMA are updated in place; metrics are
+    device scalars."""
     _require_ported(cfg, axis_name)
 
     def step_fn(state: TrainState, batch, lr: float,
-                pool_draws: Optional[PoolDraws]):
-        metrics, g_grads, d_grads, pool = losses_and_grads(
-            cfg, state, batch, pool_draws)
+                pool_draws: Optional[PoolDraws],
+                drop_masks: Optional[Sequence[torch.Tensor]] = None):
+        metrics, g_grads, d_grads, pool, (gen_bn, disc_bn) = \
+            losses_and_grads(cfg, state, batch, pool_draws, drop_masks)
         g_opt = adam_update(state.gen_params, state.g_opt, g_grads, lr,
                             cfg.beta1)
         d_opt = adam_update(state.disc_params, state.d_opt, d_grads, lr,
                             cfg.beta1)
         new_state = state._replace(
-            g_opt=g_opt, d_opt=d_opt, pool=pool, step=state.step + 1,
+            gen_bn=gen_bn, disc_bn=disc_bn, g_opt=g_opt, d_opt=d_opt,
+            pool=pool, step=state.step + 1,
             ema=_ema_update(cfg, state.ema, state.gen_params))
         return new_state, metrics
 

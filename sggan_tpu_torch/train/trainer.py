@@ -17,17 +17,19 @@ which that package documents as numerically identical to its scan chunks
 ROADMAP Queue 1, item 2.
 
 Randomness: the nets are drawn from ``--data_seed`` (``init_state``); the
-preprocess's draws come from a generator on the device and the pool's
-from one on the host, both seeded from ``--data_seed``.  jax.random
+preprocess's draws and the generator's dropout masks come from a generator
+on the device and the pool's from one on the host, both seeded from
+``--data_seed``.  jax.random
 streams are not reproducible in torch, so a run is not the JAX run.
 
 Checkpoint numbers continue after the one ``--continue_train`` loaded,
 so a later resume finds the newest state (the JAX trainer numbers them
 from 0 again, below the one it loaded).
 
+Every net the CLI selects trains: the ResNet or U-Net generator with the
+semantic discriminator, or the pix2pix pair with its batch-norm state.
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: the cycle mode, meshes and multi-host training, the U-Net and
-pix2pix nets, ``--eval_crf``.
+item: the cycle mode, meshes and multi-host training, ``--eval_crf``.
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ class Trainer:
     def generate(self, images01, as_u8: bool = False) -> np.ndarray:
         """See evaluate.generate; runs the EMA shadow under --gen_ema."""
         return evaluate.generate(self.cfg, evaluate.eval_generator(self),
-                                 images01, self.device, as_u8=as_u8)
+                                 images01, self.device, as_u8=as_u8,
+                                 gen_bn=self.state.gen_bn)
 
     def _maybe_device_dataset(self) -> Optional[DeviceDataset]:
         """The training split resident on the device (loader.DeviceDataset)
@@ -148,9 +151,10 @@ class Trainer:
                                       (img, seg, cls, aug))
             img, seg, cls, aug = (t.to(self.device, non_blocking=pinned)
                                   for t in (img, seg, cls, aug))
-            draws, pdraws = fused.step_draws(self, img.shape[1])
+            draws, pdraws, masks = fused.step_draws(self, img.shape[1])
             batch = self.preprocess(img, seg, cls, draws, aug)
-            self.state, m = self.step_fn(self.state, batch, lr, pdraws)
+            self.state, m = self.step_fn(self.state, batch, lr, pdraws,
+                                         masks)
             global_step = fused.end_step(
                 self, epoch, idx, m, img.shape[0], g_losses, d_losses,
                 global_step, start_time)

@@ -12,11 +12,13 @@ dots: ``c1.w``, ``r1.conv1.w``, ``r1.in1.gamma``, ... ``out.b``.
 
 A whole JAX ``TrainState`` (``sggan_tpu/train/step.py``) with its leaves
 as numpy arrays (``jax.tree.map(np.asarray, state)``) becomes the port's
-``TrainState`` with ``train_state_from_jax``: both nets' parameters,
+``TrainState`` with ``train_state_from_jax``: both nets' parameters (of
+the nets the config selects), their batch norms' moving stats (the same
+nested dicts, ``{"down1_bn": {"moving_mean": ..., "moving_var": ...}}``),
 optax's ``ScaleByAdamState`` (count, mu, nu) of both optimizers in the same
 torch layouts, the pool's buffers and count, the step and the EMA.
-``train_state_to_jax`` is the way back for the parameters and the Adam
-state.
+``train_state_to_jax`` is the way back for the parameters, the moving
+stats and the Adam state.
 
 Takes anything ``np.asarray`` reads, so it needs no JAX import.
 """
@@ -28,10 +30,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..models.discriminator import Discriminator
-from ..models.generator_resnet import GeneratorResnet
 from ..train.pool import PoolState
-from ..train.step import AdamState, TrainState
+from ..train.step import (AdamState, TrainState, new_discriminator,
+                          new_generator)
 
 _TF_TO_TORCH = (3, 2, 0, 1)
 _TORCH_TO_TF = (2, 3, 1, 0)
@@ -76,16 +77,22 @@ def _adam_from_jax(opt, device) -> AdamState:
                       params_from_jax(opt.nu).items()})
 
 
+def _bn_from_jax(tree: Mapping, device) -> dict:
+    return {k: {n: torch.from_numpy(np.array(a)).to(device)
+                for n, a in v.items()} for k, v in tree.items()}
+
+
+def _bn_to_jax(state: Mapping) -> dict:
+    return {k: {n: t.detach().cpu().numpy().copy() for n, t in v.items()}
+            for k, v in state.items()}
+
+
 def train_state_from_jax(cfg, state, device="cpu") -> TrainState:
     """The port's ``TrainState`` on ``device`` from a JAX ``TrainState``
-    whose leaves are numpy arrays, for the config that made it (ResNet
-    generator, semantic discriminator with the "global" head)."""
-    h, w = cfg.image_size
-    gen = GeneratorResnet(ngf=cfg.ngf, input_nc=cfg.input_nc,
-                          output_nc=cfg.output_nc)
+    whose leaves are numpy arrays, for the config that made it (the nets
+    it selects; the semantic discriminator with the "global" head)."""
+    gen, disc = new_generator(cfg), new_discriminator(cfg)
     gen.load_state_dict(params_from_jax(state.gen_params))
-    disc = Discriminator(ndf=cfg.ndf, input_nc=cfg.input_nc,
-                         n_class=cfg.segment_class, image_size=(h, w))
     disc.load_state_dict(params_from_jax(state.disc_params))
     buf = state.pool.buffer
     if not isinstance(buf, Mapping):  # the p2p/simple pool is one array
@@ -96,21 +103,24 @@ def train_state_from_jax(cfg, state, device="cpu") -> TrainState:
     ema = None
     if state.ema is not None:
         ema = {k: v.to(device) for k, v in params_from_jax(state.ema).items()}
-    return TrainState(gen.to(device), {}, disc.to(device), {},
+    return TrainState(gen.to(device), _bn_from_jax(state.gen_bn, device),
+                      disc.to(device), _bn_from_jax(state.disc_bn, device),
                       _adam_from_jax(state.g_opt, device),
                       _adam_from_jax(state.d_opt, device), pool,
                       int(np.asarray(state.step)), ema)
 
 
 def train_state_to_jax(state: TrainState) -> dict:
-    """The parameters and Adam states of a port ``TrainState`` as nested
-    dicts of numpy arrays in the JAX layouts: ``gen_params``,
-    ``disc_params``, and ``g_opt``/``d_opt`` with ``count``, ``mu``,
-    ``nu``."""
+    """The parameters, moving stats and Adam states of a port
+    ``TrainState`` as nested dicts of numpy arrays in the JAX layouts:
+    ``gen_params``, ``gen_bn``, ``disc_params``, ``disc_bn``, and
+    ``g_opt``/``d_opt`` with ``count``, ``mu``, ``nu``."""
     def adam(opt: AdamState) -> dict:
         return {"count": np.int32(opt.count), "mu": params_to_jax(opt.mu),
                 "nu": params_to_jax(opt.nu)}
 
     return {"gen_params": params_to_jax(state.gen_params.state_dict()),
+            "gen_bn": _bn_to_jax(state.gen_bn),
             "disc_params": params_to_jax(state.disc_params.state_dict()),
+            "disc_bn": _bn_to_jax(state.disc_bn),
             "g_opt": adam(state.g_opt), "d_opt": adam(state.d_opt)}

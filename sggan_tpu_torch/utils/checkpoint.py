@@ -3,10 +3,11 @@ and policy (``sggan_tpu/utils/checkpoint.py``) in PyTorch's format.
 
 One composite checkpoint per save, in three files with the reference's
 public layout ``<checkpoint_dir>/<dataset name>/{gen,disc,train}/
-cp-NNNN.pt`` (model.py:450-503): the generator's parameters, its Adam
-state and the EMA shadow; the discriminator's parameters and Adam state;
-the pool's buffers and count and the step.  ``MAX_TO_KEEP = 3`` as the
-JAX package keeps.  Tensors are saved as they are (device and dtype) and
+cp-NNNN.pt`` (model.py:450-503): the generator's parameters, its batch
+norms' moving stats (``bn``, {} for a net without batch norm), its Adam
+state and the EMA shadow; the discriminator's parameters, moving stats
+and Adam state; the pool's buffers and count and the step.
+``MAX_TO_KEEP = 3`` as the JAX package keeps.  Tensors are saved as they are (device and dtype) and
 loaded onto the template's device, so a round trip is exact.
 
 The ``.pt`` suffix keeps these apart from the JAX package's Orbax
@@ -58,13 +59,13 @@ def save(state: TrainState, checkpoint_dir: str, dataset_dir: str,
     checkpoint of that number), then drop those older than the last
     ``MAX_TO_KEEP`` numbers."""
     root = _ckpt_root(checkpoint_dir, dataset_dir)
-    gen = {"params": state.gen_params.state_dict(),
+    gen = {"params": state.gen_params.state_dict(), "bn": state.gen_bn,
            "opt": _adam(state.g_opt)}
     if state.ema is not None:
         gen["ema"] = state.ema
     parts = {"gen": gen,
              "disc": {"params": state.disc_params.state_dict(),
-                      "opt": _adam(state.d_opt)},
+                      "bn": state.disc_bn, "opt": _adam(state.d_opt)},
              "train": {"pool_buffer": state.pool.buffer,
                        "pool_count": state.pool.count,
                        "step": state.step}}
@@ -112,7 +113,9 @@ def load(template: TrainState, checkpoint_dir: str, dataset_dir: str,
         raise ValueError(f"checkpoint cp-{epoch:04d} "
                          f"{'has no' if ema is None else 'has an'} EMA "
                          "shadow; pass the --gen_ema it was trained with")
+    # checkpoints of the IN nets written before "bn" was saved have none
     return template._replace(
+        gen_bn=gen.get("bn", {}), disc_bn=disc.get("bn", {}),
         g_opt=AdamState(**gen["opt"]), d_opt=AdamState(**disc["opt"]),
         pool=PoolState(tr["pool_buffer"], tr["pool_count"]),
         step=tr["step"], ema=ema)

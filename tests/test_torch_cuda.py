@@ -173,8 +173,10 @@ def _check_fwd_bwd(x, g, b, dy, act, p_fwd, p_bwd):
 
 
 # one shape that every route takes, a ragged channel tile (C 48), an
-# H*W = 5 plane and batch 1
-ROUTE_SHAPES = [(2, 16, 12, 64), (3, 9, 7, 48), (2, 1, 5, 64), (1, 32, 24, 32)]
+# H*W = 5 plane, batch 1, and a 1x1 plane (the semantic discriminator's
+# last at 128x128: variance 0, rstd from eps alone)
+ROUTE_SHAPES = [(2, 16, 12, 64), (3, 9, 7, 48), (2, 1, 5, 64), (1, 32, 24, 32),
+                (2, 1, 1, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -286,12 +288,12 @@ def test_generator_cuda_forward_matches_cpu(dev, monkeypatch):
     gen = GeneratorResnet(ngf=8, generator=torch.Generator().manual_seed(0))
     x = torch.rand(2, 32, 48, 3, generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
-        ref = gen(x)
+        ref, _ = gen(x, {})
         gen_d = gen.to(dev)
         before = cuda_in.launches
-        got = gen_d(x.to(dev))
+        got, _ = gen_d(x.to(dev), {})
         assert cuda_in.launches == before + 23
-        got16 = gen_d(x.to(dev), compute_dtype=torch.bfloat16)
+        got16, _ = gen_d(x.to(dev), {}, compute_dtype=torch.bfloat16)
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
     assert got16.dtype == torch.float32 and torch.isfinite(got16).all()
     assert (got16.float().cpu() - ref).abs().max().item() < 0.25
@@ -323,7 +325,7 @@ def test_train_step_cuda_matches_cpu(dev, monkeypatch):
         if d == dev:  # 23 generator INs, 4 per D call at 32x64 (chain [2])
             assert cuda_in.launches - f0 == 31
             assert cuda_in.bwd_launches - b0 == 31
-    (m_c, g_c, d_c, _), (m_g, g_g, d_g, _) = out["cpu"], out["cuda"]
+    (m_c, g_c, d_c, *_), (m_g, g_g, d_g, *_) = out["cpu"], out["cuda"]
     for k in m_c:
         assert abs(m_g[k].item() - m_c[k].item()) <= 1e-4 * abs(m_c[k].item())
     for ref, got in ((g_c, g_g), (d_c, d_g)):

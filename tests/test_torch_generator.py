@@ -82,7 +82,8 @@ def test_generator_matches_jax(golden_case, pad_free_head):
                               "xla_llvm_disable_expensive_passes": True,
                               "xla_cpu_use_fusion_emitters": False})(p, x)
     with torch.inference_mode():
-        got = _port(p)(torch.from_numpy(x.copy()), torch.float32)
+        got, st = _port(p)(torch.from_numpy(x.copy()), {}, torch.float32)
+    assert st == {}
     assert got.dtype == torch.float32 and got.shape == (1, 32, 32, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-4)
@@ -91,7 +92,7 @@ def test_generator_matches_jax(golden_case, pad_free_head):
 def test_generator_matches_golden_fixture(golden_case):
     p, x = golden_case
     with torch.inference_mode():
-        got = _port(p)(torch.from_numpy(x.copy()))
+        got, _ = _port(p)(torch.from_numpy(x.copy()), {})
     np.testing.assert_allclose(got.numpy(), np.load(GOLDEN), rtol=2e-3,
                                atol=2e-4)
 
@@ -105,16 +106,6 @@ def test_sharpen_matches_jax(t):
     got = teval.sharpen(torch.from_numpy(y), t)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
                                atol=1e-6)
-
-
-@pytest.mark.parametrize("kw", [{}, {"use_pix2pix": True}])
-def test_unported_generators_raise(kw):
-    cfg = Config(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teval.build_generator(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teval.gen_forward(cfg, GeneratorResnet(ngf=4),
-                          torch.zeros(1, 8, 8, 3))
 
 
 def test_build_generator_is_seeded_and_follows_config():

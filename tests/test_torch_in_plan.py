@@ -1,6 +1,8 @@
 """The K1 kernels' launch plan (``cuda_in.plan``), pure Python: at every
 instance-norm site of one b=16 train step, of the served forward at b=1,
-in bf16 and f32, the plan covers every row and channel exactly once, fits
+and of the U-Net generator (the CLI default: every site at full
+resolution, C 64-512, batch 1 doubled to 2, at 128x128 and 256x512), in
+bf16 and f32, the plan covers every row and channel exactly once, fits
 the H100's shared memory and cluster limits, fills a wave of CTAs where
 the stream route would, and takes the route the kernel source documents
 for the site.  Odd C and misaligned tensors take the scalar route."""
@@ -21,6 +23,10 @@ D_SITES = [(64, 128, 128), (32, 64, 256), (32, 64, 512), (15, 31, 512),
 STEP = ([(16, *hwc) for hwc in G_SITES] + [(16, *hwc) for hwc in D_SITES]
         + [(32, *hwc) for hwc in D_SITES])
 SERVE = [(1, *hwc) for hwc in G_SITES]
+# the U-Net's 15 sites (e1-e8, d1-d7) have these four widths at full
+# resolution; chip_smoke.py's K1 phase runs them at b=2
+UNET_C = (64, 128, 256, 512)
+UNET = [(2, h, w, c) for h, w in ((128, 128), (256, 512)) for c in UNET_C]
 DTYPES = [torch.bfloat16, torch.float32]
 DIRS = ["fwd", "bwd"]
 SMEM_OPTIN = 232448  # bytes a block may use on the H100
@@ -46,7 +52,7 @@ def _coverage(p, n, h, w, c, dtype):
 
 @pytest.mark.parametrize("direction", DIRS)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("site", STEP + SERVE)
+@pytest.mark.parametrize("site", STEP + SERVE + UNET)
 def test_plan_covers_fits_and_fills(site, dtype, direction):
     n, h, w, c = site
     p = cuda_in.plan(n, h, w, c, dtype, direction)
@@ -97,6 +103,27 @@ def test_plan_route_at_each_site(site, dtype, direction):
         tensors = 1 if direction == "fwd" else 2
         assert (rows8 * p.tile * x_bytes(dtype) * tensors
                 > cuda_in._SMEM_PAIR or p.ctas // 2 < 132)
+
+
+def _unet_route(h, c, dtype, direction):
+    """The U-Net's route table at b=2: at 128x128 a 16-CTA cluster at C =
+    64, 256 and 512, the stream route at C = 128 (a cluster of its 4
+    slabs would give 128 CTAs, short of a wave, where the stream route
+    gives 256); in f32 the backward streams at every C (two tensors of the
+    plane); at 256x512 no cluster holds a plane, so every site streams."""
+    if h == 256 or c == 128 or (dtype, direction) == (torch.float32, "bwd"):
+        return "stream", 1
+    return "cluster", 16
+
+
+@pytest.mark.parametrize("direction", DIRS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("site", UNET)
+def test_plan_route_at_unet_sites(site, dtype, direction):
+    p = cuda_in.plan(*site, dtype, direction)
+    assert (p.route, p.cluster) == _unet_route(site[1], site[3], dtype,
+                                               direction)
+    assert p.route != "scalar"
 
 
 @pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 5), (torch.bfloat16, 34),

@@ -147,7 +147,7 @@ def _close(got, ref, atol_of_max=0.0):
 
 
 def test_one_step_matches_jax(runs):
-    (metrics, g_grads, d_grads, pool), jax_out, port_out, _ = runs
+    (metrics, g_grads, d_grads, pool, _), jax_out, port_out, _ = runs
     (jstate, jm), (tstate, tm) = jax_out[0], port_out[0]
     for k in ("gen_loss", "disc_loss"):
         # the same computation as the step's; oneDNN's threads may sum in
@@ -203,7 +203,7 @@ def test_three_steps_match_jax_in_losses_and_pool(runs):
 
 
 def test_dead_biases_get_zero_grads_and_every_param_a_moment(runs):
-    (_, g_grads, d_grads, _), _, _, ts = runs
+    (_, g_grads, d_grads, _, _), _, _, ts = runs
     assert g_grads.keys() == dict(ts.gen_params.named_parameters()).keys()
     assert d_grads.keys() == dict(ts.disc_params.named_parameters()).keys()
     for k in ("c1.b", "c2.b", "c3.b", "r1.conv1.b", "r9.conv2.b", "d1.b",
@@ -247,7 +247,7 @@ def test_full_width_step_limits_catch_a_planted_fault(fault, monkeypatch):
 
     def grads():
         ts = tstep.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
-        _, g, d, _ = tstep.losses_and_grads(cfg, ts, tbatch, draws)
+        _, g, d, *_ = tstep.losses_and_grads(cfg, ts, tbatch, draws)
         return {**{f"gen.{k}": v for k, v in g.items()},
                 **{f"disc.{k}": v for k, v in d.items()}}
     clean = grads()
@@ -344,7 +344,7 @@ def test_bf16_step_stores_the_pool_in_bf16_and_restores_tf32():
 
 
 @pytest.mark.parametrize("kw", [
-    {"use_resnet": False}, {"use_pix2pix": True}, {"loss_mode": "cycle"},
+    {"loss_mode": "cycle"},
     {"loss_mode": "p2p", "compat_fake_history": True}, {"remat": True},
     {"mesh_data": 2}])
 def test_unported_modes_raise_naming_the_roadmap(kw):
