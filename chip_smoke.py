@@ -12,7 +12,9 @@ trainer behind ``python -m sggan_tpu_torch.main`` on a synthetic set of
 CLI's default nets: the U-Net generator (ngf 64) with the semantic
 discriminator, p2p loss and dropout, through its step, the CLI with no
 net or loss flag (128x128, batch 1 doubled) and the service, and the
-pix2pix pair with batch norm.  Run from the repository root:
+pix2pix pair with batch norm; and the cycle-consistency mode, two ResNet
+generators and two semantic discriminators, through its step (256x512,
+bf16, batch 8) and the CLI.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -113,11 +115,38 @@ Phases, each of which raises on failure:
      with K1's exact calls, then one short ``--use_pix2pix`` epoch whose
      checkpoint carries moved BN state;
   21. /translate with the U-Net at 128x128 (15 K1 calls a request) and
-     the U-Net's bf16 forward at b=1 and 16, 128x128 and 256x512.
+     the U-Net's bf16 forward at b=1 and 16, 128x128 and 256x512;
+  22. the cycle step (``--loss_mode cycle``: two generators, two
+     semantic discriminators, the pair pool), f32, card vs CPU at 32x64
+     b=2 from one seeded state, two-domain batch, pool draws and mask
+     sets: the ResNet, and the U-Net with its four dropout mask sets;
+     phase 8's limits, or the full-width ones where a sign the gradient
+     follows (a gate, an L1's or the gradient loss's abs) falls on
+     opposite sides, counted;
+  23. both K1 kernels against their plain versions at every site of the
+     cycle paths that phases 7 and 18 do not hold (the ResNet cycle
+     step's at b = 2, 4, 8, 12, 16, the discriminators' at b and 2b, the
+     eval's at b=2), f32 and bf16, on the planned routes; both kernels
+     timed at every site of one b=8 cycle step against their bound;
+  24. the cycle step (main path): bench.py:221-256's cell, ResNet
+     256x512, ngf and ndf 64, 34 classes, pool 50, bf16, identity and
+     gradient loss on, b=8, 12 steps with exactly 166 forward and 166
+     backward K1 calls a step on the planned routes, finite losses, step
+     ms, pairs/s, peak memory and a profiler breakdown with the idle
+     share; then a sweep over b = 2, 4, 8, 12, 16 (pairs/s, peak memory;
+     a batch that does not fit is printed as such, b=8 must run);
+  25. the cycle CLI (main path): phase 16's PNG set with a 48-triplet
+     trainB of another seed; ``python -m sggan_tpu_torch.main --phase
+     train --loss_mode cycle --use_resnet`` with phase 16's fused-aug
+     flags at b=4 doubled to 8, ``--train_size 48``, 3 epochs (both splits
+     resident, finite losses, checkpoint, test PNGs, tfevents; sustained
+     pairs/s), ``--phase test`` AtoB and BtoA (" [*] Load SUCCESS",
+     different PNGs), ``--continue_train`` 1 epoch (resumes at the saved
+     step), then one in-process epoch with K1's exact calls.
 
 Prints a JSON line of the trainer's and the preprocess's rates, one of
-the default nets' numbers, a JSON line of the kernels, then as the last
-line ``{"ok": true, "device":
+the default nets' numbers, one of the cycle mode's, a JSON line of the
+kernels, then as the last line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing neither,
 when no CUDA device is visible or any phase fails.
 """
@@ -192,6 +221,14 @@ def step_sites(b: int = B_TRAIN):
     (batch 2b)."""
     return (gen_sites(b) + [(b, hwc, act, 1) for hwc, act in D_SITES]
             + [(2 * b, hwc, act, 1) for hwc, act in D_SITES])
+
+
+def step_k1_sites() -> list:
+    """(N, (H, W, C), act) of phase 7: the generator's four at b=16, the
+    discriminator's seven at b=16 and 32."""
+    return ([(B_TRAIN, hwc, act) for hwc, act in SITES]
+            + [(n, hwc, act) for n in (B_TRAIN, 2 * B_TRAIN)
+               for hwc, act in D_SITES])
 
 
 def bound_ms(n, hwc, dtype_bytes, tensors, flops_per_elt):
@@ -391,6 +428,24 @@ def train_batch(cfg, b: int, dev, seed: int) -> dict:
             "mask_a": torch.eye(cfg.segment_class)[ids].to(dev)}
 
 
+def cycle_batch(cfg, b: int, dev, seed: int) -> dict:
+    """The cycle step's batch: ``train_batch`` for domain A from ``seed``
+    and for domain B from ``seed + 1000``."""
+    bb = train_batch(cfg, b, dev, seed + 1000)
+    return dict(train_batch(cfg, b, dev, seed), real_b=bb["real_a"],
+                seg_b=bb["seg_a"], mask_b=bb["mask_a"])
+
+
+def to_dev(x, dev):
+    """A tensor, or a dict (a batch) or nested tuples and lists (the
+    dropout mask sets) of them, on ``dev``; None stays None."""
+    if isinstance(x, dict):
+        return {k: to_dev(t, dev) for k, t in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_dev(t, dev) for t in x)
+    return x if x is None else x.to(dev)
+
+
 def grad_rows(ref: dict, got: dict) -> list:
     """(max |diff| / max |g|, |diff| / |g|, name) for every gradient of
     ``ref`` that is not all zero, sorted, the worst max last."""
@@ -413,18 +468,22 @@ def step_grads(cfg, b: int, dev: str):
     """One f32 step's losses and gradients on ``dev`` from the seeded
     state, batch, pool draws and dropout masks that every call shares;
     gradients on the CPU, keyed "gen.*" and "disc.*"."""
+    from sggan_tpu_torch.train import cycle as tcycle
     from sggan_tpu_torch.train import pool as tpool
     from sggan_tpu_torch.train import step as tstep
-    batch = train_batch(cfg, b, dev, seed=3)
+    cycle = cfg.loss_mode == "cycle"
+    batch = (cycle_batch if cycle else train_batch)(cfg, b, dev, seed=3)
     draws = tpool.pool_draws(torch.Generator().manual_seed(4), b,
                              cfg.max_size)
     st = tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)
-    # the generator's dropout masks (None for the ResNet), drawn on the CPU
-    masks = tstep.dropout_masks(cfg, st.gen_params,
-                                torch.Generator().manual_seed(7), b)
-    masks = masks and [m.to(dev) for m in masks]
+    # the generator's dropout masks (None for the ResNet; the cycle step's
+    # four sets), drawn on the CPU
+    masks = to_dev(tstep.dropout_masks(cfg, st.gen_params,
+                                       torch.Generator().manual_seed(7), b),
+                   dev)
     t0 = time.perf_counter()
-    m, gg, dg, *_ = tstep.losses_and_grads(cfg, st, batch, draws, masks)
+    m, gg, dg, *_ = (tcycle if cycle else tstep).losses_and_grads(
+        cfg, st, batch, draws, masks)
     m = {k: v.item() for k, v in m.items()}
     print(f"  {cfg.image_size}, ngf {cfg.ngf}, ndf {cfg.ndf}, b={b}, {dev}: "
           f"losses and grads in {time.perf_counter() - t0:.2f} s, {m}")
@@ -1010,19 +1069,23 @@ def synth_triplet(rng, i: int, yy, xx):
     return img, seg, cls
 
 
-def build_dataset(root: str, n: int) -> float:
+def build_dataset(root: str, n: int, splits=None, seed: int = 0) -> float:
     """``perf_epoch_e2e.build_dataset``: ``n`` train and ``E2E_TEST`` test
     triplets of 512x1024 PNGs under root/{trainA,testA}{,_seg,_seg_class},
-    drawn in its order; the PNG encodes run on a thread pool.  Returns
+    drawn in its order from ``seed``; the PNG encodes run on a thread
+    pool.  ``splits``, (split, count) pairs, adds those splits to an
+    existing root instead (the cycle mode's trainB, phase 25).  Returns
     the seconds it took."""
     from PIL import Image
-    if os.path.isdir(root):
-        shutil.rmtree(root)
+    if splits is None:
+        if os.path.isdir(root):
+            shutil.rmtree(root)
+        splits = (("trainA", n), ("testA", E2E_TEST))
     t0 = time.perf_counter()
     yy, xx = np.mgrid[0:SRC_H, 0:SRC_W].astype(np.float32)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     jobs = []
-    for split, count in (("trainA", n), ("testA", E2E_TEST)):
+    for split, count in splits:
         for sub in ("", "_seg", "_seg_class"):
             os.makedirs(os.path.join(root, split + sub))
         for i in range(count):
@@ -1869,6 +1932,409 @@ def unet_serve_phase(card: str, dev) -> dict:
     return {"translate_ms": lat, "forward_ms": fwd}
 
 
+# ----------------------------------------------------------------------
+# The cycle-consistency mode, --loss_mode cycle (phases 22-25)
+# ----------------------------------------------------------------------
+
+CYCLE_B = 8                     # bench.py:221-256's cycle cell
+CYCLE_SWEEP = (2, 4, 8, 12, 16)
+CYCLE_STEPS = 12
+CYCLE_K1_PER_STEP = 166  # 6 x 23 generator + 2 x 7 (gen loss) + 2 x 7
+# phase 25: 48 + 48 triplets of phase 16's PNGs, b=4 doubled to 8
+CYCLE_CLI_TRAIN, CYCLE_CLI_B, CYCLE_CLI_EPOCHS = 48, 4, 3
+
+
+def cycle_cfg(b: int):
+    """bench.py:221-256's cycle cell: ResNet, 256x512, ngf and ndf 64, 34
+    classes, pool 50, bf16, identity and gradient loss on (5 and 5), L1
+    10."""
+    from sggan_tpu_torch.config import Config
+    return Config(image_height=H, image_width=W, ngf=NGF, ndf=64,
+                  segment_class=N_CLASS, batch_size=b, max_size=50,
+                  compute_dtype="bfloat16", loss_mode="cycle",
+                  use_resnet=True, identity_lambda=5.0, Lg_lambda=5.0)
+
+
+def cycle_step_sites(b: int) -> list:
+    """(N, (H, W, C), act, calls per step) of every instance norm of one
+    ResNet cycle step at batch ``b`` with the identity term: the
+    generators' 23 in each of 6 calls, the discriminators' 7 in each of
+    the generator loss's 2 calls (batch b) and of the 2 calls over [real;
+    pooled fake] (batch 2b)."""
+    return ([(n, hwc, act, 6 * c) for n, hwc, act, c in gen_sites(b)]
+            + [(b, hwc, act, 2) for hwc, act in D_SITES]
+            + [(2 * b, hwc, act, 2) for hwc, act in D_SITES])
+
+
+def cycle_signs(st, batch, masks, cd) -> list:
+    """Every value whose sign the cycle step's gradient follows, on the
+    CPU: the generators' gates (the pre-activations of their instance
+    norms' relus, the U-Net's leaky gates and its two relus) in the six
+    calls of the step, the discriminators' gates in the generator loss's
+    two calls, the four L1s' differences and the gradient losses' Sobel
+    derivatives and |d fake| - |d real| (losses.gradloss_criterion).
+    Read by wrapping the modules' own ops."""
+    import sggan_tpu_torch.models.discriminator as dm
+    import sggan_tpu_torch.models.generator_resnet as gr
+    import sggan_tpu_torch.models.generator_unet as gu
+    from sggan_tpu_torch.ops.deriv import sobel_xy
+    vals = []
+    saved = [(m, k, getattr(m, k)) for m, k in (
+        (gr, "instance_norm"), (gu, "instance_norm"), (gu, "relu"),
+        (dm, "instance_norm"), (dm, "leaky_relu"))]
+
+    def rec(k, real):
+        if k == "instance_norm":
+            def f(p, v, act=None, **kw):
+                if act is not None:
+                    vals.append(real(p, v).float().cpu())
+                return real(p, v, act=act, **kw)
+            return f
+
+        def g(v, *a, **kw):
+            vals.append(v.float().cpu())
+            return real(v, *a, **kw)
+        return g
+    for m, k, real in saved:
+        setattr(m, k, rec(k, real))
+    try:
+        with torch.no_grad():
+            ms = masks or (None,) * 4
+
+            def gen(k, x, i):
+                return st.gen_params[k](x, {}, cd, ms[i],
+                                        train=masks is not None)[0]
+            ra, rb = batch["real_a"].float(), batch["real_b"].float()
+            fb, fa = gen("a2b", ra, 0), gen("b2a", rb, 1)
+            cyc_a, cyc_b = gen("b2a", fb, 2), gen("a2b", fa, 3)
+            idt_b, idt_a = gen("a2b", rb, 2), gen("b2a", ra, 3)
+            st.disc_params["db"](fb, batch["mask_a"], cd)
+            st.disc_params["da"](fa, batch["mask_b"], cd)
+            vals += [(ra - cyc_a).cpu(), (rb - cyc_b).cpu(),
+                     (idt_b - rb).cpu(), (idt_a - ra).cpu()]
+            for f, r in ((fb, ra), (fa, rb)):
+                (dxi, dyi), (dxt, dyt) = sobel_xy(f), sobel_xy(r)
+                vals += [t.cpu() for t in (dxi, dyi, dxi.abs() - dxt.abs(),
+                                           dyi.abs() - dyt.abs())]
+    finally:
+        for m, k, real in saved:
+            setattr(m, k, real)
+    return vals
+
+
+def cycle_card_vs_cpu_phase(card: str, dev) -> dict:
+    """Phase 22.  One f32 cycle step, card (kernels, TF32 off) against CPU
+    (plain versions), from one seeded state, two-domain batch, pool draws
+    and, for the U-Net, its four dropout mask sets: the ResNet and the
+    U-Net at 32x64 b=2, ngf and ndf 4, 8 classes, pool 2.  Phase 8's
+    limits, or, where a sign the gradient follows (``cycle_signs``) falls
+    on opposite sides, the full-width ones, as phase 19 holds the U-Net."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import step as tstep
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for net, resnet in (("ResNet", True), ("U-Net", False)):
+            cfg = Config(image_height=32, image_width=64, ngf=4, ndf=4,
+                         segment_class=8, batch_size=2, max_size=2,
+                         compute_dtype="float32", loss_mode="cycle",
+                         use_resnet=resnet)
+            print(f"  {net} cycle step, identity and gradient loss on:")
+            loss_err, rows, _, dead_live = step_card_vs_cpu(cfg, 2)
+            # the same state, batch and masks as step_grads draws them
+            batch = cycle_batch(cfg, 2, "cpu", seed=3)
+            signs = {}
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                for d in ("cpu", dev):
+                    st = tstep.init_state(cfg, torch.Generator()
+                                          .manual_seed(0), d)
+                    masks = tstep.dropout_masks(
+                        cfg, st.gen_params, torch.Generator().manual_seed(7),
+                        2)
+                    signs[str(d)] = cycle_signs(st, to_dev(batch, d),
+                                                to_dev(masks, d),
+                                                torch.float32)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            flips = sum(int(((a >= 0) != (c >= 0)).sum())
+                        for a, c in zip(signs["cpu"], signs["cuda"]))
+            lim = ((1e-3, float("inf")) if not flips
+                   else (STEP_MAX_REL, STEP_NORM_REL))
+            worst = (max(r[0] for r in rows), max(r[1] for r in rows))
+            print(f"    signs on opposite sides, card vs CPU: {flips} of "
+                  f"{sum(v.numel() for v in signs['cpu'])}; held at max "
+                  f"|diff| / max |g| <= {lim[0]}"
+                  + (f", |diff| / |g| <= {lim[1]}" if flips else ""))
+            need(loss_err <= 1e-4 and not dead_live and worst[0] <= lim[0]
+                 and worst[1] <= lim[1],
+                 f"the card's {net} cycle step disagrees with the CPU's")
+            out[net] = {"loss_max_rel": loss_err, "grad_max_rel": worst[0],
+                        "grad_norm_rel": worst[1], "sign_flips": flips}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    torch.cuda.empty_cache()
+    return out
+
+
+def cycle_k1_sites() -> tuple:
+    """(N, (H, W, C), act), once each, of every instance norm on the cycle
+    paths that phases 22-25 drive, less those phases 7 and 18 hold; and
+    the count before the difference.  The paths: the ResNet cycle step at
+    every b of CYCLE_SWEEP (phase 24) and at the CLI's b=8 (phase 25),
+    the eval's forward of E2E_TEST images at 256x512, and the U-Net cycle
+    step at 128x128 b=2, whose sites are the p2p step's."""
+    held = set(step_k1_sites()) | set(unet_k1_sites())
+    sites = [s for b in CYCLE_SWEEP for s in cycle_step_sites(b)]
+    sites += gen_sites(E2E_TEST) + unet_step_sites(UNET_B, 128, 128)
+    every = list(dict.fromkeys((n, hwc, act) for n, hwc, act, _ in sites))
+    return [s for s in every if s not in held], len(every)
+
+
+def cycle_k1_phase(card: str, dev, errs: dict, bwd_errs: dict) -> tuple:
+    """Phase 23.  Both K1 kernels against their plain twins at every new
+    site of ``cycle_k1_sites``, f32 and bf16, each call on the route its
+    plan names (phase 7's limits); then both kernels timed at every site
+    of one b=8 cycle step (``time_sites``)."""
+    from sggan_tpu_torch.ops import cuda_in
+    sites, every = cycle_k1_sites()
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (n, (h, w, c), act) in enumerate(sites):
+            p = {d: cuda_in.plan(n, h, w, c, dtype, d)
+                 for d in ("fwd", "bwd")}
+            reset_k1()
+            f_err, b_err = k1_vs_plain(n, (h, w, c), act, dtype, dev,
+                                       seed=300 + i)
+            _, routes = read_k1()
+            need(routes == {d: {p[d].route: 2} for d in ("fwd", "bwd")},
+                 f"K1 calls left their planned route: {routes}, plan {p}")
+            errs[dtype] = max(errs[dtype], f_err)
+            bwd_errs[dtype] = max(bwd_errs[dtype], b_err)
+        torch.cuda.empty_cache()
+    print(f"  K1 held to its plain twins on its planned routes at the "
+          f"{len(sites)} sites of the {every} on the cycle paths that "
+          "phases 7 and 18 do not hold, x 2 dtypes")
+    return time_sites(card, dev, cycle_step_sites(CYCLE_B),
+                      f"the {CYCLE_K1_PER_STEP} calls of one b={CYCLE_B} "
+                      "cycle step")
+
+
+def cycle_step_cell(card: str, dev, b: int, n_steps: int,
+                    breakdown: bool) -> dict:
+    """The bf16 ResNet cycle step of ``cycle_cfg(b)``: ``n_steps`` steps
+    from counts of 0 with K1's exact calls per step by route and finite
+    losses; then pairs/s by CUDA events, peak memory and the device's
+    busy time over 2 profiled steps with the idle share, printed by
+    category with ``breakdown``.  Raises torch.cuda.OutOfMemoryError if
+    it does not fit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sggan_tpu_torch.train import pool as tpool
+    from sggan_tpu_torch.train import step as tstep
+    cfg = cycle_cfg(b)
+    holder = [tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)]
+    batch = cycle_batch(cfg, b, dev, seed=5)
+    step_fn = tstep.build_step_fn(cfg)
+    draw_gen = torch.Generator().manual_seed(6)
+
+    def one():
+        holder[0], m = step_fn(holder[0], batch, 1e-3, tpool.pool_draws(
+            draw_gen, b, cfg.max_size))
+        return torch.stack([m["gen_loss"], m["disc_loss"]])
+    torch.cuda.reset_peak_memory_stats()
+    reset_k1()  # this cell's main path starts here
+    losses = torch.stack([one() for _ in range(n_steps)]).cpu()
+    counts, routes = read_k1()
+    sites = cycle_step_sites(b)
+    per = sum(c for *_, c in sites)
+    want = {d: planned(sites, d, n_steps) for d in ("fwd", "bwd")}
+    print(f"  [{card}] cycle step bf16 256x512 b={b}: {n_steps} steps, K1 "
+          f"forward {counts['fwd']}, backward {counts['bwd']} ({per} each "
+          f"a step expected); by route {routes}, planned {want}; gen_loss "
+          f"{[round(v, 4) for v in losses[:, 0].tolist()]}, disc_loss "
+          f"{[round(v, 4) for v in losses[:, 1].tolist()]}")
+    need(per == CYCLE_K1_PER_STEP
+         and counts == {"fwd": per * n_steps, "bwd": per * n_steps}
+         and routes == want, "the cycle step's K1 calls left their count "
+                             "or their planned routes")
+    need(bool(torch.isfinite(losses).all()) and holder[0].step == n_steps,
+         "the cycle step's losses are not finite")
+    ms = cuda_ms(one, 8, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+    busy = sum(k[0] for k in kernel_times(prof, 2))
+    print(f"  [{card}] cycle step bf16 256x512 b={b}: {ms:.3f} ms, "
+          f"{1e3 * b / ms:.2f} pairs/s, peak memory {peak:.2f} GiB, device "
+          f"busy {busy:.3f} ms ({100 * (1 - busy / ms):.1f}% idle)")
+    if breakdown:
+        print_breakdown(prof, 2, ms, f"[{card}] profiler, cycle step bf16 "
+                        f"256x512 b={b}", STEP_CATEGORIES)
+    return {"batch": b, "step_ms": ms, "pairs_per_s": 1e3 * b / ms,
+            "peak_gib": peak, "busy_ms": busy, "idle_share": 1 - busy / ms,
+            "k1_per_step": {d: counts[d] // n_steps for d in counts},
+            "k1_routes_per_step": {d: {r: k // n_steps
+                                       for r, k in v.items()}
+                                   for d, v in routes.items()}}
+
+
+def cycle_step_phase(card: str, dev) -> dict:
+    """Phase 24.  The cycle step cell (main path) at b=8, 12 steps, with
+    its profile; then the batch sweep over CYCLE_SWEEP, where a batch
+    that runs out of memory is printed as not fitting (b=8 must run)."""
+    keep = ("step_ms", "pairs_per_s", "peak_gib", "busy_ms", "idle_share")
+    cell = cycle_step_cell(card, dev, CYCLE_B, CYCLE_STEPS, breakdown=True)
+    torch.cuda.empty_cache()
+    sweep = {CYCLE_B: {k: cell[k] for k in keep}}
+    for b in CYCLE_SWEEP:
+        if b == CYCLE_B:
+            continue
+        try:
+            r = cycle_step_cell(card, dev, b, 2, breakdown=False)
+            sweep[b] = {k: r[k] for k in keep}
+        except torch.cuda.OutOfMemoryError:
+            print(f"  [{card}] cycle step bf16 256x512 b={b}: does not fit "
+                  "in the card's memory")
+            sweep[b] = "does not fit"
+        finally:
+            torch.cuda.empty_cache()
+    fits = {b: v for b, v in sweep.items() if isinstance(v, dict)}
+    base = fits[CYCLE_B]["pairs_per_s"]
+    big = {b: v["pairs_per_s"] for b, v in fits.items() if b >= 12}
+    falls = any(v < base for v in big.values())
+    print(f"  [{card}] sweep, pairs/s by b: "
+          + ", ".join(f"{b}: {v['pairs_per_s']:.2f} ({v['peak_gib']:.1f} "
+                      f"GiB, {100 * v['idle_share']:.0f}% idle)"
+                      if isinstance(v, dict) else f"{b}: {v}"
+                      for b, v in sorted(sweep.items()))
+          + f"; at b >= 12 pairs/s {'falls below' if falls else 'holds at or above'}"
+          f" b={CYCLE_B}'s" + ("" if big else " (no b >= 12 fits)"))
+    return {"cell": cell, "sweep": {str(b): v for b, v in sweep.items()},
+            "falls_at_b_ge_12": falls if big else None}
+
+
+def cycle_cli_phase(card: str, dev, work: str, root: str) -> dict:
+    """Phase 25.  ``python -m sggan_tpu_torch.main --loss_mode cycle
+    --use_resnet`` on phase 16's PNG set with a trainB split of
+    CYCLE_CLI_TRAIN triplets beside trainA (another seed), ``--train_size``
+    48, phase 16's fused-aug flags at b=4 doubled to 8: train 3 epochs
+    (both splits resident, finite losses, checkpoint of both generators,
+    test PNGs, tfevents; sustained pairs/s), ``--phase test`` AtoB and
+    BtoA (different PNGs), ``--continue_train`` 1 epoch (resumes at the
+    saved step); then one in-process epoch with K1's exact calls."""
+    from sggan_tpu_torch.config import parse_args
+    from sggan_tpu_torch.train.trainer import Trainer
+    from sggan_tpu_torch.utils.summary import read_scalars
+    t_build = build_dataset(root, 0, splits=(("trainB", CYCLE_CLI_TRAIN),),
+                            seed=1)
+    print(f"  trainB: {CYCLE_CLI_TRAIN} triplets of {SRC_H}x{SRC_W} PNGs "
+          f"from seed 1 in {t_build:.1f} s")
+    steps = CYCLE_CLI_TRAIN // CYCLE_CLI_B
+    b_eff = 2 * CYCLE_CLI_B
+    args = list(E2E_ARGS)
+    args[args.index("--batch_size") + 1] = str(CYCLE_CLI_B)
+    args[args.index("--loss_mode") + 1] = "cycle"
+    args += ["--dataset_dir", root, "--train_size", str(CYCLE_CLI_TRAIN)]
+    run_dir = os.path.join(work, "cycle_cli")
+    os.makedirs(run_dir)
+    ck = os.path.join(run_dir, "checkpoint", "city")
+
+    def saved_step(epoch: int) -> int:
+        return torch.load(os.path.join(ck, "train", f"cp-{epoch:04d}.pt"),
+                          weights_only=True)["step"]
+
+    out, _ = run_cli(run_dir, f"--loss_mode cycle, train "
+                     f"{CYCLE_CLI_EPOCHS} epochs",
+                     ["--phase", "train", "--epoch", str(CYCLE_CLI_EPOCHS),
+                      *args])
+    need(f" [*] training splits resident on device" in out
+         and f"{CYCLE_CLI_TRAIN}+{CYCLE_CLI_TRAIN} triplets" in out,
+         "the cycle run did not take both splits resident")
+    losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
+    need(len(losses) == CYCLE_CLI_EPOCHS
+         and all(math.isfinite(v) for p in losses for v in p),
+         f"losses not finite at every print: {losses}")
+    m = re.search(r"Training finished: step (\d+), (\d+) images in "
+                  r"([\d.]+) s", out)
+    need(m and int(m.group(1)) == CYCLE_CLI_EPOCHS * steps,
+         "the cycle run did not finish its steps")
+    wall_rate = int(m.group(2)) / float(m.group(3))
+    last = CYCLE_CLI_EPOCHS - 1
+    gen_cp = torch.load(os.path.join(ck, "gen", f"cp-{last:04d}.pt"),
+                        weights_only=True)
+    need({"a2b.c1.w", "b2a.c1.w"} <= set(gen_cp["params"])
+         and saved_step(last) == CYCLE_CLI_EPOCHS * steps,
+         "the cycle checkpoint lacks a generator or holds another step")
+    test_dir = os.path.join(run_dir, "test")
+    need(all(os.path.isfile(os.path.join(test_dir, f"s{i:04d}.png"))
+             for i in range(E2E_TEST)), "the eval wrote no test PNGs")
+    events = glob.glob(os.path.join(run_dir, "logs", "*", "train",
+                                    "events.out.tfevents.*"))
+    need(len(events) == 1, "no tfevents file")
+    rates = [v for _, v in read_scalars(events[0])["Images/sec"]]
+    need(len(rates) == CYCLE_CLI_EPOCHS, "no Images/sec per epoch")
+    sustained = float(np.mean(rates[1:]))
+    print(f"  [{card}] cycle CLI, {CYCLE_CLI_TRAIN} + {CYCLE_CLI_TRAIN} "
+          f"triplets, b={CYCLE_CLI_B} doubled to {b_eff} pairs a step, "
+          f"{steps} steps an epoch: epoch pairs/s "
+          f"{[round(r, 2) for r in rates]} (StepTimer), sustained (epochs "
+          f">= 1) {sustained:.2f} pairs/s, whole run {wall_rate:.2f} pairs/s")
+
+    pngs = {}
+    for direction, tdir in (("AtoB", "test"), ("BtoA", "test_btoa")):
+        out, _ = run_cli(run_dir, f"test {direction}",
+                         ["--phase", "test", "--which_direction", direction,
+                          "--test_dir", tdir, *args])
+        d = os.path.join(run_dir, tdir)
+        need(" [*] Load SUCCESS" in out
+             and all(os.path.isfile(os.path.join(d, f"real_s{i:04d}.png"))
+                     for i in range(E2E_TEST)),
+             f"--phase test {direction} did not load or wrote no PNGs")
+        pngs[direction] = [open(os.path.join(d, f"s{i:04d}.png"), "rb")
+                           .read() for i in range(E2E_TEST)]
+    need(all(a != b for a, b in zip(pngs["AtoB"], pngs["BtoA"])),
+         "BtoA wrote the same PNGs as AtoB")
+    out, _ = run_cli(run_dir, "resume for 1 epoch",
+                     ["--phase", "train", "--continue_train", "--epoch", "1",
+                      *args])
+    resumed = saved_step(CYCLE_CLI_EPOCHS)
+    need(" [*] Load SUCCESS" in out
+         and resumed == (CYCLE_CLI_EPOCHS + 1) * steps,
+         "--continue_train did not resume at the saved step")
+
+    # one epoch in-process: K1's calls a step and by route
+    own = os.path.join(work, "cycle_inproc")
+    cfg = parse_args(["--phase", "train", "--epoch", "1", *args,
+                      *(x for d in ("checkpoint", "test", "sample", "log")
+                        for x in (f"--{d}_dir", os.path.join(own, d)))])
+    tr = Trainer(cfg, device=dev)
+    reset_k1()  # this main path starts here
+    tr.train()
+    counts, routes = read_k1()
+    sites = cycle_step_sites(b_eff)
+    want = {"fwd": add_routes(planned(sites, "fwd", steps),
+                              planned(gen_sites(E2E_TEST), "fwd")),
+            "bwd": planned(sites, "bwd", steps)}
+    print(f"  one cycle epoch in-process: K1 forward {counts['fwd']}, "
+          f"backward {counts['bwd']} ({steps} steps x {CYCLE_K1_PER_STEP} "
+          f"each, plus the eval's a2b forward of {E2E_TEST} images, 23 "
+          f"forward); by route {routes}, planned {want}")
+    need(counts == {"fwd": steps * CYCLE_K1_PER_STEP + 23,
+                    "bwd": steps * CYCLE_K1_PER_STEP} and routes == want,
+         "the cycle trainer's K1 calls left their count or routes")
+    del tr
+    torch.cuda.empty_cache()
+    return {"sustained_pairs_per_s": sustained, "epoch_pairs_per_s": rates,
+            "wall_pairs_per_s": wall_rate, "trainer_launches": counts,
+            "trainer_routes": routes}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2106,11 +2572,8 @@ def main() -> int:
 
     phase("7 K1 forward and backward vs plain at the step's sites")
     bwd_errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    cases = ([(B_TRAIN, hwc, act) for hwc, act in SITES]
-             + [(n, hwc, act) for n in (B_TRAIN, 2 * B_TRAIN)
-                for hwc, act in D_SITES])
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (n, hwc, act) in enumerate(cases):
+        for i, (n, hwc, act) in enumerate(step_k1_sites()):
             f_err, b_err = k1_vs_plain(n, hwc, act, dtype, dev, seed=i)
             errs[dtype] = max(errs[dtype], f_err)
             bwd_errs[dtype] = max(bwd_errs[dtype], b_err)
@@ -2370,10 +2833,27 @@ def main() -> int:
           "--use_pix2pix")
     dflt = default_cli_phase(card, dev, work,
                              os.path.join(work, "datasets", "city"))
-    shutil.rmtree(work)
 
     phase("21 /translate with the U-Net at 128x128 and its forward times")
     unet_srv = unet_serve_phase(card, dev)
+
+    phase("22 the cycle step f32, card vs CPU (ResNet, and U-Net with its "
+          "four mask sets)")
+    cyc_parity = cycle_card_vs_cpu_phase(card, dev)
+
+    phase("23 K1 forward and backward vs plain at every new site of the "
+          "cycle paths")
+    cyc_k1, cyc_k1_sites = cycle_k1_phase(card, dev, errs, bwd_errs)
+
+    phase("24 the cycle step at 256x512, bf16, b=8, and its batch sweep "
+          "(main path)")
+    cyc = cycle_step_phase(card, dev)
+
+    phase("25 the cycle CLI end to end (main path): python -m "
+          "sggan_tpu_torch.main --loss_mode cycle")
+    cyc_cli = cycle_cli_phase(card, dev, work,
+                              os.path.join(work, "datasets", "city"))
+    shutil.rmtree(work)
 
     def entry(name, d, replaces, launches, errs_d):
         return {"name": name, "route": "cuda",
@@ -2442,6 +2922,29 @@ def main() -> int:
             for (h, w), (tot, rows) in unet_k1.items()}
         ent["unet_is"] = ("the U-Net's 15 calls of one b=2 bf16 forward or "
                           "backward at each size, by site (phase 18)")
+        # the cycle mode (phases 23-25)
+        ent["cycle_step_per_step"] = {
+            "calls": cyc["cell"]["k1_per_step"][d],
+            "routes": cyc["cell"]["k1_routes_per_step"][d]}
+        ent["launches_cycle_cli"] = cyc_cli["trainer_launches"][d]
+        ent["routes_cycle_cli"] = cyc_cli["trainer_routes"][d]
+        ent["launches_cycle_cli_is"] = (
+            "calls in one in-process epoch of the cycle CLI (phase 25): "
+            f"{CYCLE_CLI_TRAIN // CYCLE_CLI_B} steps at b="
+            f"{2 * CYCLE_CLI_B}"
+            + (" and the eval's a2b forward" if d == "fwd" else ""))
+        ent["cycle"] = {
+            "ms": cyc_k1[d, "ms"], "device_ms": cyc_k1[d, "device_ms"],
+            "plain_ms": cyc_k1[d, "plain_ms"],
+            "bound_ms": cyc_k1[d, "bound_ms"],
+            "library_ms": cyc_k1[d, "library_ms"],
+            "sites": [{"site": [r["n"], *r["hwc"]], "calls": r["calls"],
+                       "route": r[f"{d}_route"],
+                       **{k[len(d) + 1:]: v for k, v in r.items()
+                          if k.startswith(d + "_") and k.endswith("_ms")}}
+                      for r in cyc_k1_sites]}
+        ent["cycle_is"] = (f"the {CYCLE_K1_PER_STEP} calls of one b="
+                           f"{CYCLE_B} bf16 cycle step, by site (phase 23)")
     print(card)
     print(json.dumps({"e2e": {
         "config": "perf_epoch_e2e fused-aug: 96 PNG triplets 512x1024, "
@@ -2461,6 +2964,23 @@ def main() -> int:
         "default_cli": {k: v for k, v in dflt.items()
                         if not k.startswith("trainer_")},
         **unet_srv}}))
+    print(card)
+    print(json.dumps({"cycle": {
+        "config": "bench.py:221-256's cycle cell: ResNet generators ngf "
+                  "64, semantic discriminators ndf 64, 256x512, 34 "
+                  "classes, pool 50, bf16, identity 5, gradient loss 5; "
+                  "synthetic batches (phase 24), the CLI on phase 16's "
+                  "PNG set with a 48-triplet trainB, --train_size 48, "
+                  "b=4 doubled to 8 (phase 25)",
+        "f32_card_vs_cpu": cyc_parity, "step": cyc["cell"],
+        "sweep": cyc["sweep"], "falls_at_b_ge_12": cyc["falls_at_b_ge_12"],
+        "cli": {k: v for k, v in cyc_cli.items()
+                if not k.startswith("trainer_")}}}))
+    from sggan_tpu_torch.perf_in import EVENT_TIMED
+    print(f"  profiler: {len(EVENT_TIMED)} device_ms calls found no kernel "
+          f"in any trace and were timed by CUDA events: {EVENT_TIMED}")
+    for ent in (fwd, bwd, k2):
+        ent["device_ms_calls_timed_by_events"] = len(EVENT_TIMED)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k2]}))
     print(json.dumps({"ok": True, "device": {

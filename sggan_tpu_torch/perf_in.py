@@ -53,6 +53,26 @@ def alternatives(n: int, h: int, w: int, c: int, dtype: torch.dtype,
     return out
 
 
+# (iters, keys) of each device_ms call that the profiler left empty in
+# every trace, so that its number is a CUDA-event time (see device_ms)
+EVENT_TIMED: List[tuple] = []
+_last_empty = [False]
+
+
+def events_ms(fn: Callable, iters: int) -> float:
+    """Time of one call of ``fn`` by CUDA events around ``iters`` calls
+    (host wrapper included where it is slower than the device)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def device_ms(fn: Callable, iters: int, tries: int = 6,
               keys: Sequence[str] = ()) -> float:
     """Device time of one call of ``fn``, which launches each of its
@@ -60,19 +80,31 @@ def device_ms(fn: Callable, iters: int, tries: int = 6,
     records for each kernel over ``iters`` calls after a warm-up call,
     summed over the kernels whose names hold one of ``keys`` (all of them
     if empty).  A trace taken right after another may drop or add an
-    event; a mean per kernel is immune to that.  A trace with no such
-    kernel (the profiler now and then records none, even of a kernel that
-    ran) is taken again after a pause that grows, up to ``tries`` times,
-    then raises."""
+    event; a mean per kernel is immune to that.
+
+    Now and then, late in a long process, the profiler records no kernel
+    in a short trace, even of kernels that ran.  Such a trace is taken
+    again up to ``tries`` times, with CPU activity on as well and the
+    capture window padded on both sides by a pause that grows (kernels
+    whose converted times fall outside the window are dropped).  If every
+    trace is empty, the calls are timed by CUDA events instead: that is
+    said on stderr and noted in ``EVENT_TIMED``, and the next call that
+    finds an empty trace tries only twice."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    if _last_empty[0]:
+        tries = min(tries, 2)
     for attempt in range(tries):
-        time.sleep(0.05 * attempt)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad = 0.0 if attempt == 0 else 0.025 * 2 ** attempt
+        acts = [ProfilerActivity.CUDA] if attempt == 0 else [
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            time.sleep(pad)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         total = 0.0
         for e in prof.key_averages():
             if str(getattr(e, "device_type", "")).endswith("CUDA") \
@@ -83,10 +115,17 @@ def device_ms(fn: Callable, iters: int, tries: int = 6,
                     us = getattr(e, "self_cuda_time_total", 0.0)
                 total += us / e.count
         if total > 0:
+            if attempt:
+                print(f"  profiler: a kernel recorded at try {attempt + 1} "
+                      f"(window padded by {pad:.3f} s)", file=sys.stderr)
+            _last_empty[0] = False
             return total / 1e3
-    raise RuntimeError(f"the profiler recorded no kernel "
-                       f"{'of ' + str(keys) + ' ' if keys else ''}in {tries} "
-                       f"traces of {iters} calls")
+    _last_empty[0] = True
+    EVENT_TIMED.append((iters, tuple(keys)))
+    print(f"  profiler: no kernel {'of ' + str(keys) + ' ' if keys else ''}"
+          f"in {tries} traces of {iters} calls; timed by CUDA events "
+          "instead", file=sys.stderr)
+    return events_ms(fn, iters)
 
 
 def host_us(fn: Callable, iters: int) -> float:

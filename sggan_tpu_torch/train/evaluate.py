@@ -7,10 +7,11 @@ TensorBoard scalars (``test_during_train``), the inference CLI
 
 The loop functions take the trainer (``tr``: its ``cfg``, ``state``,
 ``device``, dataset ``root``, ``max_src_hw`` and eval caches), as the JAX
-ones do.  Under ``--gen_ema`` they run the EMA shadow, not the trained
-parameters (``eval_generator``).  Every net runs in inference mode: the
-pix2pix generator's batch norms on the moving stats of the train state
-(``state.gen_bn``), under ``--gen_ema`` too, and no dropout.
+ones do.  Under ``--loss_mode cycle`` they run the generator of
+``--which_direction``; under ``--gen_ema`` the EMA shadow, not the
+trained parameters (``eval_generator``).  Every net runs in inference
+mode: the pix2pix generator's batch norms on the moving stats of the
+train state (``state.gen_bn``), under ``--gen_ema`` too, and no dropout.
 ``--eval_crf`` is not ported yet.
 """
 
@@ -95,16 +96,22 @@ def generate(cfg: Config, gen: torch.nn.Module, images01,
 
 def eval_generator(tr) -> torch.nn.Module:
     """The generator that eval, test and sampling run: under
-    ``--gen_ema`` a copy of the net holding the EMA shadow
-    (evaluate.py:101-103), refreshed at each call; else the trained net."""
-    ema = tr.state.ema
+    ``--loss_mode cycle`` the one of ``--which_direction``, ``a2b`` for
+    AtoB (the default) and ``b2a`` for BtoA (evaluate.py:50-53); under
+    ``--gen_ema`` a copy of that net holding its EMA shadow
+    (evaluate.py:101-103), refreshed at each call; else the trained
+    net."""
+    gen, ema, prefix = tr.state.gen_params, tr.state.ema, ""
+    if tr.cfg.loss_mode == "cycle":
+        key = "a2b" if tr.cfg.which_direction == "AtoB" else "b2a"
+        gen, prefix = gen[key], key + "."
     if ema is None:
-        return tr.state.gen_params
+        return gen
     if tr._ema_gen is None:
-        tr._ema_gen = copy.deepcopy(tr.state.gen_params).requires_grad_(False)
+        tr._ema_gen = copy.deepcopy(gen).requires_grad_(False)
     with torch.no_grad():
         for k, p in tr._ema_gen.named_parameters():
-            p.copy_(ema[k])
+            p.copy_(ema[prefix + k])
     return tr._ema_gen
 
 

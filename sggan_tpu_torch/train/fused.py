@@ -15,11 +15,20 @@ Each step uploads nothing: the epoch's order goes to the device once, the
 data draws and the generator's dropout masks come from the trainer's
 device generator, and the pool's draws from its host generator, since
 the pool plans on the host (``train/pool.py``).
+
+Under ``--loss_mode cycle`` the epoch runs over two resident splits,
+trainA and trainB (fused.py:90-104, :197-212): B's order is the shuffle
+of ``data_seed + 7919``, as the host iterator of trainB draws it; the
+epoch has ``min(len_a, len_b) // batch_size`` steps; each step assembles
+an A batch and a B batch and joins them (``two_domain``).  The draws keep
+one order in the resident and the host path: A's preprocess, B's, the
+pool's, then the four mask sets.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import torch
 
@@ -28,6 +37,8 @@ from ..data.preprocess import (PreprocessDraws, draw_preprocess,
                                preprocess_train)
 from .pool import pool_draws
 from .step import dropout_masks
+
+B_SEED_OFFSET = 7919  # trainB's shuffle seed is data_seed + 7919
 
 
 def make_batch_fn(cfg):
@@ -61,16 +72,28 @@ def effective_batch(cfg) -> int:
     return cfg.batch_size * (2 if cfg.use_augmentation else 1)
 
 
-def step_draws(tr, src_h: int):
+def step_draws(tr, src_h: int, src_h_b: Optional[int] = None):
     """One step's draws: the preprocess's and then the dropout masks
     (None for a net without dropout) from the trainer's device generator,
-    the pool's from its host generator."""
+    the pool's from its host generator.  Under ``--loss_mode cycle`` the
+    preprocess's are a pair, A's (sources ``src_h`` rows high) then B's
+    (``src_h_b``), and the masks the cycle step's four sets."""
     cfg = tr.cfg
     b_eff = effective_batch(cfg)
-    return (draw_preprocess(tr.data_gen, b_eff, src_h, cfg.image_size,
-                            cfg.use_photometric),
-            pool_draws(tr.pool_gen, b_eff, cfg.max_size),
+
+    def pre(h):
+        return draw_preprocess(tr.data_gen, b_eff, h, cfg.image_size,
+                               cfg.use_photometric)
+    draws = (pre(src_h), pre(src_h_b)) if tr.cycle else pre(src_h)
+    return (draws, pool_draws(tr.pool_gen, b_eff, cfg.max_size),
             dropout_masks(cfg, tr.state.gen_params, tr.data_gen, b_eff))
+
+
+def two_domain(batch_a: dict, batch_b: dict) -> dict:
+    """The cycle step's batch: A's, with B's image, seg and mask as
+    ``real_b``, ``seg_b`` and ``mask_b``."""
+    return dict(batch_a, real_b=batch_b["real_a"], seg_b=batch_b["seg_a"],
+                mask_b=batch_b["mask_a"])
 
 
 def end_step(tr, epoch: int, idx: int, m: dict, n_images: int,
@@ -102,18 +125,24 @@ def end_step(tr, epoch: int, idx: int, m: dict, n_images: int,
 def run_epoch_fused(tr, epoch: int, lr: float, dev_ds, make_batch,
                     g_losses: list, d_losses: list, global_step: int,
                     start_time: float) -> int:
-    """One epoch over the resident split, one step per dispatch, in the
-    order of ``np.random.default_rng(data_seed + epoch)``'s shuffle.
-    Returns the new global step."""
+    """One epoch over the resident split (a (trainA, trainB) pair under
+    ``--loss_mode cycle``), one step per dispatch, in the order of
+    ``np.random.default_rng(data_seed + epoch)``'s shuffle (trainB's of
+    ``data_seed + 7919 + epoch``).  Returns the new global step."""
     cfg = tr.cfg
     b = cfg.batch_size
-    arrays = (dev_ds.img, dev_ds.seg, dev_ds.cls)
-    order = torch.from_numpy(epoch_order(len(dev_ds), cfg.data_seed,
-                                         epoch)).to(dev_ds.img.device)
-    src_h = dev_ds.img.shape[1]
-    for done in range(len(dev_ds) // b):
-        draws, pdraws, masks = step_draws(tr, src_h)
-        batch = make_batch(*arrays, order[done * b:(done + 1) * b], draws)
+    splits = dev_ds if tr.cycle else (dev_ds,)
+    orders = [torch.from_numpy(epoch_order(len(ds), cfg.data_seed + seed,
+                                           epoch)).to(ds.img.device)
+              for ds, seed in zip(splits, (0, B_SEED_OFFSET))]
+    for done in range(min(len(ds) for ds in splits) // b):
+        draws, pdraws, masks = step_draws(
+            tr, *(ds.img.shape[1] for ds in splits))
+        batches = [make_batch(ds.img, ds.seg, ds.cls,
+                              order[done * b:(done + 1) * b], d)
+                   for ds, order, d in zip(
+                       splits, orders, draws if tr.cycle else (draws,))]
+        batch = two_domain(*batches) if tr.cycle else batches[0]
         tr.state, m = tr.step_fn(tr.state, batch, lr, pdraws, masks)
         global_step = end_step(tr, epoch, done, m, effective_batch(cfg),
                                g_losses, d_losses, global_step, start_time)

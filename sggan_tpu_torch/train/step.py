@@ -12,13 +12,16 @@ Ported: the sggan branch (``--loss_mode sggan``, the full SG-GAN objective
 with the (fake, mask) pool) and the p2p and simple branches that share its
 body, with every net the CLI selects (``models.build``): the ResNet or
 U-Net generator with the semantic discriminator, or the pix2pix pair.
+``--loss_mode cycle`` has its own step in ``train/cycle.py``;
+``init_state``, ``dropout_masks`` and ``build_step_fn`` hand that mode to
+it, so a caller takes every mode through this module's entry points.
 Under pix2pix the discriminator's batch norm makes the JAX step's two
 calls, real then fake, threading the BN state, and the generator loss's
 call runs in inference mode on the pre-step state (``_gen_fwd`` and
 ``_disc_fwd`` of the JAX step); the pix2pix pool holds fakes only.  Not
 ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``--compat_fake_history``, ``--remat``, the cycle mode and data
-parallelism (``axis_name``).
+item: ``--compat_fake_history``, ``--remat`` and data parallelism
+(``axis_name``), in every loss mode.
 
 Adam is optax's ``scale_by_adam`` (betas (beta1, 0.999), eps 1e-7, the
 Keras default, not optax's 1e-8) with the learning rate applied outside the
@@ -94,9 +97,7 @@ def _dtype(cfg) -> torch.dtype:
 
 def _require_ported(cfg, axis_name=None) -> None:
     todo = None
-    if cfg.loss_mode == "cycle":
-        todo = "loss_mode cycle (ROADMAP Queue 1: train/cycle.py)"
-    elif cfg.loss_mode == "p2p" and cfg.compat_fake_history:
+    if cfg.loss_mode == "p2p" and cfg.compat_fake_history:
         todo = ("--compat_fake_history (ROADMAP Queue 1: "
                 "--compat_fake_history and --dropout_mode)")
     elif cfg.remat:
@@ -105,8 +106,8 @@ def _require_ported(cfg, axis_name=None) -> None:
         todo = "data and spatial parallelism (ROADMAP Queue 1: parallel)"
     if todo:
         raise NotImplementedError(f"{todo} is not ported yet; pass one "
-                                  "of --loss_mode sggan/p2p/simple on one "
-                                  "device")
+                                  "of --loss_mode sggan/p2p/simple/cycle "
+                                  "on one device")
 
 
 def adam_init(net: torch.nn.Module) -> AdamState:
@@ -138,7 +139,11 @@ def init_state(cfg, generator: torch.Generator,
                device="cuda") -> TrainState:
     """Fresh nets drawn on the CPU from ``generator`` (generator first,
     then discriminator), fresh BN moving stats, zero Adam state and an
-    empty pool, on ``device``."""
+    empty pool, on ``device``; the cycle mode's state under
+    ``--loss_mode cycle`` (``cycle.init_cycle_state``)."""
+    if cfg.loss_mode == "cycle":
+        from .cycle import init_cycle_state
+        return init_cycle_state(cfg, generator, device)
     _require_ported(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -174,7 +179,12 @@ def dropout_masks(cfg, gen: torch.nn.Module, generator: torch.Generator,
                   n: int) -> Optional[Tuple[torch.Tensor, ...]]:
     """The generator's dropout keep masks for one step at batch ``n``,
     drawn from ``generator`` on its device; None where the net has no
-    dropout (the ResNet) or under ``--dropout_mode keras_quirk``."""
+    dropout (the ResNet) or under ``--dropout_mode keras_quirk``.  Under
+    ``--loss_mode cycle``, the cycle step's four mask sets
+    (``cycle.cycle_dropout_masks``)."""
+    if cfg.loss_mode == "cycle":
+        from .cycle import cycle_dropout_masks
+        return cycle_dropout_masks(cfg, gen, generator, n)
     if deterministic(cfg) or not gen.drop_rate:
         return None
     return _draw_masks(generator, gen.drop_shapes(n, *cfg.image_size),
@@ -343,7 +353,11 @@ def build_step_fn(cfg, axis_name: Optional[str] = None):
     ``drop_masks`` from ``dropout_masks(cfg, state.gen_params, generator,
     B)`` (None for the ResNet or under ``--dropout_mode keras_quirk``).
     The nets' parameters and the EMA are updated in place; metrics are
-    device scalars."""
+    device scalars.  Under ``--loss_mode cycle``, the cycle step
+    (``cycle.build_cycle_step_fn``)."""
+    if cfg.loss_mode == "cycle":
+        from .cycle import build_cycle_step_fn
+        return build_cycle_step_fn(cfg, axis_name)
     _require_ported(cfg, axis_name)
 
     def step_fn(state: TrainState, batch, lr: float,

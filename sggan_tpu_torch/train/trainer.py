@@ -28,8 +28,12 @@ from 0 again, below the one it loaded).
 
 Every net the CLI selects trains: the ResNet or U-Net generator with the
 semantic discriminator, or the pix2pix pair with its batch-norm state.
+``--loss_mode cycle`` trains both generators and both discriminators
+(``train/cycle.py``) on two domains: trainA and trainB resident together
+when both fit, else two host iterators zipped, trainB's shuffled from
+``data_seed + 7919`` (trainer.py:152-197, :322-351).
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: the cycle mode, meshes and multi-host training, ``--eval_crf``.
+item: meshes and multi-host training, ``--remat``, ``--eval_crf``.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ def _dataset_root(cfg: Config) -> str:
 class Trainer:
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg.validate()
+        self.cycle = cfg.loss_mode == "cycle"
         _require_ported(cfg)
         if cfg.eval_crf:
             raise NotImplementedError(evaluate.CRF_TODO)
@@ -95,68 +100,95 @@ class Trainer:
                                  images01, self.device, as_u8=as_u8,
                                  gen_bn=self.state.gen_bn)
 
-    def _maybe_device_dataset(self) -> Optional[DeviceDataset]:
+    def _maybe_device_dataset(self):
         """The training split resident on the device (loader.DeviceDataset)
         when it fits cfg.device_dataset_mb, as the JAX trainer decides
-        (trainer.py:152-197); None keeps the host iterator, for an empty
-        budget, a split smaller than a batch, or one that does not fit."""
+        (trainer.py:152-197); under ``--loss_mode cycle`` the pair
+        (trainA, trainB), both resident or neither, their sum against the
+        budget.  None keeps the host iterator, for an empty budget, a split
+        smaller than a batch, or splits that do not fit."""
         cfg = self.cfg
         if not cfg.device_dataset_mb:
             return None
-        files = Dataset(self.root, "trainA").files()
-        n = min(len(files), int(cfg.train_size))
-        if n < cfg.batch_size:
-            return None
-        probe = _load_triplet(files[0], "trainA",
-                              cache_bytes=cfg.decode_cache_mb << 20,
-                              max_hw=self.max_src_hw)
-        if sum(a.nbytes for a in probe) * n > cfg.device_dataset_mb << 20:
+        splits = ("trainA", "trainB") if self.cycle else ("trainA",)
+        est = 0
+        for split in splits:
+            files = Dataset(self.root, split).files()
+            n = min(len(files), int(cfg.train_size))
+            if n < cfg.batch_size:
+                return None
+            probe = _load_triplet(files[0], split,
+                                  cache_bytes=cfg.decode_cache_mb << 20,
+                                  max_hw=self.max_src_hw)
+            est += sum(a.nbytes for a in probe) * n
+        if est > cfg.device_dataset_mb << 20:
             return None
         try:
-            ds = DeviceDataset(self.root, "trainA", max_hw=self.max_src_hw,
-                               cache_mb=cfg.decode_cache_mb,
-                               train_size=cfg.train_size,
-                               device=self.device)
+            dss = tuple(DeviceDataset(self.root, split,
+                                      max_hw=self.max_src_hw,
+                                      cache_mb=cfg.decode_cache_mb,
+                                      train_size=cfg.train_size,
+                                      device=self.device)
+                        for split in splits)
         except (ValueError, torch.cuda.OutOfMemoryError) as e:
             # sources of several shapes do not stack; the card may be full
             print(f" [!] device dataset cache disabled: "
                   f"{type(e).__name__}: {e}")
             return None
-        print(f" [*] training split resident on device "
-              f"({ds.nbytes >> 20} MB, {len(ds)} triplets)")
-        return ds
+        print(f" [*] training split{'s' if self.cycle else ''} resident on "
+              f"device ({sum(d.nbytes for d in dss) >> 20} MB, "
+              f"{'+'.join(str(len(d)) for d in dss)} triplets)")
+        return dss if self.cycle else dss[0]
 
     def _save(self, epoch: int):
         ckpt.save(self.state, self.cfg.checkpoint_dir, self.cfg.dataset_dir,
                   self._ckpt_base + epoch)
 
+    def _upload(self, raw: dict) -> list:
+        """A decoded batch's img, seg, cls and aug on the device (through
+        pinned memory on the card, so the copies do not sync the host)."""
+        pinned = self.device.type == "cuda"
+        ts = [torch.from_numpy(raw[k]) for k in ("img", "seg", "cls", "aug")]
+        if pinned:
+            ts = [t.pin_memory() for t in ts]
+        return [t.to(self.device, non_blocking=pinned) for t in ts]
+
     def _host_epoch(self, epoch: int, lr: float, g_losses: list,
                     d_losses: list, global_step: int,
                     start_time: float) -> int:
         """One epoch over the host iterator: decoded uint8 batches,
-        uploaded, preprocessed on the device, one step each."""
+        uploaded, preprocessed on the device, one step each; under
+        ``--loss_mode cycle`` trainA's iterator zipped with trainB's, whose
+        shuffle seed is ``data_seed + 7919``."""
         cfg = self.cfg
-        pinned = self.device.type == "cuda"
-        it = train_iterator(
-            self.root, cfg.batch_size, cfg.data_seed,
+        domains = ((0, "trainA"), (fused.B_SEED_OFFSET, "trainB")) \
+            if self.cycle else ((0, "trainA"),)
+        size = cfg.train_size
+        if self.cycle:
+            # the zip ends with the shorter split; cut the longer one's
+            # shuffled list there too (its first batches are unchanged),
+            # so no producer thread is left blocked on a full queue
+            size = min(size, *(len(Dataset(self.root, s).files())
+                               for _, s in domains))
+        its = [train_iterator(
+            self.root, cfg.batch_size, cfg.data_seed + off,
             use_augmentation=cfg.use_augmentation, epoch=epoch,
-            train_size=cfg.train_size, prefetch=cfg.prefetch,
+            train_size=size, prefetch=cfg.prefetch, split=split,
             cache_mb=cfg.decode_cache_mb, max_src_hw=self.max_src_hw)
-        for idx, raw in enumerate(it):
-            img, seg, cls, aug = (
-                torch.from_numpy(raw[k]) for k in ("img", "seg", "cls",
-                                                   "aug"))
-            if pinned:
-                img, seg, cls, aug = (t.pin_memory() for t in
-                                      (img, seg, cls, aug))
-            img, seg, cls, aug = (t.to(self.device, non_blocking=pinned)
-                                  for t in (img, seg, cls, aug))
-            draws, pdraws, masks = fused.step_draws(self, img.shape[1])
-            batch = self.preprocess(img, seg, cls, draws, aug)
+            for off, split in domains]
+        for idx, raws in enumerate(zip(*its)):
+            up = [self._upload(raw) for raw in raws]
+            draws, pdraws, masks = fused.step_draws(
+                self, *(u[0].shape[1] for u in up))
+            batches = [self.preprocess(img, seg, cls, d, aug)
+                       for (img, seg, cls, aug), d in zip(
+                           up, draws if self.cycle else (draws,))]
+            batch = fused.two_domain(*batches) if self.cycle \
+                else batches[0]
             self.state, m = self.step_fn(self.state, batch, lr, pdraws,
                                          masks)
             global_step = fused.end_step(
-                self, epoch, idx, m, img.shape[0], g_losses, d_losses,
+                self, epoch, idx, m, up[0][0].shape[0], g_losses, d_losses,
                 global_step, start_time)
         return global_step
 

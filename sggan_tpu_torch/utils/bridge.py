@@ -18,7 +18,11 @@ nested dicts, ``{"down1_bn": {"moving_mean": ..., "moving_var": ...}}``),
 optax's ``ScaleByAdamState`` (count, mu, nu) of both optimizers in the same
 torch layouts, the pool's buffers and count, the step and the EMA.
 ``train_state_to_jax`` is the way back for the parameters, the moving
-stats and the Adam state.
+stats and the Adam state.  Under ``--loss_mode cycle`` the JAX state
+(``sggan_tpu/train/cycle.py::init_cycle_state``) nests the nets as
+{"a2b", "b2a"} and {"da", "db"} and pools (fake, mask) pairs; the port's
+``nn.ModuleDict`` of the same keys flattens to the same names
+(``a2b.c1.w``), so both directions take it as they take any state.
 
 Takes anything ``np.asarray`` reads, so it needs no JAX import.
 """
@@ -30,6 +34,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..train.cycle import new_cycle_nets
 from ..train.pool import PoolState
 from ..train.step import (AdamState, TrainState, new_discriminator,
                           new_generator)
@@ -90,8 +95,12 @@ def _bn_to_jax(state: Mapping) -> dict:
 def train_state_from_jax(cfg, state, device="cpu") -> TrainState:
     """The port's ``TrainState`` on ``device`` from a JAX ``TrainState``
     whose leaves are numpy arrays, for the config that made it (the nets
-    it selects; the semantic discriminator with the "global" head)."""
-    gen, disc = new_generator(cfg), new_discriminator(cfg)
+    it selects; the semantic discriminator with the "global" head; both
+    pairs under ``--loss_mode cycle``)."""
+    if cfg.loss_mode == "cycle":
+        gen, disc = new_cycle_nets(cfg)
+    else:
+        gen, disc = new_generator(cfg), new_discriminator(cfg)
     gen.load_state_dict(params_from_jax(state.gen_params))
     disc.load_state_dict(params_from_jax(state.disc_params))
     buf = state.pool.buffer

@@ -2,8 +2,8 @@
 saved moments, backward) and the fused conv3x3 + instance norm kernel
 (both conv routes, and the gradients of its autograd Function) against
 their plain versions, the wrappers' refusals, the generator's CUDA forward
-and one train step's gradients against the CPU.  Every test needs an
-NVIDIA GPU and skips without one.
+and the gradients of one train step and of one cycle step against the
+CPU.  Every test needs an NVIDIA GPU and skips without one.
 
 Imports torch and numpy only, so it runs where JAX is absent:
 
@@ -336,6 +336,51 @@ def test_train_step_cuda_matches_cpu(dev, monkeypatch):
                 <= 1e-3 * scale + 1e-7, k
 
 
+def test_cycle_step_cuda_matches_cpu(dev, monkeypatch):
+    """One f32 ResNet cycle step's losses and the gradients of all four
+    nets, card (kernels) vs CPU (plain versions), from the same seeded
+    state, two-domain batch and pool draws, with exactly 154 K1 calls
+    each way on the card.  The gradients are held at 1e-3 of each
+    tensor's largest, or at chip_smoke.py's full-width limits where a sign
+    the gradient follows falls on opposite sides (phase 22)."""
+    import chip_smoke
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import cycle, pool, step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = Config(image_height=32, image_width=64, ngf=4, ndf=4,
+                 segment_class=8, batch_size=2, max_size=2,
+                 compute_dtype="float32", loss_mode="cycle", use_resnet=True)
+    batch = chip_smoke.cycle_batch(cfg, 2, "cpu", seed=0)
+    draws = pool.pool_draws(torch.Generator().manual_seed(1), 2, 2)
+    out, signs = {}, {}
+    for d in ("cpu", dev):
+        state = step.init_state(cfg, torch.Generator().manual_seed(0), d)
+        on = {k: v.to(d) for k, v in batch.items()}
+        f0, b0 = cuda_in.launches, cuda_in.bwd_launches
+        out[str(d)] = cycle.losses_and_grads(cfg, state, on, draws)
+        if d == dev:  # 6 x 23 generator INs, 4 x 4 in the D calls
+            assert cuda_in.launches - f0 == 154
+            assert cuda_in.bwd_launches - b0 == 154
+        signs[str(d)] = chip_smoke.cycle_signs(state, on, None,
+                                               torch.float32)
+    flips = sum(int(((a >= 0) != (c >= 0)).sum())
+                for a, c in zip(signs["cpu"], signs["cuda"]))
+    (m_c, g_c, d_c, _), (m_g, g_g, d_g, _) = out["cpu"], out["cuda"]
+    for k in m_c:
+        assert abs(m_g[k].item() - m_c[k].item()) <= 1e-4 * abs(m_c[k].item())
+    rows = []
+    for ref, got in ((g_c, g_g), (d_c, d_g)):
+        assert ref.keys() == got.keys()
+        rows += chip_smoke.grad_rows(ref, {k: v.cpu() for k, v in
+                                           got.items()})
+    lim = (1e-3, float("inf")) if not flips else (chip_smoke.STEP_MAX_REL,
+                                                   chip_smoke.STEP_NORM_REL)
+    assert max(r[0] for r in rows) <= lim[0], (flips, rows[-3:])
+    assert max(r[1] for r in rows) <= lim[1], (flips, rows[-3:])
+
+
 # ----------------------------------------------------------------------
 # K2: fused reflect-pad conv3x3 + instance norm
 # ----------------------------------------------------------------------
@@ -452,3 +497,22 @@ def test_conv3_in_wrapper_refuses_what_the_kernel_does_not_take(dev):
     x_mis.copy_(x)
     with pytest.raises(ValueError, match="16 bytes"):
         cci.conv3_in_cuda(x_mis, wk, g, b)
+
+
+def test_device_ms_times_by_events_when_no_trace_holds_the_kernel(
+        dev, monkeypatch):
+    """perf_in.device_ms: when no trace records a kernel of ``keys``, the
+    padded retries run, then the calls are timed by CUDA events and noted
+    in EVENT_TIMED; a later call that finds its kernel clears the mark."""
+    from sggan_tpu_torch import perf_in
+    monkeypatch.setattr(perf_in, "EVENT_TIMED", [])
+    monkeypatch.setattr(perf_in, "_last_empty", [False])
+    x, g, b = _inputs((2, 64, 64, 64), dev, torch.bfloat16)
+
+    def fn():
+        cuda_in.instance_norm_cuda(x, g, b, 1e-3, "relu")
+    ms = perf_in.device_ms(fn, 4, tries=3, keys=("no_such_kernel",))
+    assert ms > 0 and perf_in.EVENT_TIMED == [(4, ("no_such_kernel",))]
+    assert perf_in._last_empty[0]
+    assert perf_in.device_ms(fn, 4) > 0 and not perf_in._last_empty[0]
+    assert len(perf_in.EVENT_TIMED) == 1

@@ -19,6 +19,12 @@ from sggan_tpu_torch.models.discriminator import (Discriminator,  # noqa: E402
 from sggan_tpu_torch.utils.bridge import params_from_jax, params_to_jax  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "disc.npy")
+# XLA without its LLVM optimisation and fusion emitters, as
+# tests/test_torch_step.py compiles its step: the same f32 results to
+# rounding, in a fraction of the compile time
+FAST = {"xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True,
+        "xla_cpu_use_fusion_emitters": False}
 N_CLASS, NDF = 8, 4
 
 
@@ -63,8 +69,9 @@ def test_bridge_round_trips_both_heads(head):
 def test_forward_matches_jax(hw, head):
     disc = _port(hw, head)
     x, mask = _inputs(hw)
-    ref = jax.jit(lambda p, x, m: jdisc.apply(p, x, m, head=head))(
-        params_to_jax(disc.state_dict()), x, mask)
+    args = (params_to_jax(disc.state_dict()), x, mask)
+    ref = jax.jit(lambda p, x, m: jdisc.apply(p, x, m, head=head)).lower(
+        *args).compile(FAST)(*args)
     with torch.no_grad():
         got = disc(torch.from_numpy(x), torch.from_numpy(mask))
     assert got.dtype == torch.float32 and got.shape == ref.shape
@@ -110,8 +117,9 @@ def test_input_and_param_grads_match_jax():
     def loss(p, x):
         return jnp.sum(jdisc.apply(p, x, mask) * w)
 
-    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(
-        params_to_jax(disc.state_dict()), x)
+    args = (params_to_jax(disc.state_dict()), x)
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1))).lower(*args).compile(
+        FAST)(*args)
     xt = torch.from_numpy(x).requires_grad_(True)
     names, params = zip(*disc.named_parameters())
     out = (disc(xt, torch.from_numpy(mask)) * torch.from_numpy(w)).sum()

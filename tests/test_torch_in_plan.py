@@ -1,6 +1,8 @@
 """The K1 kernels' launch plan (``cuda_in.plan``), pure Python: at every
 instance-norm site of one b=16 train step, of the served forward at b=1,
-and of the U-Net generator (the CLI default: every site at full
+of the cycle step (the ResNet's at b = 2-16 and the discriminators' at
+b and 2b; the U-Net's discriminator at 128x128), and of the U-Net
+generator (the CLI default: every site at full
 resolution, C 64-512, batch 1 doubled to 2, at 128x128 and 256x512), in
 bf16 and f32, the plan covers every row and channel exactly once, fits
 the H100's shared memory and cluster limits, fills a wave of CTAs where
@@ -27,6 +29,18 @@ SERVE = [(1, *hwc) for hwc in G_SITES]
 # resolution; chip_smoke.py's K1 phase runs them at b=2
 UNET_C = (64, 128, 256, 512)
 UNET = [(2, h, w, c) for h, w in ((128, 128), (256, 512)) for c in UNET_C]
+# the cycle step (--loss_mode cycle): the ResNet generator's sites at
+# chip_smoke.py's cell b=8 and its sweep b (2 is also the eval's), the
+# discriminator's at b and 2b; the U-Net cycle step at 128x128 b=2 adds
+# the discriminator's sites at 128x128 (b=2 in the generator loss, 4 in
+# the call over [real; pooled fake]) to the U-Net's generator sites above
+CYCLE_B = (2, 4, 8, 12, 16)
+D128_SITES = [(32, 32, 128), (16, 16, 256), (16, 16, 512), (7, 7, 512),
+              (3, 3, 512), (1, 1, 512)]
+CYCLE = sorted({(n, *hwc) for b in CYCLE_B
+                for n, sites in ((b, G_SITES + D_SITES), (2 * b, D_SITES))
+                for hwc in sites} - set(STEP + SERVE)) \
+    + [(n, *hwc) for n in (2, 4) for hwc in D128_SITES]
 DTYPES = [torch.bfloat16, torch.float32]
 DIRS = ["fwd", "bwd"]
 SMEM_OPTIN = 232448  # bytes a block may use on the H100
@@ -52,7 +66,7 @@ def _coverage(p, n, h, w, c, dtype):
 
 @pytest.mark.parametrize("direction", DIRS)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("site", STEP + SERVE + UNET)
+@pytest.mark.parametrize("site", STEP + SERVE + UNET + CYCLE)
 def test_plan_covers_fits_and_fills(site, dtype, direction):
     n, h, w, c = site
     p = cuda_in.plan(n, h, w, c, dtype, direction)
@@ -80,9 +94,11 @@ def x_bytes(dtype):
 def _expected_route(n, h, w, c, dtype, direction):
     """The route table of csrc/instance_norm.cu's sites: the widest plane
     streams; (128, 256, 128) takes a 16-CTA cluster forward in bf16 only,
-    and streams at b=1, where no cluster of its slabs fills a wave while
-    the stream route does; every other site is held by a cluster."""
-    if (h, w) == (256, 512) or (n == 1 and (h, w) == (128, 256)):
+    and streams at b <= 2, where no cluster of its slabs fills a wave
+    (2 x 4 tiles x 16 = 128 CTAs) while the stream route does; every
+    other site, the discriminator's 1x1 plane at 128x128 included, is
+    held by a cluster."""
+    if (h, w) == (256, 512) or (n <= 2 and (h, w) == (128, 256)):
         return "stream"
     if (h, w) == (128, 256):
         return "cluster" if (dtype, direction) == (torch.bfloat16, "fwd") \
@@ -92,7 +108,7 @@ def _expected_route(n, h, w, c, dtype, direction):
 
 @pytest.mark.parametrize("direction", DIRS)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("site", STEP + SERVE)
+@pytest.mark.parametrize("site", STEP + SERVE + CYCLE)
 def test_plan_route_at_each_site(site, dtype, direction):
     p = cuda_in.plan(*site, dtype, direction)
     assert p.route == _expected_route(*site, dtype, direction)

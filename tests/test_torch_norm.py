@@ -24,6 +24,12 @@ from sggan_tpu_torch.ops import cuda_in  # noqa: E402
 from sggan_tpu_torch.ops import norm as tnorm  # noqa: E402
 
 SHAPES = [(2, 8, 8, 64), (1, 16, 8, 128), (2, 8, 4, 256), (1, 4, 4, 34)]
+# XLA without its LLVM optimisation and fusion emitters, as
+# tests/test_torch_step.py compiles its step: the same f32 results to
+# rounding, in a fraction of the compile time
+FAST = {"xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True,
+        "xla_cpu_use_fusion_emitters": False}
 ACTS = [None, "relu", "leaky_relu"]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -35,6 +41,11 @@ def _inputs(shape, seed=0):
     gamma = r.uniform(0.5, 1.5, c).astype(np.float32)
     beta = (r.standard_normal(c) * 0.1).astype(np.float32)
     return x, gamma, beta
+
+
+def _compile(fn, *args):
+    """``fn(*args)`` as one program compiled with ``FAST``."""
+    return jax.jit(fn).lower(*args).compile(FAST)(*args)
 
 
 def _close(got, ref, dtype):
@@ -57,9 +68,10 @@ def _ref(x, gamma, beta, act, dtype):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_ref_matches_xla(shape, act, dtype):
     x, gamma, beta = _inputs(shape)
-    xj = jnp.asarray(x).astype(dtype)
-    ref = _instance_norm_xla(xj, jnp.asarray(gamma), jnp.asarray(beta),
-                             1e-3, act, 0.3)
+    ref = _compile(lambda x, g, b: _instance_norm_xla(x, g, b, 1e-3, act,
+                                                      0.3),
+                   jnp.asarray(x).astype(dtype), jnp.asarray(gamma),
+                   jnp.asarray(beta))
     _close(_ref(x, gamma, beta, act, dtype), ref, dtype)
 
 
@@ -68,9 +80,9 @@ def test_ref_matches_xla(shape, act, dtype):
 def test_ref_matches_pallas_interpret(shape, act):
     x, gamma, beta = _inputs(shape, seed=1)
     with pltpu.force_tpu_interpret_mode():
-        ref = pallas_in.instance_norm_pallas(
-            jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), 1e-3,
-            act, 0.3)
+        ref = _compile(lambda x, g, b: pallas_in.instance_norm_pallas(
+            x, g, b, 1e-3, act, 0.3), jnp.asarray(x), jnp.asarray(gamma),
+            jnp.asarray(beta))
     _close(_ref(x, gamma, beta, act, "float32"), ref, "float32")
 
 
@@ -116,8 +128,6 @@ def _jax_vjp(x, gamma, beta, dy, act):
     return vjp(dy)
 
 
-_JAX_VJP = {act: jax.jit(functools.partial(_jax_vjp, act=act))
-            for act in ACTS}
 
 
 def _grad_inputs(shape, dtype, seed=5):
@@ -136,8 +146,9 @@ def test_backward_matches_jax_custom_vjp(shape, act, dtype):
     """dx, dgamma, dbeta of the port's autograd Function (on the CPU: the
     plain backward) against jax.vjp of the JAX package's instance norm."""
     x, gamma, beta, dy, xt, dyt = _grad_inputs(shape, dtype)
-    ref = _JAX_VJP[act](jnp.asarray(x).astype(dtype), jnp.asarray(gamma),
-                        jnp.asarray(beta), jnp.asarray(dy).astype(dtype))
+    ref = _compile(functools.partial(_jax_vjp, act=act),
+                   jnp.asarray(x).astype(dtype), jnp.asarray(gamma),
+                   jnp.asarray(beta), jnp.asarray(dy).astype(dtype))
     xt.requires_grad_(True)
     g = torch.from_numpy(gamma).requires_grad_(True)
     b = torch.from_numpy(beta).requires_grad_(True)

@@ -344,7 +344,7 @@ def test_bf16_step_stores_the_pool_in_bf16_and_restores_tf32():
 
 
 @pytest.mark.parametrize("kw", [
-    {"loss_mode": "cycle"},
+    {"loss_mode": "cycle", "remat": True},
     {"loss_mode": "p2p", "compat_fake_history": True}, {"remat": True},
     {"mesh_data": 2}])
 def test_unported_modes_raise_naming_the_roadmap(kw):

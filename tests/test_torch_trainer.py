@@ -239,7 +239,8 @@ def test_main_without_a_gpu_is_an_error(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("cfg_kw,what", [
-    (dict(loss_mode="cycle"), "cycle"), (dict(mesh_data=2), "parallel"),
+    (dict(loss_mode="cycle", remat=True), "remat"),
+    (dict(mesh_data=2), "parallel"),
     (dict(eval_crf=True), "CRF")])
 def test_trainer_refuses_what_is_not_ported(dataset, tmp_path, cfg_kw,
                                             what):
