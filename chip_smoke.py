@@ -12,9 +12,11 @@ trainer behind ``python -m sggan_tpu_torch.main`` on a synthetic set of
 CLI's default nets: the U-Net generator (ngf 64) with the semantic
 discriminator, p2p loss and dropout, through its step, the CLI with no
 net or loss flag (128x128, batch 1 doubled) and the service, and the
-pix2pix pair with batch norm; and the cycle-consistency mode, two ResNet
+pix2pix pair with batch norm; the cycle-consistency mode, two ResNet
 generators and two semantic discriminators, through its step (256x512,
-bf16, batch 8) and the CLI.  Run from the repository root:
+bf16, batch 8) and the CLI; and the deployment path: the service's
+``torch.export`` artifacts of those checkpoints and the reference-TF2
+import.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -142,12 +144,35 @@ Phases, each of which raises on failure:
      resident, finite losses, checkpoint, test PNGs, tfevents; sustained
      pairs/s), ``--phase test`` AtoB and BtoA (" [*] Load SUCCESS",
      different PNGs), ``--continue_train`` 1 epoch (resumes at the saved
-     step), then one in-process epoch with K1's exact calls.
+     step), then one in-process epoch with K1's exact calls;
+  26. the exported artifact (main path): ``python -m sggan_tpu_torch.serve
+     --export`` on the checkpoints of phases 16 (ResNet, bf16 and again
+     f32), 20 (U-Net, pix2pix) and 25 (cycle, AtoB and BtoA), each
+     printing checkpoint_loaded=True; 23, 15 and 0 K1 op nodes a graph
+     and no plain reduction; a fresh process that imports only
+     ``utils.export`` runs each once with K1's exact calls on the planned
+     routes; each against the checkpoint service (f32 phase 4's limit
+     with TF32 off, bf16 one PNG level; AtoB and BtoA apart); the
+     service with ``--artifact``: /healthz, four PNGs (one 1024x2048)
+     within one level of the checkpoint service's, 23 K1 calls a
+     request, a garbage body 400;
+  27. the inference cell (bench.py:147-175): the ResNet's artifact at
+     256x512 and the U-Net's at 128x128, bf16, b=1 and b=16, beside the
+     eager forward, 32 calls after 3; busy, idle share and K1's share
+     from the profiler; the b=1 vs b=16 gap; a K1 call's host cost
+     through the registered op and through the wrapper;
+  28. the reference-TF2 import at full width: TensorBundles of a ResNet
+     generator (ngf 64) and a semantic discriminator (ndf 64, 34
+     classes) written by the port's ``tf_bundle`` from seeded weights;
+     ``python -m sggan_tpu_torch.utils.import_tf`` writes cp-0000.pt,
+     which holds them exactly; the service serves it within one PNG
+     level of the eager forward; ``--selftest`` (started in the
+     background before phase 26) passes.
 
 Prints a JSON line of the trainer's and the preprocess's rates, one of
-the default nets' numbers, one of the cycle mode's, a JSON line of the
-kernels, then as the last line ``{"ok": true, "device":
-{...}}``.  Exits non-zero, printing neither,
+the default nets' numbers, one of the cycle mode's, one of the inference
+cell's, a JSON line of the kernels, then as the last line ``{"ok":
+true, "device": {...}}``.  Exits non-zero, printing neither,
 when no CUDA device is visible or any phase fails.
 """
 
@@ -1225,26 +1250,31 @@ def preprocess_phase(card: str, dev) -> dict:
     return rates
 
 
-def run_cli(run_dir: str, label: str, args: list) -> tuple:
-    """``python -m sggan_tpu_torch.main`` with ``args`` in ``run_dir``;
-    returns (stdout, seconds).  Raises if it fails."""
+def repo_env() -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def run_cli(run_dir: str, label: str, args: list,
+            module: str = "sggan_tpu_torch.main") -> tuple:
+    """``python -m <module>`` with ``args`` in ``run_dir``; returns
+    (stdout, seconds).  Raises if it fails."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "sggan_tpu_torch.main",
-                           *args], cwd=run_dir, env=env, capture_output=True,
+    proc = subprocess.run([sys.executable, "-m", module, *args],
+                          cwd=run_dir, env=repo_env(), capture_output=True,
                           text=True, timeout=600)
     dt = time.perf_counter() - t0
     lines = proc.stdout.strip().splitlines()
     shown = [ln for ln in lines if not ln.startswith("Processing image")]
-    print(f"  python -m sggan_tpu_torch.main, {label}: exit "
-          f"{proc.returncode} in {dt:.1f} s")
+    print(f"  python -m {module}, {label}: exit {proc.returncode} in "
+          f"{dt:.1f} s")
     for ln in shown[-8:]:
         print(f"    | {ln}")
     if proc.returncode:
         print(proc.stderr[-4000:], file=sys.stderr)
-        raise AssertionError("python -m sggan_tpu_torch.main failed")
+        raise AssertionError(f"python -m {module} failed")
     return proc.stdout, dt
 
 
@@ -2218,6 +2248,15 @@ def cycle_step_phase(card: str, dev) -> dict:
             "falls_at_b_ge_12": falls if big else None}
 
 
+def cycle_cli_args(root: str) -> list:
+    """Phase 25's flags: phase 16's at b=4 and ``--loss_mode cycle``."""
+    args = list(E2E_ARGS)
+    args[args.index("--batch_size") + 1] = str(CYCLE_CLI_B)
+    args[args.index("--loss_mode") + 1] = "cycle"
+    return args + ["--dataset_dir", root, "--train_size",
+                   str(CYCLE_CLI_TRAIN)]
+
+
 def cycle_cli_phase(card: str, dev, work: str, root: str) -> dict:
     """Phase 25.  ``python -m sggan_tpu_torch.main --loss_mode cycle
     --use_resnet`` on phase 16's PNG set with a trainB split of
@@ -2236,10 +2275,7 @@ def cycle_cli_phase(card: str, dev, work: str, root: str) -> dict:
           f"from seed 1 in {t_build:.1f} s")
     steps = CYCLE_CLI_TRAIN // CYCLE_CLI_B
     b_eff = 2 * CYCLE_CLI_B
-    args = list(E2E_ARGS)
-    args[args.index("--batch_size") + 1] = str(CYCLE_CLI_B)
-    args[args.index("--loss_mode") + 1] = "cycle"
-    args += ["--dataset_dir", root, "--train_size", str(CYCLE_CLI_TRAIN)]
+    args = cycle_cli_args(root)
     run_dir = os.path.join(work, "cycle_cli")
     os.makedirs(run_dir)
     ck = os.path.join(run_dir, "checkpoint", "city")
@@ -2333,6 +2369,465 @@ def cycle_cli_phase(card: str, dev, work: str, root: str) -> dict:
     return {"sustained_pairs_per_s": sustained, "epoch_pairs_per_s": rates,
             "wall_pairs_per_s": wall_rate, "trainer_launches": counts,
             "trainer_routes": routes}
+
+
+# ----------------------------------------------------------------------
+# The deployment path: the exported artifact and the TF import (26-28)
+# ----------------------------------------------------------------------
+
+K1_OP = "sggan_tpu_torch.instance_norm.default"
+# the plain instance norm's moments are reductions over H x W; nothing
+# else of an inference forward reduces (batch norm reads moving stats)
+PLAIN_REDUCTIONS = ("aten.sum", "aten.mean", "aten.var")
+ART_ITERS, ART_WARMUP = 32, 3   # bench.py:147-175's inference cell
+UNET_HW_SERVED = (128, 128)
+# a fresh process that imports only utils.export: loads each artifact,
+# runs one forward with K1's counts reset just before and read just after,
+# saves the output; prints the counts and any model, trainer or JAX module
+# it imported
+FRESH_LOAD = r"""
+import json, sys
+import numpy as np, torch
+from sggan_tpu_torch.ops import cuda_in
+from sggan_tpu_torch.utils import export
+out = {}
+for label, path, x_path, y_path, f32 in json.loads(sys.argv[1]):
+    torch.backends.cudnn.allow_tf32 = not f32
+    torch.backends.cuda.matmul.allow_tf32 = not f32
+    art = export.load(path, "cuda")
+    x = torch.from_numpy(np.load(x_path)).cuda()
+    torch.cuda.synchronize()
+    cuda_in.launches = 0
+    cuda_in.route_launches.update(dict.fromkeys(cuda_in.route_launches, 0))
+    y = art(x)
+    torch.cuda.synchronize()
+    np.save(y_path, y.cpu().numpy())
+    out[label] = {"k1": cuda_in.launches,
+                  "routes": {r: n for (d, r), n in
+                             cuda_in.route_launches.items()
+                             if d == "fwd" and n}}
+bad = sorted(m for m in sys.modules if m in ("jax", "sggan_tpu")
+             or m.startswith(("jax.", "sggan_tpu.", "sggan_tpu_torch.models",
+                              "sggan_tpu_torch.train")))
+print(json.dumps({"counts": out, "imported": bad}))
+"""
+
+
+def artifact_cases(work: str, root: str) -> dict:
+    """label -> (run dir, flags, K1 sites of a b=1 forward, compute dtype,
+    image size) of every artifact phase 26 exports: phase 16's ResNet
+    checkpoint (bf16, and again in f32), phase 20's U-Net and pix2pix
+    ones, phase 25's cycle one in both directions."""
+    e2e = E2E_ARGS + ["--dataset_dir", root]
+    f32 = list(e2e)
+    f32[f32.index("--compute_dtype") + 1] = "float32"
+    cyc = cycle_cli_args(root)
+    bf16, hw = torch.bfloat16, UNET_HW_SERVED
+    cases = {
+        "resnet": ("cli", e2e, gen_sites(1), bf16, (H, W)),
+        "resnet_f32": ("cli", f32, gen_sites(1), torch.float32, (H, W)),
+        "unet": ("default_cli", ["--dataset_dir", root],
+                 unet_sites(1, *hw), bf16, hw),
+        "pix2pix": ("pix2pix_cli", ["--use_pix2pix", "--dataset_dir", root],
+                    [], bf16, hw),
+        "cycle_AtoB": ("cycle_cli", cyc + ["--which_direction", "AtoB"],
+                       gen_sites(1), bf16, (H, W)),
+        "cycle_BtoA": ("cycle_cli", cyc + ["--which_direction", "BtoA"],
+                       gen_sites(1), bf16, (H, W)),
+    }
+    out = {}
+    for label, (d, flags, sites, dtype, size) in cases.items():
+        run_dir = os.path.join(work, d)
+        out[label] = (run_dir, flags + ["--checkpoint_dir", os.path.join(
+            run_dir, "checkpoint")], sites, dtype, size)
+    return out
+
+
+def u8(y: np.ndarray) -> np.ndarray:
+    """The service's PNG levels of a [-1, 1] output."""
+    return ((y + 1.0) / 2.0 * 255).astype(np.uint8).astype(int)
+
+
+def artifact_phase(card: str, dev, work: str, root: str) -> dict:
+    """Phase 26.  ``python -m sggan_tpu_torch.serve --export`` on the
+    checkpoints of phases 16, 20 and 25 (all at once, one process each),
+    each printing checkpoint_loaded=True; every graph holds one K1 op node
+    per instance norm (23, 15, 0) and no plain reduction; a fresh process
+    that imports only ``utils.export`` runs each artifact once with K1's
+    exact calls on the planned routes; each output against the checkpoint
+    service's (``Trainer.generate``): f32 within phase 4's limit with
+    TF32 off, bf16 within one PNG level, AtoB and BtoA apart; then the
+    service with ``--artifact``: /healthz, four PNGs within one level of
+    the checkpoint service's, 23 K1 calls a request, a garbage body 400."""
+    from PIL import Image
+
+    from sggan_tpu_torch import serve as srv
+    from sggan_tpu_torch.config import parse_args
+    from sggan_tpu_torch.utils import export as gexport
+
+    cases = artifact_cases(work, root)
+    art_dir = os.path.join(work, "artifacts")
+    os.makedirs(art_dir)
+    paths = {k: os.path.join(art_dir, f"{k}.pt2") for k in cases}
+
+    def export(label):
+        run_dir, flags, *_ = cases[label]
+        return run_cli(run_dir, f"--export {label}", ["--export",
+                       "--artifact", paths[label], *flags],
+                       module="sggan_tpu_torch.serve")
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(cases)) as pool:  # one process each
+        exported = dict(zip(cases, pool.map(export, cases)))
+    print(f"  {len(cases)} exports side by side in "
+          f"{time.perf_counter() - t0:.1f} s")
+    res = {"export_s": {}, "graph": {}}
+    for label, (out, secs) in exported.items():
+        need(f"exported {paths[label]} (checkpoint_loaded=True)" in out,
+             f"--export {label} did not load its checkpoint")
+        ops = gexport.graph_ops(gexport.load(paths[label]).program)
+        k1_nodes = ops.get(K1_OP, 0)
+        plain = {k: n for k, n in ops.items()
+                 if k.startswith(PLAIN_REDUCTIONS)}
+        want = sum(c for *_, c in cases[label][2])
+        print(f"  {label}: {os.path.getsize(paths[label]) / 2**20:.1f} MiB, "
+              f"{sum(ops.values())} graph nodes, {k1_nodes} K1 op nodes "
+              f"(want {want}), plain reductions {plain}")
+        need(k1_nodes == want and not plain,
+             f"the {label} graph does not hold one K1 op per instance norm")
+        res["export_s"][label] = secs
+        res["graph"][label] = {"nodes": sum(ops.values()),
+                               "k1_op_nodes": k1_nodes}
+
+    # a fresh process runs each artifact once: K1's calls and routes
+    rng = np.random.default_rng(26)
+    xs, jobs = {}, []
+    for label, (_, _, _, dtype, (h, w)) in cases.items():
+        xs[label] = rng.random((1, h, w, 3), np.float32)
+        x_path = os.path.join(art_dir, f"{label}_x.npy")
+        np.save(x_path, xs[label])
+        jobs.append([label, paths[label], x_path,
+                     os.path.join(art_dir, f"{label}_y.npy"),
+                     dtype == torch.float32])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_LOAD,
+                           json.dumps(jobs)], cwd=REPO, env=repo_env(),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("the fresh process did not run the artifacts")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"  fresh process, {len(jobs)} artifacts in "
+          f"{time.perf_counter() - t0:.1f} s: imported {fresh['imported']}")
+    need(not fresh["imported"], "loading an artifact imported the model's "
+         "Python or JAX")
+    res["fresh_k1"] = fresh["counts"]
+    for label, (_, _, sites, dtype, _) in cases.items():
+        got = fresh["counts"][label]
+        want = planned(sites, "fwd", dtype=dtype)
+        print(f"  {label}: one b=1 forward, K1 {got['k1']} calls by route "
+              f"{got['routes']}, planned {want}")
+        need(got["k1"] == sum(want.values()) and got["routes"] == want,
+             f"the {label} artifact's K1 calls left their count or routes")
+
+    # each artifact against the checkpoint service on the same input
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    ys, res["vs_eager"] = {}, {}
+    for label, (_, flags, _, dtype, _) in cases.items():
+        f32 = dtype == torch.float32
+        torch.backends.cudnn.allow_tf32 = not f32
+        torch.backends.cuda.matmul.allow_tf32 = not f32
+        svc = srv._Service(parse_args(flags), device=dev)
+        need(svc.loaded, f"the {label} checkpoint service found no "
+             "checkpoint")
+        ref = svc._fn(xs[label])
+        ys[label] = y = np.load(os.path.join(art_dir, f"{label}_y.npy"))
+        need(y.shape == ref.shape and np.isfinite(y).all(),
+             f"{label}: artifact output {y.shape}")
+        err = float(np.abs(y - ref).max())
+        levels = int(np.abs(u8(y[0]) - u8(ref[0])).max())
+        res["vs_eager"][label] = {"max_abs": err, "max_levels": levels}
+        limit = (f"atol {SLICE_ATOL}, TF32 off" if f32 else
+                 "one PNG level")
+        print(f"  {label} artifact vs Trainer.generate: max abs "
+              f"{err:.3g}, {levels} PNG levels ({limit})")
+        need(err <= SLICE_ATOL if f32 else levels <= 1,
+             f"the {label} artifact disagrees with the checkpoint service")
+        del svc
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    apart = float(np.abs(ys["cycle_AtoB"] - ys["cycle_BtoA"]).max())
+    print(f"  cycle AtoB vs BtoA artifacts: max abs {apart:.3f}")
+    need(apart > 0.05, "the AtoB and BtoA artifacts serve the same images")
+
+    # the service on the artifact (main path), against the checkpoint
+    # service's PNGs of the same bodies, made first
+    cfg = parse_args(cases["resnet"][1])
+    ck_svc = srv._Service(cfg, device=dev)
+    bodies = [png(rng.integers(0, 256, (ih, iw, 3), np.uint8))
+              for ih, iw in ((H, W), (1024, 2048), (H, W), (H, W))]
+    refs = [np.asarray(Image.open(io.BytesIO(ck_svc.translate_png(body))))
+            .astype(int) for body in bodies]
+    del ck_svc
+    reset_k1()  # the main path's count starts here
+    httpd = srv.serve(cfg, port=0, block=False, device="cuda",
+                      artifact=paths["resnet"])
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    lat, levels = [], []
+    try:
+        port = httpd.server_address[1]
+        need(read_k1()[0]["fwd"] == 23, "the artifact service's warm-up did "
+             "not run K1 23 times")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        print(f"  healthz {health}")
+        need(health["artifact"] is True and health["checkpoint_loaded"]
+             is True and health["backend"] == "cuda",
+             "/healthz does not report the loaded artifact")
+        for body, ref in zip(bodies, refs):
+            before = read_k1()[0]["fwd"]
+            t0 = time.perf_counter()
+            status, data = post(port, body)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            calls = read_k1()[0]["fwd"] - before
+            out = np.asarray(Image.open(io.BytesIO(data))).astype(int)
+            levels.append(int(np.abs(out - ref).max()))
+            ih, iw = Image.open(io.BytesIO(body)).size[::-1]
+            print(f"  POST {ih}x{iw} to the artifact: {status}, {out.shape},"
+                  f" {lat[-1]:.1f} ms, +{calls} K1 calls, {levels[-1]} "
+                  "levels from the checkpoint service's PNG")
+            need(status == 200 and out.shape == (H, W, 3) and calls == 23
+                 and levels[-1] <= 1, "bad translation through the artifact")
+        try:
+            post(port, b"this is not an image")
+            raise AssertionError("garbage body was not refused")
+        except urllib.error.HTTPError as e:
+            print(f"  POST garbage: {e.code}")
+            need(e.code == 400, "garbage body not answered 400")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    counts, routes = read_k1()
+    need(counts["fwd"] == 23 * 5 and routes["fwd"] == planned(
+        gen_sites(1), "fwd", 5), "the artifact service's K1 calls left "
+         "their count or routes")
+    torch.cuda.empty_cache()
+    res.update(http_launches=counts["fwd"], translate_ms=lat,
+               http_max_levels=max(levels))
+    return {"res": res, "paths": paths, "cases": cases}
+
+
+def k1_share(prof, n_runs: int) -> tuple:
+    """(busy ms, K1's ms) per run of a torch.profiler trace."""
+    kern = kernel_times(prof, n_runs)
+    return (sum(k[0] for k in kern),
+            sum(k[0] for k in kern if any(t in k[2] for t in K1_FWD_KERNELS)))
+
+
+def inference_cell_phase(card: str, dev, work: str, art: dict) -> dict:
+    """Phase 27.  bench.py:147-175's inference cell: the generator's
+    artifact (``utils.export.export_generator`` on phase 16's ResNet
+    checkpoint at 256x512, and phase 20's U-Net at 128x128, bf16) at b=1
+    and b=16, 32 calls after 3 by CUDA events, beside the eager forward of
+    the same weights; a profiler window of each (busy, idle share, K1's
+    share); the b=1 vs b=16 gap; and the host cost of a K1 call through
+    the registered op against the wrapper alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sggan_tpu_torch.config import parse_args
+    from sggan_tpu_torch.ops import cuda_in, norm
+    from sggan_tpu_torch.train import evaluate
+    from sggan_tpu_torch.train.trainer import Trainer
+    from sggan_tpu_torch.utils import checkpoint as ckpt
+    from sggan_tpu_torch.utils import export as gexport
+
+    out = {}
+    for label, key in (("resnet_256x512", "resnet"),
+                       ("unet_128x128", "unet")):
+        _, flags, _, _, hw = art["cases"][key]
+        cfg = parse_args(flags)
+        tr = Trainer(cfg.replace(phase="test"), device=dev)
+        tr.state = ckpt.load(tr.state, cfg.checkpoint_dir, cfg.dataset_dir)
+        need(tr.state is not None, f"no checkpoint for {label}")
+        gen, gen_bn = evaluate.eval_generator(tr), tr.state.gen_bn
+        cell = {}
+        for b in (1, 16):
+            path = os.path.join(work, "artifacts", f"{key}_gen_b{b}.pt2")
+            gexport.save(path, gexport.export_generator(
+                gen, hw, b, torch.bfloat16, gen_bn))
+            prog = gexport.load(path, dev)
+            x = torch.rand(b, *hw, 3, device=dev)
+
+            def eager():
+                with torch.inference_mode():
+                    return evaluate.gen_forward(cfg, gen, x, gen_bn)
+
+            row = {}
+            for name, fn in (("artifact", lambda: prog(x)),
+                             ("eager", eager)):
+                ms = cuda_ms(fn, ART_ITERS, warmup=ART_WARMUP)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as p:
+                    for _ in range(3):
+                        fn()
+                    torch.cuda.synchronize()
+                busy, k1 = k1_share(p, 3)
+                row[name] = {"ms_per_call": ms, "ms_per_image": ms / b,
+                             "img_per_s": 1e3 * b / ms, "busy_ms": busy,
+                             "idle_share": 1 - busy / ms,
+                             "k1_share_of_busy": k1 / busy}
+                print(f"  [{card}] {label} bf16 b={b} {name}: {ms:.3f} ms "
+                      f"a call, {ms / b:.3f} ms/image, {1e3 * b / ms:.1f} "
+                      f"img/s; busy {busy:.3f} ms ({100 * (1 - busy / ms):.1f}"
+                      f"% idle), K1 {100 * k1 / busy:.1f}% of busy")
+            cell[f"b{b}"] = row
+            del prog, x
+            torch.cuda.empty_cache()
+        a1, a16 = cell["b1"]["artifact"], cell["b16"]["artifact"]
+        cell["ms_per_image_b1_over_b16"] = (a1["ms_per_image"]
+                                            / a16["ms_per_image"])
+        cell["b1_host_ms"] = a1["ms_per_call"] - a1["busy_ms"]
+        print(f"  [{card}] {label}: a b=1 image costs "
+              f"{cell['ms_per_image_b1_over_b16']:.2f}x a b=16 one; the "
+              f"host holds {cell['b1_host_ms']:.3f} ms of b=1's "
+              f"{a1['ms_per_call']:.3f} ms")
+        out[label] = cell
+        del tr, gen
+        torch.cuda.empty_cache()
+
+    # a K1 call's host cost through the op: a site small enough that the
+    # host sets the pace (the U-Net's last at b=1 is 128x128x64)
+    x, g, b = site_inputs(1, (8, 8, 64), torch.bfloat16, dev, seed=27)
+    with torch.inference_mode():
+        host = {"op_us": 1e3 * cuda_ms(lambda: norm.instance_norm_op(
+                    x, g, b, 1e-3, "relu", 0.3), 400, warmup=20),
+                "wrapper_us": 1e3 * cuda_ms(lambda: cuda_in.
+                    instance_norm_cuda(x, g, b, 1e-3, "relu", 0.3), 400,
+                    warmup=20)}
+    print(f"  [{card}] a K1 call at (1,8,8,64), host-bound: through the op "
+          f"{host['op_us']:.1f} us, the wrapper alone "
+          f"{host['wrapper_us']:.1f} us")
+    out["k1_call_host_us"] = host
+    return out
+
+
+def selftest_start(work: str) -> subprocess.Popen:
+    """``python -m sggan_tpu_torch.utils.import_tf --selftest`` in the
+    background (minutes of pure-Python checksums at full width), its
+    bundles under ``work``."""
+    tmp = os.path.join(work, "selftest_tmp")
+    os.makedirs(tmp)
+    return subprocess.Popen(
+        [sys.executable, "-m", "sggan_tpu_torch.utils.import_tf",
+         "--selftest"], cwd=work, env={**repo_env(), "TMPDIR": tmp},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def tf_import_phase(card: str, dev, work: str,
+                    selftest: subprocess.Popen) -> dict:
+    """Phase 28.  Reference-TF2 bundles of a ResNet generator (ngf 64) and
+    a semantic discriminator (ndf 64, 34 classes, 256x512) written by the
+    port's ``tf_bundle`` from seeded weights; ``python -m
+    sggan_tpu_torch.utils.import_tf`` makes cp-0000.pt of them, which
+    holds the source weights exactly; the service serves it
+    (checkpoint_loaded) within one PNG level of the eager forward of the
+    source weights; ``--selftest``, started before phase 26, passes."""
+    from sggan_tpu_torch import serve as srv
+    from sggan_tpu_torch.config import parse_args
+    from sggan_tpu_torch.models.discriminator import Discriminator
+    from sggan_tpu_torch.models.generator_resnet import GeneratorResnet
+    from sggan_tpu_torch.train import evaluate
+    from sggan_tpu_torch.utils import tf_bundle, tf_weights
+    from sggan_tpu_torch.utils.bridge import params_from_jax, params_to_jax
+
+    d = os.path.join(work, "tf_import")
+    rng = np.random.default_rng(28)
+
+    def move_1d(tree):
+        # the init's unit gammas and zero betas and biases moved by seeded
+        # noise, so that every leaf is a distinct check
+        return {k: move_1d(v) if isinstance(v, dict) else
+                (v + 0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+                if v.ndim == 1 else v for k, v in tree.items()}
+
+    nets = {"gen": (GeneratorResnet(
+                ngf=NGF, generator=torch.Generator().manual_seed(28)),
+                "resnet"),
+            "disc": (Discriminator(
+                ndf=64, n_class=N_CLASS, image_size=(H, W),
+                generator=torch.Generator().manual_seed(29)),
+                "discriminator")}
+    src = {}
+    t0 = time.perf_counter()
+    for which, (net, kind) in nets.items():
+        tree = move_1d(params_to_jax(net.state_dict()))
+        kw = ({"n_valid": len([k for k in tree if re.fullmatch(r"v\d+", k)])}
+              if kind == "discriminator" else {})
+        flat, attrs = tf_weights.extract_flat_weights(kind, tree, **kw)
+        prefix = os.path.join(d, "tf", which, "cp-0021.ckpt")
+        os.makedirs(os.path.dirname(prefix), exist_ok=True)
+        tf_bundle.write_keras_weights(prefix, flat, attrs, compress=True)
+        src[which] = (prefix, params_from_jax(tree))
+        print(f"  {which}: {len(flat)} weights "
+              f"({sum(w.size for w in flat) / 1e6:.2f} M) written as "
+              f"{prefix}")
+    write_s = time.perf_counter() - t0
+    flags = ["--use_resnet", "--img_height", str(H), "--img_width", str(W),
+             "--segment_class", str(N_CLASS), "--compute_dtype", "bfloat16",
+             "--dataset_dir", "city", "--checkpoint_dir",
+             os.path.join(d, "checkpoint")]
+    out, import_s = run_cli(d, "TF bundles to cp-0000.pt",
+                            ["--gen_src", src["gen"][0], "--disc_src",
+                             src["disc"][0], *flags],
+                            module="sggan_tpu_torch.utils.import_tf")
+    line = json.loads(out.strip().splitlines()[-1])
+    need(line["ok"] and line["net"] == "resnet" and line["disc"]
+         and line["epoch"] == 0, f"import_tf printed {line}")
+    for which, part in (("gen", "gen"), ("disc", "disc")):
+        saved = torch.load(os.path.join(d, "checkpoint", "city", part,
+                                        "cp-0000.pt"), weights_only=True,
+                           map_location="cpu")["params"]
+        want = src[which][1]
+        need(saved.keys() == want.keys() and all(
+            torch.equal(saved[k], want[k]) for k in want),
+            f"the imported {which} is not the source weights")
+    cfg = parse_args(flags)
+    svc = srv._Service(cfg, device=dev)
+    need(svc.loaded, "the service did not load the imported checkpoint")
+    gen = nets["gen"][0]
+    gen.load_state_dict(src["gen"][1])
+    gen = gen.to(dev).eval()
+    x = rng.random((1, H, W, 3), np.float32)
+    got = svc._fn(x)
+    ref = evaluate.generate(cfg, gen, x, dev)
+    levels = int(np.abs(u8(got[0]) - u8(ref[0])).max())
+    print(f"  the service on the imported checkpoint vs the eager forward of "
+          f"the source weights: {levels} PNG levels (limit 1)")
+    need(levels <= 1, "the service does not serve the imported weights")
+    del svc, gen
+
+    t0 = time.perf_counter()
+    sout, serr = selftest.communicate(timeout=900)
+    wait_s = time.perf_counter() - t0
+    if selftest.returncode:
+        print(serr[-4000:], file=sys.stderr)
+    want = {"ok": True, "selftest": {
+        "resnet": len(tf_weights.resnet_layout()),
+        "unet": len(tf_weights.unet_layout()),
+        "discriminator": len(tf_weights.discriminator_layout(3)),
+        "pix2pix_gen": len(tf_weights.pix2pix_gen_layout()),
+        "pix2pix_disc": len(tf_weights.pix2pix_disc_layout())}}
+    got_line = sout.strip().splitlines()[-1] if sout.strip() else ""
+    print(f"  --selftest (in the background since phase 26; waited "
+          f"{wait_s:.1f} s): {got_line}")
+    need(selftest.returncode == 0 and json.loads(got_line) == want,
+         "import_tf --selftest failed")
+    return {"write_s": write_s, "import_s": import_s, "max_levels": levels,
+            "selftest": want["selftest"]}
 
 
 def main() -> int:
@@ -2853,6 +3348,25 @@ def main() -> int:
           "sggan_tpu_torch.main --loss_mode cycle")
     cyc_cli = cycle_cli_phase(card, dev, work,
                               os.path.join(work, "datasets", "city"))
+
+    selftest = selftest_start(work)  # CPU only: runs beside 26 and 27
+    try:
+        phase("26 the exported artifact on the card (main path): python -m "
+              "sggan_tpu_torch.serve --export, then --artifact")
+        art = artifact_phase(card, dev, work,
+                             os.path.join(work, "datasets", "city"))
+
+        phase("27 the inference cell: the artifact at b=1 and b=16 beside "
+              "the eager forward")
+        cell = inference_cell_phase(card, dev, work, art)
+
+        phase("28 the reference-TF2 import at full width: python -m "
+              "sggan_tpu_torch.utils.import_tf, then the service")
+        tf_imp = tf_import_phase(card, dev, work, selftest)
+    finally:
+        if selftest.poll() is None:
+            selftest.kill()
+            selftest.communicate()
     shutil.rmtree(work)
 
     def entry(name, d, replaces, launches, errs_d):
@@ -2886,6 +3400,15 @@ def main() -> int:
     fwd = entry("instance_norm_fwd", "fwd", "sggan_tpu/ops/pallas_in.py:107",
                 train_fwd, errs)
     fwd["launches_serving"] = main_launches
+    # the exported artifacts (phase 26): one b=1 forward each in a fresh
+    # process, and the service on the ResNet's
+    fwd["launches_artifact"] = {k: v["k1"]
+                                for k, v in art["res"]["fresh_k1"].items()}
+    fwd["launches_artifact_service"] = art["res"]["http_launches"]
+    fwd["launches_artifact_is"] = (
+        "K1 calls of one b=1 forward of each exported artifact in a fresh "
+        "process (phase 26); _service: the warm-up and four requests of "
+        "the service on the ResNet artifact")
     bwd = entry("instance_norm_bwd", "bwd", "sggan_tpu/ops/norm.py:97",
                 train_bwd, bwd_errs)
     bwd["replaces_pallas_vjp"] = "sggan_tpu/ops/pallas_in.py:141"
@@ -2976,6 +3499,14 @@ def main() -> int:
         "sweep": cyc["sweep"], "falls_at_b_ge_12": cyc["falls_at_b_ge_12"],
         "cli": {k: v for k, v in cyc_cli.items()
                 if not k.startswith("trainer_")}}}))
+    print(card)
+    print(json.dumps({"inference": {
+        "config": "bench.py:147-175's cell: utils.export.export_generator "
+                  "of phase 16's ResNet checkpoint (ngf 64, 256x512) and "
+                  "phase 20's U-Net (ngf 64, 128x128), bf16, at b=1 and "
+                  f"16; CUDA events over {ART_ITERS} calls after "
+                  f"{ART_WARMUP}; profiler over 3",
+        **cell, "artifacts": art["res"], "tf_import": tf_imp}}))
     from sggan_tpu_torch.perf_in import EVENT_TIMED
     print(f"  profiler: {len(EVENT_TIMED)} device_ms calls found no kernel "
           f"in any trace and were timed by CUDA events: {EVENT_TIMED}")

@@ -6,14 +6,17 @@ the module of the same path there, and the tests hold each against it on
 the same weights and inputs.  This package imports ``torch`` and never
 ``jax``.
 
-Ported so far: the serving path of the ResNet generator, the sggan train
-step, and the trainer behind ``python -m sggan_tpu_torch.main``.
+Ported so far: every net and loss mode's train step, the trainer behind
+``python -m sggan_tpu_torch.main``, and the service with its deployment
+path (``torch.export`` artifacts, the reference-TF2 import).
 
     config    — the reference CLI and ``Config``: the port's own copy,
                 held to the JAX one by a test
     ops       — TF-semantics conv / conv-transpose / reflect pad, Keras
                 leaky_relu, the loss filters (``deriv``), instance norm as
-                an autograd Function with its hand-written CUDA kernels,
+                an autograd Function and a registered op (``torch.ops.
+                sggan_tpu_torch.instance_norm``) with its hand-written CUDA
+                kernels,
                 forward and backward (``cuda_in``, ``csrc/instance_norm.cu``)
                 and the nvcc build (``_build``)
     models    — ``generator_resnet`` and ``discriminator`` as
@@ -30,9 +33,12 @@ step, and the trainer behind ``python -m sggan_tpu_torch.main``.
                 ``trainer``
     utils     — ``bridge`` (JAX parameter trees and train states <-> the
                 port's), ``checkpoint``, ``images``, ``summary``
-                (tfevents), ``profiling``
+                (tfevents), ``profiling``, ``export`` (``torch.export``
+                artifacts), ``tf_bundle``, ``tf_weights`` and ``import_tf``
+                (the reference-TF2 import)
     main      — the CLI: ``python -m sggan_tpu_torch.main``
-    serve     — the HTTP translate service
+    serve     — the HTTP translate service, on a checkpoint or an
+                artifact (``--export``, ``--artifact``)
 
 Layout: public functions take and return NHWC tensors, like the JAX
 package; in memory that is PyTorch's ``channels_last``, so the convs see

@@ -17,7 +17,6 @@ XLA's default).
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
@@ -213,9 +212,19 @@ def dropout_masks(generator: torch.Generator, shapes: Sequence[Sequence[int]],
                  for s in shapes)
 
 
-@functools.lru_cache(maxsize=64)
+_reflect_index_cache: dict = {}
+
+
 def _reflect_index(n: int, lo: int, hi: int,
                    device: torch.device) -> torch.Tensor:
+    """The rows a reflect pad (lo, hi) of a size-n axis reads, cached per
+    (n, lo, hi, device).  Under torch.export a missing index is built but
+    not cached: it is the trace's fake tensor.  A cached one is a constant
+    of the exported graph."""
+    key = (n, lo, hi, device)
+    index = _reflect_index_cache.get(key)
+    if index is not None:
+        return index
     if not (0 <= lo < n and 0 <= hi < n):
         raise ValueError(f"reflect pad ({lo}, {hi}) needs a size > pad, "
                          f"got {n}")
@@ -223,7 +232,10 @@ def _reflect_index(n: int, lo: int, hi: int,
     # cached index is reused by forwards that autograd records
     with torch.inference_mode(False):
         i = torch.arange(-lo, n + hi).abs()
-        return torch.where(i >= n, 2 * (n - 1) - i, i).to(device)
+        index = torch.where(i >= n, 2 * (n - 1) - i, i).to(device)
+    if not torch.compiler.is_exporting():
+        _reflect_index_cache[key] = index
+    return index
 
 
 def _reflect_pad(x: torch.Tensor, ht: int, hb: int, wl: int,

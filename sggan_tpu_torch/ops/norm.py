@@ -5,11 +5,17 @@ Port of ``sggan_tpu/ops/norm.py``: per-sample, per-channel moments over
 the spatial plane, eps 1e-3, affine gamma/beta, then an optional relu or
 leaky_relu (Keras alpha 0.3).  Not ``nn.InstanceNorm2d``: its eps is 1e-5.
 
-``instance_norm`` is a ``torch.autograd.Function`` whose backward follows
-the JAX package's custom VJP (``norm._in_fused_bwd``).  On a CUDA tensor
-both directions run the hand-written kernels (``cuda_in``); on a CPU
-tensor they run the plain versions ``instance_norm_ref`` and
-``instance_norm_bwd_ref``.  There is no fallback from one to the other.
+``instance_norm`` takes one of two routes.  Where an input needs a
+gradient it is a ``torch.autograd.Function`` whose backward follows the
+JAX package's custom VJP (``norm._in_fused_bwd``).  Otherwise (inference,
+eval, the service, ``torch.export``) it is the registered op
+``torch.ops.sggan_tpu_torch.instance_norm``: ``torch.export`` keeps it as
+one graph node per call, where it would trace through the Function into
+the plain version's ops.  On a CUDA tensor both routes run the
+hand-written kernels (``cuda_in``); on a CPU tensor they run the plain
+versions ``instance_norm_ref`` and ``instance_norm_bwd_ref``.  The op has
+no implementation for any other device, and there is no fallback from
+one to the other.
 
 ``batch_norm`` (the pix2pix nets') is plain torch ops in f32, as the JAX
 package's is XLA code: no kernel of its own.
@@ -100,18 +106,13 @@ def instance_norm_bwd_ref(x: torch.Tensor, dy: torch.Tensor,
 class _InstanceNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, act, alpha):
-        save = any(ctx.needs_input_grad[:3])
         if x.device.type == "cpu":
             y, mean, rstd = _ref_forward(x, gamma, beta, eps, act, alpha)
-        elif save:
+        else:
             y, mean, rstd = cuda_in.instance_norm_cuda(
                 x, gamma, beta, eps, act, alpha, save_stats=True)
-        else:
-            return cuda_in.instance_norm_cuda(x, gamma, beta, eps, act,
-                                              alpha)
-        if save:
-            ctx.save_for_backward(x, gamma, beta, mean, rstd)
-            ctx.act, ctx.alpha = act, alpha
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.act, ctx.alpha = act, alpha
         return y
 
     @staticmethod
@@ -127,13 +128,38 @@ class _InstanceNorm(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+@torch.library.custom_op("sggan_tpu_torch::instance_norm", mutates_args=(),
+                         device_types="cpu")
+def instance_norm_op(x: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, eps: float, act: Optional[str],
+                     alpha: float) -> torch.Tensor:
+    """K1's forward as a registered op, for calls that need no gradient:
+    the plain version on a CPU tensor, the kernel on a CUDA one."""
+    return _ref_forward(x, gamma, beta, eps, act, alpha)[0]
+
+
+@instance_norm_op.register_kernel("cuda")
+def _(x, gamma, beta, eps, act, alpha):
+    return cuda_in.instance_norm_cuda(x, gamma, beta, eps, act, alpha)
+
+
+@instance_norm_op.register_fake
+def _(x, gamma, beta, eps, act, alpha):
+    cuda_in.check_act(act)
+    return torch.empty_like(x)
+
+
 def instance_norm(params: Mapping, x: torch.Tensor, act: Optional[str] = None,
                   alpha: float = 0.3, eps: float = IN_EPS) -> torch.Tensor:
     """Instance norm with optional fused activation; x is NHWC.
 
-    act: None | 'relu' | 'leaky_relu'."""
-    return _InstanceNorm.apply(x, params["gamma"], params["beta"], eps, act,
-                               alpha)
+    act: None | 'relu' | 'leaky_relu'.  The autograd Function where grad
+    mode is on and an input requires a gradient, else the registered op."""
+    gamma, beta = params["gamma"], params["beta"]
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _InstanceNorm.apply(x, gamma, beta, eps, act, alpha)
+    return instance_norm_op(x, gamma, beta, eps, act, alpha)
 
 
 def batch_norm_init(c: int, dtype=torch.float32) -> Tuple[dict, dict]:

@@ -3,7 +3,8 @@ saved moments, backward) and the fused conv3x3 + instance norm kernel
 (both conv routes, and the gradients of its autograd Function) against
 their plain versions, the wrappers' refusals, the generator's CUDA forward
 and the gradients of one train step and of one cycle step against the
-CPU.  Every test needs an NVIDIA GPU and skips without one.
+CPU, and a generator exported on the card (one K1 op node per instance
+norm, each launching K1 on its planned route).  Every test needs an NVIDIA GPU and skips without one.
 
 Imports torch and numpy only, so it runs where JAX is absent:
 
@@ -516,3 +517,47 @@ def test_device_ms_times_by_events_when_no_trace_holds_the_kernel(
     assert perf_in._last_empty[0]
     assert perf_in.device_ms(fn, 4) > 0 and not perf_in._last_empty[0]
     assert len(perf_in.EVENT_TIMED) == 1
+
+
+def test_exported_generator_launches_k1_through_the_op(dev, tmp_path):
+    """An artifact exported on the card: 23 op nodes, run from the saved
+    file with one K1 call per node on the planned routes, against the
+    eager forward of the same weights and against the CPU artifact."""
+    from sggan_tpu_torch.utils import export as gexport
+
+    gen = GeneratorResnet(ngf=8, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(5).random(
+        (1, 64, 64, 3), np.float32))
+    cpu_y = gexport.export_generator(gen, (64, 64), 1, torch.float32)
+    cpu_y = gexport.Artifact(cpu_y, {})(x)
+    gen = gen.to(dev)
+    path = str(tmp_path / "gen.pt2")
+    gexport.save(path, gexport.export_generator(gen, (64, 64), 1,
+                                                torch.float32))
+    art = gexport.load(path, "cuda")
+    ops = gexport.graph_ops(art.program)
+    assert ops.get("sggan_tpu_torch.instance_norm.default") == 23
+    routes = dict(cuda_in.route_launches)
+    before = cuda_in.launches
+    got = art(x.to(dev))
+    assert cuda_in.launches == before + 23
+    want = {}
+    for (h, w, c), k in (((64, 64, 8), 2), ((32, 32, 16), 2),
+                         ((16, 16, 32), 19)):
+        r = cuda_in.plan(1, h, w, c, torch.float32, "fwd").route
+        want[r] = want.get(r, 0) + k
+    assert {r: cuda_in.route_launches["fwd", r] - routes["fwd", r]
+            for r in ("cluster", "stream", "scalar")
+            if cuda_in.route_launches["fwd", r] != routes["fwd", r]} == want
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = art(x.to(dev))
+        with torch.inference_mode():
+            eager = gen(x.to(dev), {}, torch.float32)[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.testing.assert_close(got, eager, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.cpu(), cpu_y, rtol=0, atol=1e-3)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        art(x)
