@@ -16,7 +16,8 @@ pix2pix pair with batch norm; the cycle-consistency mode, two ResNet
 generators and two semantic discriminators, through its step (256x512,
 bf16, batch 8) and the CLI; and the deployment path: the service's
 ``torch.export`` artifacts of those checkpoints and the reference-TF2
-import.  Run from the repository root:
+import; and the CUDA graphs of every loss mode's step (``--scan_steps``)
+and of the fixed-shape forward.  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -33,7 +34,9 @@ Phases, each of which raises on failure:
      against the same module's f32 CPU forward, and the bf16 card forward;
   5. the HTTP service on the card: /healthz, four PNG translations (one
      1024x2048, so the resize runs), one garbage body answered 400; the
-     kernel's launch count must grow by 23 per generator forward;
+     start-up's forward captures a CUDA graph (23 x 2 kernel calls, the
+     warm-up and the capture), each request replays it (no wrapper
+     call; phase 29 names a replay's kernels);
   6. timings with CUDA events: generator forward, kernel against plain
      version, and a device-time breakdown from torch.profiler;
   7. both instance-norm kernels against their plain versions at the
@@ -87,10 +90,12 @@ Phases, each of which raises on failure:
      losses, checkpoint, test PNGs, tfevents), then ``--phase test``
      (" [*] Load SUCCESS") and ``--continue_train`` for one epoch, which
      must resume at the saved step; per-epoch, sustained and whole-run
-     img/s; then one epoch in-process with K1's exact counts per route (37
-     forward and 37 backward a step, 23 forward for the eval) and a
-     profiler window of 2 steps of the epoch loop, and the batch assembly
-     profiled alone;
+     img/s, the training at the default ``--scan_steps 8`` through the
+     step's CUDA graph (the run's capture line with 37 + 37 K1 calls);
+     then one epoch in-process with ``--scan_steps 1`` and K1's exact
+     counts per route (37 forward and 37 backward a step, 23 x 2 forward
+     for the capture of the eval's graph) and a profiler window of 2
+     steps of the epoch loop, and the batch assembly profiled alone;
   17. the U-Net and the pix2pix generator at 128x128, ngf 64, b=2, f32:
      the card's forward (TF32 off) against the CPU's, inference and with
      dropout masks fed (pix2pix: batch norm on its moving stats, then on
@@ -113,11 +118,13 @@ Phases, each of which raises on failure:
      their backward, dropout's draws and its apply) with the idle share;
   20. the default CLI (main path): ``python -m sggan_tpu_torch.main
      --phase train`` with no net or loss flag on phase 16's PNG set at
-     128x128 (train, test, resume; sustained img/s), one in-process epoch
-     with K1's exact calls, then one short ``--use_pix2pix`` epoch whose
-     checkpoint carries moved BN state;
-  21. /translate with the U-Net at 128x128 (15 K1 calls a request) and
-     the U-Net's bf16 forward at b=1 and 16, 128x128 and 256x512;
+     128x128 (train, test, resume; sustained img/s; the step's graph of
+     27 + 27 K1 calls), one in-process epoch with ``--scan_steps 1`` and
+     K1's exact calls, then one short ``--use_pix2pix`` epoch (one chunk
+     of 8, one print) whose checkpoint carries moved BN state;
+  21. /translate with the U-Net at 128x128 (15 x 2 K1 calls at the
+     start-up's capture, a request a replay) and the
+     U-Net's bf16 forward at b=1 and 16, 128x128 and 256x512;
   22. the cycle step (``--loss_mode cycle``: two generators, two
      semantic discriminators, the pair pool), f32, card vs CPU at 32x64
      b=2 from one seeded state, two-domain batch, pool draws and mask
@@ -142,36 +149,59 @@ Phases, each of which raises on failure:
      train --loss_mode cycle --use_resnet`` with phase 16's fused-aug
      flags at b=4 doubled to 8, ``--train_size 48``, 3 epochs (both splits
      resident, finite losses, checkpoint, test PNGs, tfevents; sustained
-     pairs/s), ``--phase test`` AtoB and BtoA (" [*] Load SUCCESS",
-     different PNGs), ``--continue_train`` 1 epoch (resumes at the saved
-     step), then one in-process epoch with K1's exact calls;
+     pairs/s; the step's graph of 166 + 166 K1 calls), ``--phase test``
+     AtoB and BtoA (" [*] Load SUCCESS", different PNGs),
+     ``--continue_train`` 1 epoch (resumes at the saved step), then one
+     in-process epoch with ``--scan_steps 1`` and K1's exact calls;
   26. the exported artifact (main path): ``python -m sggan_tpu_torch.serve
      --export`` on the checkpoints of phases 16 (ResNet, bf16 and again
      f32), 20 (U-Net, pix2pix) and 25 (cycle, AtoB and BtoA), each
      printing checkpoint_loaded=True; 23, 15 and 0 K1 op nodes a graph
      and no plain reduction; a fresh process that imports only
-     ``utils.export`` runs each once with K1's exact calls on the planned
-     routes; each against the checkpoint service (f32 phase 4's limit
-     with TF32 off, bf16 one PNG level; AtoB and BtoA apart); the
-     service with ``--artifact``: /healthz, four PNGs (one 1024x2048)
-     within one level of the checkpoint service's, 23 K1 calls a
-     request, a garbage body 400;
+     ``utils.export`` runs each twice: the first call captures its CUDA
+     graph with K1's exact calls (twice a forward's) on the planned
+     routes, the second replays it with none and the same output; each
+     against the checkpoint service (f32 phase 4's limit with TF32 off,
+     bf16 one PNG level; AtoB and BtoA apart); the service with
+     ``--artifact``: /healthz, four PNGs (one 1024x2048) within one level
+     of the checkpoint service's, each a replay, a garbage body 400;
   27. the inference cell (bench.py:147-175): the ResNet's artifact at
-     256x512 and the U-Net's at 128x128, bf16, b=1 and b=16, beside the
-     eager forward, 32 calls after 3; busy, idle share and K1's share
-     from the profiler; the b=1 vs b=16 gap; a K1 call's host cost
-     through the registered op and through the wrapper;
+     256x512 and the U-Net's at 128x128, bf16, b=1 and b=16, through its
+     CUDA graph, beside its GraphModule node by node and the eager
+     forward, 32 calls after 3; busy, idle share and K1's share from the
+     profiler; the b=1 vs b=16 gap; a K1 call's host cost through the
+     registered op and through the wrapper;
   28. the reference-TF2 import at full width: TensorBundles of a ResNet
      generator (ngf 64) and a semantic discriminator (ndf 64, 34
      classes) written by the port's ``tf_bundle`` from seeded weights;
      ``python -m sggan_tpu_torch.utils.import_tf`` writes cp-0000.pt,
      which holds them exactly; the service serves it within one PNG
      level of the eager forward; ``--selftest`` (started in the
-     background before phase 26) passes.
+     background before phase 26) passes;
+  29. the CUDA graphs (main path): the trainer's loop over a resident
+     split made on the card, for the ResNet sggan step (256x512 b=16),
+     the default p2p U-Net with dropout and the pix2pix pair with batch
+     norm (128x128 b=2) and the ResNet cycle step (256x512 b=8): from one
+     snapshot of the state and both generators, 8 eager steps
+     (``--scan_steps 1``) and the same 8 through the step's graph in
+     chunks of 8 and of 3 (a tail of 2), with cuDNN deterministic:
+     losses and every parameter, Adam moment and count, BN stat, EMA
+     tensor and pool buffer bitwise equal; K1's calls recorded at the
+     capture exactly 37 + 37, 27 + 27, 0 and 166 + 166 on the planned
+     routes; a profiler window of an epoch's replays names K1's kernels
+     for those calls each; then eager beside the graph with cuDNN's
+     defaults: step ms by events, busy by the profiler, idle share, peak
+     memory, img/s (pairs/s), the cycle step also at b=2 and 4; and the
+     forward graphs of ``evaluate.generate``, the ResNet at 256x512 and
+     the U-Net at 128x128, bf16, b=1 and 16: bitwise equal to the eager
+     forward, K1's calls only at the capture, a replay's kernels
+     profiled, ms a call beside eager's.  In a fresh process: late in a
+     long one the profiler drops kernels from short traces.
 
 Prints a JSON line of the trainer's and the preprocess's rates, one of
 the default nets' numbers, one of the cycle mode's, one of the inference
-cell's, a JSON line of the kernels, then as the last line ``{"ok":
+cell's, one of the CUDA graphs', a JSON line of the kernels, then as the
+last line ``{"ok":
 true, "device": {...}}``.  Exits non-zero, printing neither,
 when no CUDA device is visible or any phase fails.
 """
@@ -298,8 +328,11 @@ def short_kernel_name(mangled: str) -> str:
     return f"{m.group(1)}<{t}{',' + m.group(3) if m.group(3) else ''}>"
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.0f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -343,6 +376,12 @@ def plan_line(n, hwc, dtype, direction) -> str:
     return (f"cluster of {p.cluster}, {p.ctas} CTAs, {p.smem} B shared "
             f"each, {cuda_in.max_active_clusters(p, direction, dtype)} "
             "clusters at once")
+
+
+# a forward graph's first call runs the forward through K1's wrappers
+# twice, its warm-up and its capture; a replay launches the kernels
+# without them
+FWD_GRAPH_CALLS = 2
 
 
 def png(arr: np.ndarray) -> bytes:
@@ -1283,6 +1322,31 @@ def need(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def chunk_prints(nb: int, k: int, pf: int) -> list:
+    """The steps an epoch of ``nb`` steps in chunks of ``k`` prints at
+    under ``--print_freq`` ``pf``, by the JAX chunk loop's rule
+    (sggan_tpu/train/fused.py:270)."""
+    out, done = [], 0
+    while done < nb:
+        kc = min(k, nb - done)
+        if done == 0 or (done - 1) // pf != (done + kc - 1) // pf:
+            out.append(done + kc - 1)
+        done += kc
+    return out
+
+
+def need_captured(out: str, k1_per_step: int) -> None:
+    """A CLI training run's output shows its step captured as a CUDA graph
+    with ``k1_per_step`` K1 calls each way, and no per-step fallback."""
+    need(" [*] train step captured as a CUDA graph" in out
+         and f"(K1 calls a step: {k1_per_step} forward, {k1_per_step} "
+             "backward); 8 steps a chunk" in out,
+         "the run did not capture its step as a CUDA graph of "
+         f"{k1_per_step} + {k1_per_step} K1 calls, 8 steps a chunk")
+    need("falling back" not in out, "the run fell back to per-step "
+         "dispatch")
+
+
 def trainer_phase(card: str, dev, work: str) -> dict:
     """Phase 16.  The trainer end to end through the CLI on the synthetic
     PNG set: train, test, resume; then one epoch in-process with K1's
@@ -1314,6 +1378,7 @@ def trainer_phase(card: str, dev, work: str) -> dict:
                      ["--phase", "train", "--epoch", str(E2E_EPOCHS), *args])
     need(" [*] training split resident" in out,
          "the trainer did not take the resident split")
+    need_captured(out, LAUNCHES_PER_STEP)
     losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
         r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
     need(len(losses) == E2E_EPOCHS
@@ -1361,9 +1426,11 @@ def trainer_phase(card: str, dev, work: str) -> dict:
     need(resumed == (E2E_EPOCHS + 1) * steps,
          "--continue_train did not resume at the saved step")
 
-    # one epoch in-process: K1's counts and a profiler window of 2 steps
+    # one epoch in-process, eager (--scan_steps 1): K1's counts a step
+    # and a profiler window of 2 steps
     own = os.path.join(work, "inproc")
     cfg = parse_args(["--phase", "train", "--epoch", "1", *args,
+                      "--scan_steps", "1",
                       *(x for d in ("checkpoint", "test", "sample", "log",
                                     "profile")
                         for x in (f"--{d}_dir", os.path.join(own, d)))])
@@ -1373,16 +1440,17 @@ def trainer_phase(card: str, dev, work: str) -> dict:
     tr.train()
     counts, routes = read_k1()
     want = {"fwd": add_routes(planned(step_sites(b_eff), "fwd", steps),
-                              planned(gen_sites(E2E_TEST), "fwd")),
+                              planned(gen_sites(E2E_TEST), "fwd",
+                                      FWD_GRAPH_CALLS)),
             "bwd": planned(step_sites(b_eff), "bwd", steps)}
     print(f"  one epoch in-process: K1 forward {counts['fwd']}, backward "
           f"{counts['bwd']} ({steps} steps x {LAUNCHES_PER_STEP} each, plus "
-          f"the eval's one forward of {E2E_TEST} images, 23 forward); by "
-          f"route {routes}, planned {want}")
-    need(counts["fwd"] == steps * LAUNCHES_PER_STEP + 23
+          f"the capture of the eval's forward of {E2E_TEST} images, 23 x "
+          f"{FWD_GRAPH_CALLS} forward); by route {routes}, planned {want}")
+    need(counts["fwd"] == steps * LAUNCHES_PER_STEP + 23 * FWD_GRAPH_CALLS
          and counts["bwd"] == steps * LAUNCHES_PER_STEP,
-         "the trainer did not run K1 37 + 37 times a step and 23 times in "
-         "the eval")
+         "the trainer did not run K1 37 + 37 times a step and 23 x 2 "
+         "times in the eval's capture")
     need(routes == want, "the trainer's K1 calls left their planned routes")
     win = tr._prof
     need(win is not None and win.steps == 2, "no profiler window")
@@ -1819,6 +1887,7 @@ def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
                       *args])
     need(" [*] training split resident" in out,
          "the default run did not take the resident split")
+    need_captured(out, sum(c for *_, c in unet_step_sites(UNET_B, 128, 128)))
     losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
         r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
     need(len(losses) == DEFAULT_EPOCHS
@@ -1857,9 +1926,11 @@ def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
          and resumed == (DEFAULT_EPOCHS + 1) * DEFAULT_TRAIN,
          "--continue_train did not resume at the saved step")
 
-    # one epoch in-process: K1's calls a step and by route
+    # one epoch in-process, eager (--scan_steps 1): K1's calls a step and
+    # by route
     own = os.path.join(work, "default_inproc")
     cfg = parse_args(["--phase", "train", "--epoch", "1", *args,
+                      "--scan_steps", "1",
                       *(x for d in ("checkpoint", "test", "sample", "log")
                         for x in (f"--{d}_dir", os.path.join(own, d)))])
     tr = Trainer(cfg, device=dev)
@@ -1869,13 +1940,14 @@ def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
     sites = unet_step_sites(UNET_B, 128, 128)
     per = sum(c for *_, c in sites)
     want = {"fwd": add_routes(planned(sites, "fwd", DEFAULT_TRAIN),
-                              planned(unet_sites(E2E_TEST, 128, 128), "fwd")),
+                              planned(unet_sites(E2E_TEST, 128, 128), "fwd",
+                                      FWD_GRAPH_CALLS)),
             "bwd": planned(sites, "bwd", DEFAULT_TRAIN)}
     print(f"  one default epoch in-process: K1 forward {counts['fwd']}, "
           f"backward {counts['bwd']} ({DEFAULT_TRAIN} steps x {per} each, "
-          f"plus the eval's forward of {E2E_TEST} images, 15 forward); by "
-          f"route {routes}, planned {want}")
-    need(counts == {"fwd": DEFAULT_TRAIN * per + 15,
+          f"plus the capture of the eval's forward of {E2E_TEST} images, 15 "
+          f"x {FWD_GRAPH_CALLS} forward); by route {routes}, planned {want}")
+    need(counts == {"fwd": DEFAULT_TRAIN * per + 15 * FWD_GRAPH_CALLS,
                     "bwd": DEFAULT_TRAIN * per} and routes == want,
          "the default trainer's K1 calls left their count or routes")
     del tr
@@ -1887,11 +1959,13 @@ def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
                      ["--phase", "train", "--epoch", "1", "--use_pix2pix",
                       "--dataset_dir", root, "--train_size",
                       str(DEFAULT_P2P_TRAIN), "--print_freq", "1"])
+    need_captured(out, 0)
     losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
         r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
-    need(len(losses) == DEFAULT_P2P_TRAIN
+    need(len(losses) == len(chunk_prints(DEFAULT_P2P_TRAIN, 8, 1))
          and all(math.isfinite(v) for p in losses for v in p),
-         f"pix2pix losses not finite: {losses}")
+         f"pix2pix losses not finite, or not printed at the chunks: "
+         f"{losses}")
     pck = os.path.join(p2p_dir, "checkpoint", "city")
     gen_cp = torch.load(os.path.join(pck, "gen", "cp-0000.pt"),
                         weights_only=True)
@@ -1913,9 +1987,9 @@ def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
 
 
 def unet_serve_phase(card: str, dev) -> dict:
-    """Phase 21.  /translate with the U-Net at 128x128 (15 K1 calls a
-    request), then the U-Net's bf16 forward ms at b=1 and b=16, 128x128
-    and 256x512."""
+    """Phase 21.  /translate with the U-Net at 128x128 (15 x 2 K1 calls
+    at the start-up's capture, a request a replay of its kernels), then
+    the U-Net's bf16 forward ms at b=1 and b=16, 128x128 and 256x512."""
     from PIL import Image
 
     from sggan_tpu_torch import serve as srv
@@ -1923,11 +1997,14 @@ def unet_serve_phase(card: str, dev) -> dict:
     from sggan_tpu_torch.ops import cuda_in
     from sggan_tpu_torch.train import evaluate
     cfg = Config(ngf=NGF, compute_dtype="bfloat16")
+    before = cuda_in.launches
     httpd = srv.serve(cfg, port=0, block=False, device="cuda")
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
     lat = []
     try:
+        need(cuda_in.launches - before == 15 * FWD_GRAPH_CALLS,
+             "the U-Net service's start-up did not capture its forward")
         port = httpd.server_address[1]
         rng = np.random.default_rng(21)
         for ih, iw in ((128, 128), (512, 1024), (128, 128), (128, 128)):
@@ -1939,9 +2016,9 @@ def unet_serve_phase(card: str, dev) -> dict:
             out = np.asarray(Image.open(io.BytesIO(data)))
             calls = cuda_in.launches - before
             print(f"  POST {ih}x{iw} to the U-Net: {status}, {out.shape}, "
-                  f"{lat[-1]:.1f} ms, +{calls} K1 calls")
+                  f"{lat[-1]:.1f} ms, +{calls} K1 calls (a replay)")
             need(status == 200 and out.shape == (128, 128, 3)
-                 and out.std() > 0 and calls == 15, "bad U-Net translation")
+                 and out.std() > 0 and calls == 0, "bad U-Net translation")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -2291,6 +2368,7 @@ def cycle_cli_phase(card: str, dev, work: str, root: str) -> dict:
     need(f" [*] training splits resident on device" in out
          and f"{CYCLE_CLI_TRAIN}+{CYCLE_CLI_TRAIN} triplets" in out,
          "the cycle run did not take both splits resident")
+    need_captured(out, CYCLE_K1_PER_STEP)
     losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
         r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
     need(len(losses) == CYCLE_CLI_EPOCHS
@@ -2344,9 +2422,11 @@ def cycle_cli_phase(card: str, dev, work: str, root: str) -> dict:
          and resumed == (CYCLE_CLI_EPOCHS + 1) * steps,
          "--continue_train did not resume at the saved step")
 
-    # one epoch in-process: K1's calls a step and by route
+    # one epoch in-process, eager (--scan_steps 1): K1's calls a step and
+    # by route
     own = os.path.join(work, "cycle_inproc")
     cfg = parse_args(["--phase", "train", "--epoch", "1", *args,
+                      "--scan_steps", "1",
                       *(x for d in ("checkpoint", "test", "sample", "log")
                         for x in (f"--{d}_dir", os.path.join(own, d)))])
     tr = Trainer(cfg, device=dev)
@@ -2355,13 +2435,15 @@ def cycle_cli_phase(card: str, dev, work: str, root: str) -> dict:
     counts, routes = read_k1()
     sites = cycle_step_sites(b_eff)
     want = {"fwd": add_routes(planned(sites, "fwd", steps),
-                              planned(gen_sites(E2E_TEST), "fwd")),
+                              planned(gen_sites(E2E_TEST), "fwd",
+                                      FWD_GRAPH_CALLS)),
             "bwd": planned(sites, "bwd", steps)}
     print(f"  one cycle epoch in-process: K1 forward {counts['fwd']}, "
           f"backward {counts['bwd']} ({steps} steps x {CYCLE_K1_PER_STEP} "
-          f"each, plus the eval's a2b forward of {E2E_TEST} images, 23 "
-          f"forward); by route {routes}, planned {want}")
-    need(counts == {"fwd": steps * CYCLE_K1_PER_STEP + 23,
+          f"each, plus the capture of the eval's a2b forward of {E2E_TEST} "
+          f"images, 23 x {FWD_GRAPH_CALLS} forward); by route {routes}, "
+          f"planned {want}")
+    need(counts == {"fwd": steps * CYCLE_K1_PER_STEP + 23 * FWD_GRAPH_CALLS,
                     "bwd": steps * CYCLE_K1_PER_STEP} and routes == want,
          "the cycle trainer's K1 calls left their count or routes")
     del tr
@@ -2401,11 +2483,18 @@ for label, path, x_path, y_path, f32 in json.loads(sys.argv[1]):
     cuda_in.route_launches.update(dict.fromkeys(cuda_in.route_launches, 0))
     y = art(x)
     torch.cuda.synchronize()
+    first = cuda_in.launches
+    again = art(x)  # a replay of the graph the first call captured
+    torch.cuda.synchronize()
     np.save(y_path, y.cpu().numpy())
-    out[label] = {"k1": cuda_in.launches,
+    out[label] = {"k1": first, "k1_replay": cuda_in.launches - first,
+                  "replay_max_abs": float((y - again).abs().max()),
                   "routes": {r: n for (d, r), n in
                              cuda_in.route_launches.items()
                              if d == "fwd" and n}}
+    with torch.inference_mode():  # the program node by node, twice
+        m1, m2 = art._module(x), art._module(x)
+    out[label]["module_repeat_max_abs"] = float((m1 - m2).abs().max())
 bad = sorted(m for m in sys.modules if m in ("jax", "sggan_tpu")
              or m.startswith(("jax.", "sggan_tpu.", "sggan_tpu_torch.models",
                               "sggan_tpu_torch.train")))
@@ -2524,11 +2613,25 @@ def artifact_phase(card: str, dev, work: str, root: str) -> dict:
     res["fresh_k1"] = fresh["counts"]
     for label, (_, _, sites, dtype, _) in cases.items():
         got = fresh["counts"][label]
-        want = planned(sites, "fwd", dtype=dtype)
-        print(f"  {label}: one b=1 forward, K1 {got['k1']} calls by route "
-              f"{got['routes']}, planned {want}")
-        need(got["k1"] == sum(want.values()) and got["routes"] == want,
-             f"the {label} artifact's K1 calls left their count or routes")
+        want = planned(sites, "fwd", FWD_GRAPH_CALLS, dtype=dtype)
+        print(f"  {label}: the first b=1 call (the graph's warm-up and "
+              f"capture), K1 {got['k1']} calls by route {got['routes']}, "
+              f"planned {want}; a second call (a replay) {got['k1_replay']} "
+              f"K1 calls, max abs {got['replay_max_abs']:.3g} from the "
+              f"first; the GraphModule run twice node by node: max abs "
+              f"{got['module_repeat_max_abs']:.3g}")
+        # a replay repeats the first call bitwise where the program's own
+        # kernels do (cuDNN may pick an algorithm that sums with atomics),
+        # else within the limit the artifact is held to below: f32 phase
+        # 4's, bf16 a PNG level (2 / 255 of [-1, 1])
+        need(got["k1"] == sum(want.values()) and got["routes"] == want
+             and got["k1_replay"] == 0
+             and (got["replay_max_abs"] == 0
+                  or got["module_repeat_max_abs"] > 0)
+             and got["replay_max_abs"] <= (
+                 SLICE_ATOL if dtype == torch.float32 else 2 / 255),
+             f"the {label} artifact's K1 calls left their count or routes, "
+             "or its replay differs where the program repeats itself")
 
     # each artifact against the checkpoint service on the same input
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -2578,8 +2681,8 @@ def artifact_phase(card: str, dev, work: str, root: str) -> dict:
     lat, levels = [], []
     try:
         port = httpd.server_address[1]
-        need(read_k1()[0]["fwd"] == 23, "the artifact service's warm-up did "
-             "not run K1 23 times")
+        need(read_k1()[0]["fwd"] == 23 * FWD_GRAPH_CALLS, "the artifact "
+             "service's warm-up did not capture K1's 23 calls")
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
                                     timeout=60) as r:
             health = json.loads(r.read())
@@ -2597,9 +2700,9 @@ def artifact_phase(card: str, dev, work: str, root: str) -> dict:
             levels.append(int(np.abs(out - ref).max()))
             ih, iw = Image.open(io.BytesIO(body)).size[::-1]
             print(f"  POST {ih}x{iw} to the artifact: {status}, {out.shape},"
-                  f" {lat[-1]:.1f} ms, +{calls} K1 calls, {levels[-1]} "
-                  "levels from the checkpoint service's PNG")
-            need(status == 200 and out.shape == (H, W, 3) and calls == 23
+                  f" {lat[-1]:.1f} ms, +{calls} K1 calls (a replay), "
+                  f"{levels[-1]} levels from the checkpoint service's PNG")
+            need(status == 200 and out.shape == (H, W, 3) and calls == 0
                  and levels[-1] <= 1, "bad translation through the artifact")
         try:
             post(port, b"this is not an image")
@@ -2612,9 +2715,9 @@ def artifact_phase(card: str, dev, work: str, root: str) -> dict:
         httpd.server_close()
         th.join(timeout=30)
     counts, routes = read_k1()
-    need(counts["fwd"] == 23 * 5 and routes["fwd"] == planned(
-        gen_sites(1), "fwd", 5), "the artifact service's K1 calls left "
-         "their count or routes")
+    need(counts["fwd"] == 23 * FWD_GRAPH_CALLS and routes["fwd"] == planned(
+        gen_sites(1), "fwd", FWD_GRAPH_CALLS), "the artifact service's K1 "
+         "calls left their count or routes")
     torch.cuda.empty_cache()
     res.update(http_launches=counts["fwd"], translate_ms=lat,
                http_max_levels=max(levels))
@@ -2632,10 +2735,12 @@ def inference_cell_phase(card: str, dev, work: str, art: dict) -> dict:
     """Phase 27.  bench.py:147-175's inference cell: the generator's
     artifact (``utils.export.export_generator`` on phase 16's ResNet
     checkpoint at 256x512, and phase 20's U-Net at 128x128, bf16) at b=1
-    and b=16, 32 calls after 3 by CUDA events, beside the eager forward of
-    the same weights; a profiler window of each (busy, idle share, K1's
-    share); the b=1 vs b=16 gap; and the host cost of a K1 call through
-    the registered op against the wrapper alone."""
+    and b=16, 32 calls after 3 by CUDA events, through its CUDA graph
+    (``artifact``), beside its GraphModule run node by node from Python
+    (``graph_module``, the artifact before its graph) and the eager
+    forward of the same weights; a profiler window of each (busy, idle
+    share, K1's share); the b=1 vs b=16 gap; and the host cost of a K1
+    call through the registered op against the wrapper alone."""
     from torch.profiler import ProfilerActivity, profile
 
     from sggan_tpu_torch.config import parse_args
@@ -2666,8 +2771,13 @@ def inference_cell_phase(card: str, dev, work: str, art: dict) -> dict:
                 with torch.inference_mode():
                     return evaluate.gen_forward(cfg, gen, x, gen_bn)
 
+            def graph_module():  # the program's nodes, each from Python
+                with torch.inference_mode():
+                    return prog._module(x)
+
             row = {}
             for name, fn in (("artifact", lambda: prog(x)),
+                             ("graph_module", graph_module),
                              ("eager", eager)):
                 ms = cuda_ms(fn, ART_ITERS, warmup=ART_WARMUP)
                 with profile(activities=[ProfilerActivity.CPU,
@@ -2830,6 +2940,372 @@ def tf_import_phase(card: str, dev, work: str,
             "selftest": want["selftest"]}
 
 
+# ----------------------------------------------------------------------
+# CUDA graphs: --scan_steps and the fixed-shape forward (phase 29)
+# ----------------------------------------------------------------------
+
+GRAPH_STEPS = 8          # steps each way from one snapshot, an epoch
+GRAPH_CHUNKS = (8, 3)    # one whole chunk; 3 + 3 + 2, a tail
+GRAPH_TIMED_EPOCHS = 1   # timed epochs each way, after one that warms up
+K1_KERNEL = re.compile(r"\bin_(fwd_cluster|stats|apply|bwd_cluster|"
+                       r"bwd_stats|bwd_apply)<")
+
+
+class Resident:
+    """A resident split made on the card from a seed, as
+    ``loader.DeviceDataset`` holds one: ``n`` uint8 photos, seg maps and
+    class maps of ``src_hw``."""
+
+    def __init__(self, n: int, src_hw, n_class: int, dev, seed: int):
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def u8(shape, hi):
+            return torch.randint(0, hi, shape, generator=g, device=dev,
+                                 dtype=torch.uint8)
+        self.img = u8((n, *src_hw, 3), 256)
+        self.seg = u8((n, *src_hw, 3), 256)
+        self.cls = u8((n, *src_hw), n_class)
+
+    def __len__(self):
+        return self.img.shape[0]
+
+
+def graph_cases() -> dict:
+    """label -> (config, K1 sites of one step) of phase 29's step cells:
+    the ResNet sggan step at 256x512 b=8 doubled to 16; the default p2p
+    U-Net at 128x128 b=1 doubled to 2, dropout on; the pix2pix pair there
+    with batch norm; the ResNet cycle step at 256x512 b=4 doubled to 8.
+    bf16, pool 50, 34 classes, no saves, one print an epoch."""
+    from sggan_tpu_torch.config import Config
+    quiet = dict(save_freq=0, print_freq=1000, data_seed=29)
+    return {
+        "sggan_resnet_b16": (Config(
+            image_height=H, image_width=W, ngf=NGF, ndf=64,
+            segment_class=N_CLASS, batch_size=B_TRAIN // 2,
+            loss_mode="sggan", use_resnet=True, **quiet),
+            step_sites(B_TRAIN)),
+        "p2p_unet_b2": (Config(**quiet), unet_step_sites(UNET_B, 128, 128)),
+        "pix2pix_b2": (Config(use_pix2pix=True, **quiet), []),
+        "cycle_resnet_b8": (cycle_cfg(CYCLE_B // 2).replace(**quiet),
+                            cycle_step_sites(CYCLE_B)),
+    }
+
+
+def graph_trainer(cfg, dev, n_steps: int, seed: int = 0):
+    """(a Trainer of ``cfg`` on the card at lr 1e-3, its resident split
+    (a pair under the cycle mode) of ``n_steps`` batches of sources
+    twice the image size)."""
+    from sggan_tpu_torch.train.trainer import Trainer
+    tr = Trainer(cfg, device=dev)
+    tr.lr.fill_(float(np.float32(1e-3)))
+    src = (2 * cfg.image_height, 2 * cfg.image_width)
+    splits = [Resident(n_steps * cfg.batch_size, src, cfg.segment_class, dev,
+                       seed + i) for i in range(2 if tr.cycle else 1)]
+    return tr, tuple(splits) if tr.cycle else splits[0]
+
+
+def train_snapshot(tr) -> tuple:
+    """Every tensor a step writes, the step, the pool's count and both
+    generators' states."""
+    from sggan_tpu_torch.train.step import state_tensors
+    with torch.no_grad():
+        tensors = {k: t.clone() for k, t in state_tensors(tr.state).items()}
+    return (tensors, tr.state.step, tr.state.pool.count,
+            tr.data_gen.get_state(), tr.pool_gen.get_state())
+
+
+def train_restore(tr, snap: tuple) -> None:
+    from sggan_tpu_torch.train.step import state_tensors
+    tensors, step, count, data_state, pool_state = snap
+    with torch.no_grad():
+        for k, t in state_tensors(tr.state).items():
+            t.copy_(tensors[k])
+    tr.state = tr.state._replace(step=step,
+                                 pool=tr.state.pool._replace(count=count))
+    tr.data_gen.set_state(data_state)
+    tr.pool_gen.set_state(pool_state)
+
+
+def loop_epoch(tr, ds, epoch: int, graph=None) -> torch.Tensor:
+    """One epoch of the trainer's loop over ``ds``: the eager steps
+    (``fused.run_epoch_fused``, ``--scan_steps 1``), or chunks of
+    ``tr.cfg.scan_steps`` through ``graph`` (``fused.run_epoch_chunked``).
+    Returns the steps' (gen, disc) losses, (steps, 2) on the card."""
+    from sggan_tpu_torch.train import fused
+    gl, dl = [], []
+    if graph is None:
+        fused.run_epoch_fused(tr, epoch, ds, fused.make_batch_fn(tr.cfg), gl,
+                              dl, tr.state.step, time.time())
+    else:
+        fused.run_epoch_chunked(tr, epoch, graph, gl, dl, tr.state.step,
+                                time.time())
+    return torch.stack([torch.stack(gl), torch.stack(dl)], 1)
+
+
+def k1_window(fn, n_runs: int, want: dict, tries: int = 3) -> dict:
+    """``k1_kernel_calls`` of a profiler window over ``fn()``, which runs
+    ``n_runs`` times what the counts are per.  The window is padded by a
+    pause at each end, since the profiler drops a kernel whose converted
+    time falls outside it; and a trace may drop an event all the same
+    (``perf_in.device_ms``), so a window that does not hold ``want`` is
+    taken again, up to ``tries`` windows, each said.  Returns the last
+    window's counts."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        got = k1_kernel_calls(prof, n_runs)
+        if got == want:
+            break
+        print(f"  profiler: window {attempt + 1} holds K1's kernels for "
+              f"{got}, not {want}")
+    return got
+
+
+def k1_kernel_calls(prof, n_runs: int) -> dict:
+    """K1's calls per run by direction and route, from the kernels a
+    trace holds: a cluster call is one ``in_fwd_cluster`` or
+    ``in_bwd_cluster`` kernel, a two-pass call one stats and one apply
+    kernel; raises when a stats kernel has no apply kernel."""
+    n = {}
+    for _, cnt, name in kernel_times(prof, n_runs):
+        m = K1_KERNEL.search(name)
+        if m:
+            n[m.group(1)] = n.get(m.group(1), 0) + cnt
+    need(n.get("stats", 0) == n.get("apply", 0)
+         and n.get("bwd_stats", 0) == n.get("bwd_apply", 0),
+         f"K1's two-pass kernels unpaired in the trace: {n}")
+    out = {"fwd": {"cluster": n.get("fwd_cluster", 0),
+                   "stream": n.get("stats", 0)},
+           "bwd": {"cluster": n.get("bwd_cluster", 0),
+                   "stream": n.get("bwd_stats", 0)}}
+    return {d: {r: c for r, c in v.items() if c} for d, v in out.items()}
+
+
+def differing(a: dict, b: dict) -> list:
+    """Names of the tensors of two snapshots that are not bitwise equal."""
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def step_graph_gate(card: str, label: str, tr, ds, sites) -> dict:
+    """Phase 29's gate of one step cell (the caller makes cuDNN
+    deterministic): from one snapshot, ``GRAPH_STEPS`` eager steps, then
+    the same steps through the graph in chunks of each of
+    ``GRAPH_CHUNKS``; losses and every state tensor bitwise equal; K1's
+    calls recorded at the capture as planned; a profiler window of an
+    epoch's replays names K1's kernels for those calls each."""
+    from sggan_tpu_torch.train import fused
+    snap = train_snapshot(tr)
+    eager = loop_epoch(tr, ds, 0).cpu()
+    ref = train_snapshot(tr)
+    want = {d: planned(sites, d) for d in ("fwd", "bwd")}
+    res = {"eager_losses": eager.tolist()}
+    for k in GRAPH_CHUNKS:
+        train_restore(tr, snap)
+        tr.cfg = tr.cfg.replace(scan_steps=k)
+        graph = fused.StepGraph(tr, ds, fused.make_batch_fn(tr.cfg))
+        got = loop_epoch(tr, ds, 0, graph).cpu()
+        after = train_snapshot(tr)
+        bad = differing(ref[0], after[0])
+        same = (torch.equal(got, eager) and not bad
+                and after[1:3] == ref[1:3])
+        (f, b), by_route = graph.k1_calls
+        routes = {d: {r: n for (dd, r), n in by_route.items() if dd == d}
+                  for d in ("fwd", "bwd")}
+        print(f"  [{card}] {label} K={k}: {GRAPH_STEPS} steps through the "
+              f"graph vs eager: losses "
+              f"{'bitwise equal' if torch.equal(got, eager) else 'DIFFER'}, "
+              f"{len(ref[0]) - len(bad)} of {len(ref[0])} state tensors "
+              f"bitwise equal (differ: {bad[:8]}); step {after[1]}, pool "
+              f"{after[2]}; K1 at the capture {f} + {b} by route {routes} "
+              f"(planned {want})")
+        need(same, f"{label}: the graph's steps are not the eager steps")
+        need(routes == want, f"{label}: K1's calls at the capture left "
+             "their count or routes")
+        res[f"k{k}"] = {"bitwise": same, "k1_at_capture": routes}
+        if k == GRAPH_CHUNKS[0]:
+            # a window of one more epoch's replays: K1's own kernels, a
+            # step's calls each
+            seen = k1_window(lambda: loop_epoch(tr, ds, 1, graph),
+                             GRAPH_STEPS, want)
+            print(f"  [{card}] {label}: a profiler window of {GRAPH_STEPS} "
+                  f"replays, K1's kernels a replay by route {seen}")
+            need(seen == want, f"{label}: the replays did not launch K1's "
+                 "kernels for the planned calls")
+            res["k1_kernels_per_replay"] = seen
+        del graph
+        torch.cuda.empty_cache()
+    return res
+
+
+def loop_timing(card: str, label: str, tr, ds) -> dict:
+    """The trainer's loop eager (``--scan_steps 1``) then through the
+    step's graph (``--scan_steps`` 8) on ``tr`` and ``ds``, cuDNN's
+    defaults: each a warm-up epoch (the graph's capture), then
+    ``GRAPH_TIMED_EPOCHS`` epochs by CUDA events (step ms, img/s) and one
+    more under the profiler (busy, idle share); the peak memory allocated
+    and reserved since the warm-up, the graph's private pool included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sggan_tpu_torch.train import fused
+    out = {}
+    b_eff = fused.effective_batch(tr.cfg)
+    for name in ("eager", "graph"):
+        graph = None
+        if name == "graph":
+            tr.cfg = tr.cfg.replace(scan_steps=GRAPH_CHUNKS[0])
+            graph = fused.StepGraph(tr, ds, fused.make_batch_fn(tr.cfg))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loop_epoch(tr, ds, 0, graph)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for e in range(GRAPH_TIMED_EPOCHS):
+            loop_epoch(tr, ds, 1 + e, graph)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / (GRAPH_TIMED_EPOCHS * GRAPH_STEPS)
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
+                torch.cuda.max_memory_reserved() / 2 ** 30)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loop_epoch(tr, ds, 1 + GRAPH_TIMED_EPOCHS, graph)
+            torch.cuda.synchronize()
+        busy = sum(k[0] for k in kernel_times(prof, GRAPH_STEPS))
+        out[name] = {"step_ms": ms, "busy_ms": busy,
+                     "idle_share": 1 - busy / ms, "peak_gib": peak[0],
+                     "peak_reserved_gib": peak[1],
+                     "img_per_s": 1e3 * b_eff / ms}
+        print(f"  [{card}] {label} {name}: {ms:.3f} ms a step of the loop, "
+              f"{1e3 * b_eff / ms:.2f} {'pairs' if tr.cycle else 'img'}/s, "
+              f"busy {busy:.3f} ms ({100 * (1 - busy / ms):.1f}% idle), "
+              f"peak {peak[0]:.2f} GiB allocated, {peak[1]:.2f} reserved")
+        del graph
+    out["graph_over_eager_ms"] = out["graph"]["step_ms"] / out["eager"][
+        "step_ms"]
+    return out
+
+
+def forward_graph_gate(card: str, dev) -> dict:
+    """Phase 29's forward graphs: ``evaluate.generate`` through
+    ``ForwardGraphs`` against the eager generate, the ResNet at 256x512
+    and the U-Net at 128x128, bf16, b=1 and 16: bitwise equal (cuDNN
+    deterministic), K1's calls twice a forward at the first call (the
+    warm-up and the capture) and none at a replay, a profiler window of
+    one replay naming K1's kernels for a forward's calls; then the
+    graph's ms a call beside eager's."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import evaluate
+    from sggan_tpu_torch.utils.cuda_graph import ForwardGraphs
+    out = {}
+    for label, cfg, sites in (
+            ("resnet_256x512", Config(use_resnet=True, image_height=H,
+                                      image_width=W, ngf=NGF), gen_sites),
+            ("unet_128x128", Config(ngf=NGF),
+             lambda n: unet_sites(n, 128, 128))):
+        gen = evaluate.build_generator(cfg).to(dev)
+        for b in (1, 16):
+            x = torch.rand(b, *cfg.image_size, 3, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(b))
+            graphs = ForwardGraphs()
+            want = planned(sites(b), "fwd")
+            det = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                y_eager = evaluate.generate(cfg, gen, x, dev)
+                reset_k1()
+                y_graph = evaluate.generate(cfg, gen, x, dev, graphs=graphs)
+                first, routes = read_k1()
+                y_again = evaluate.generate(cfg, gen, x, dev, graphs=graphs)
+                replay = read_k1()[0]["fwd"] - first["fwd"]
+                seen = k1_window(lambda: evaluate.generate(
+                    cfg, gen, x, dev, graphs=graphs), 1,
+                    {"fwd": want, "bwd": {}})["fwd"]
+            finally:
+                torch.backends.cudnn.deterministic = det
+            same = (np.array_equal(y_graph, y_eager)
+                    and np.array_equal(y_again, y_eager))
+            print(f"  [{card}] {label} b={b} forward graph vs eager: "
+                  f"{'bitwise equal' if same else 'DIFFER'}; K1 at the "
+                  f"first call {first['fwd']} by route {routes['fwd']} "
+                  f"(twice {want}), at a replay {replay}")
+            need(same, f"{label} b={b}: the forward graph's output is not "
+                 "the eager forward's")
+            need(first["fwd"] == 2 * sum(want.values()) and routes["fwd"]
+                 == {r: 2 * c for r, c in want.items()} and replay == 0,
+                 f"{label} b={b}: the forward graph's K1 calls")
+            need(seen == want, f"{label} b={b}: a replay did not launch "
+                 f"K1's kernels for a forward's calls: {seen}")
+            row = {"bitwise": same, "k1_kernels_per_replay": seen}
+            # cuDNN's defaults: the graph's first call here captures anew
+            for name, gs in (("eager", None), ("graph", graphs)):
+                row[f"{name}_ms"] = cuda_ms(lambda: evaluate.generate(
+                    cfg, gen, x, dev, graphs=gs), 20 if b == 1 else 5)
+            print(f"  [{card}] {label} b={b} generate (input upload to the "
+                  f"output on the host): eager {row['eager_ms']:.3f} ms, "
+                  f"graph {row['graph_ms']:.3f} ms a call")
+            out[f"{label}_b{b}"] = row
+            del graphs, x
+            torch.cuda.empty_cache()
+        del gen
+        torch.cuda.empty_cache()
+    return out
+
+
+GRAPHS_CHILD = ("import json, sys, torch, chip_smoke; print(json.dumps("
+                "chip_smoke.graphs_phase(sys.argv[1], torch.device('cuda'))))")
+
+
+def graphs_phase_fresh(card: str) -> dict:
+    """``graphs_phase`` in a fresh process, its output shown: late in a
+    long process the profiler drops kernels from short traces (PERF.md
+    section 7), and this phase counts K1's kernels in its traces."""
+    proc = subprocess.run([sys.executable, "-c", GRAPHS_CHILD, card],
+                          cwd=REPO, env=repo_env(), capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(ln)
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("phase 29 failed")
+    return json.loads(lines[-1])
+
+
+def graphs_phase(card: str, dev) -> dict:
+    """Phase 29: ``--scan_steps`` and the fixed-shape forward as CUDA
+    graphs: each step cell's gate (``step_graph_gate``) and its loop
+    eager beside the graph (``loop_timing``), the cycle step also at b=2
+    and 4; then the forward graphs (``forward_graph_gate``)."""
+    out = {"steps": {}, "timing": {}}
+    for label, (cfg, sites) in graph_cases().items():
+        tr, ds = graph_trainer(cfg, dev, GRAPH_STEPS)
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            out["steps"][label] = step_graph_gate(card, label, tr, ds, sites)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        out["timing"][label] = loop_timing(card, label, tr, ds)
+        del tr, ds
+        torch.cuda.empty_cache()
+    for b in (1, 2):
+        label = f"cycle_resnet_b{2 * b}"
+        tr, ds = graph_trainer(cycle_cfg(b).replace(
+            save_freq=0, print_freq=1000, data_seed=29), dev, GRAPH_STEPS)
+        out["timing"][label] = loop_timing(card, label, tr, ds)
+        del tr, ds
+        torch.cuda.empty_cache()
+    out["forward"] = forward_graph_gate(card, dev)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2960,9 +3436,11 @@ def main() -> int:
     latencies = []
     try:
         port = httpd.server_address[1]
-        if cuda_in.launches != 23:
+        # the warm-up request captures the forward's graph
+        if cuda_in.launches != 23 * FWD_GRAPH_CALLS:
             raise AssertionError(f"warm-up forward launched the kernel "
-                                 f"{cuda_in.launches} times, not 23")
+                                 f"{cuda_in.launches} times, not 23 x "
+                                 f"{FWD_GRAPH_CALLS}")
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
                                     timeout=60) as r:
             health = json.loads(r.read())
@@ -2981,12 +3459,12 @@ def main() -> int:
             out = np.asarray(Image.open(io.BytesIO(data)))
             print(f"  POST {ih}x{iw}: {status}, {out.shape} {out.dtype}, "
                   f"{latencies[-1]:.1f} ms, "
-                  f"+{cuda_in.launches - before} kernel launches")
+                  f"+{cuda_in.launches - before} kernel launches (a replay)")
             if status != 200 or out.shape != (H, W, 3) \
                     or out.dtype != np.uint8 or out.std() == 0:
                 raise AssertionError("bad translation")
-            if cuda_in.launches - before != 23:
-                raise AssertionError("request did not run 23 kernel IN")
+            if cuda_in.launches - before != 0:
+                raise AssertionError("request did not replay the graph")
         try:
             post(port, b"this is not an image")
             raise AssertionError("garbage body was not refused")
@@ -2999,11 +3477,12 @@ def main() -> int:
         httpd.server_close()
         th.join(timeout=30)
     main_launches = cuda_in.launches
-    if main_launches != 23 * (1 + len(sizes)):
+    if main_launches != 23 * FWD_GRAPH_CALLS:
         raise AssertionError(f"main path launched the kernel "
                              f"{main_launches} times")
-    print(f"  main path: {main_launches} kernel launches "
-          f"(1 warm-up + {len(sizes)} requests, 23 each)")
+    print(f"  main path: {main_launches} kernel launches (the warm-up "
+          f"request's capture, 23 x {FWD_GRAPH_CALLS}; {len(sizes)} "
+          "requests replay it)")
 
     phase("6 timings")
     gen = GeneratorResnet(ngf=NGF, generator=torch.Generator().manual_seed(0))
@@ -3369,6 +3848,10 @@ def main() -> int:
             selftest.communicate()
     shutil.rmtree(work)
 
+    phase("29 CUDA graphs (main path): --scan_steps K in every loss mode, "
+          "eager beside the graph; the forward graphs")
+    graphs = graphs_phase_fresh(card)
+
     def entry(name, d, replaces, launches, errs_d):
         return {"name": name, "route": "cuda",
                 "source": "sggan_tpu_torch/csrc/instance_norm.cu",
@@ -3468,6 +3951,18 @@ def main() -> int:
                       for r in cyc_k1_sites]}
         ent["cycle_is"] = (f"the {CYCLE_K1_PER_STEP} calls of one b="
                            f"{CYCLE_B} bf16 cycle step, by site (phase 23)")
+        # the CUDA graphs (phase 29)
+        ent["launches_graph_capture"] = {
+            k: v["k8"]["k1_at_capture"][d]
+            for k, v in graphs["steps"].items()}
+        ent["graph_kernels_per_replay"] = {
+            k: v["k1_kernels_per_replay"][d]
+            for k, v in graphs["steps"].items()}
+        ent["launches_graph_capture_is"] = (
+            "K1 calls by route recorded at the capture of each step cell's "
+            "CUDA graph, one step's (phase 29); graph_kernels_per_replay: "
+            "the calls its kernels in a profiler window of the replays "
+            "make, per replay")
     print(card)
     print(json.dumps({"e2e": {
         "config": "perf_epoch_e2e fused-aug: 96 PNG triplets 512x1024, "
@@ -3507,6 +4002,19 @@ def main() -> int:
                   f"16; CUDA events over {ART_ITERS} calls after "
                   f"{ART_WARMUP}; profiler over 3",
         **cell, "artifacts": art["res"], "tf_import": tf_imp}}))
+    print(card)
+    print(json.dumps({"graphs": {
+        "config": "phase 29: the trainer's loop over a resident split made "
+                  "on the card (sources twice the image size), eager "
+                  "(--scan_steps 1) beside K steps a chunk through one "
+                  "CUDA graph of the step; the ResNet sggan step 256x512 "
+                  "b=8 doubled to 16, the default p2p U-Net and the "
+                  "pix2pix pair 128x128 b=1 doubled to 2, the ResNet "
+                  "cycle step 256x512 b=4 doubled to 8 (and b=2, 4), bf16; "
+                  f"the gate over {GRAPH_STEPS} steps with cuDNN "
+                  "deterministic, the times with its default; the forward "
+                  "graphs of evaluate.generate",
+        **graphs}}))
     from sggan_tpu_torch.perf_in import EVENT_TIMED
     print(f"  profiler: {len(EVENT_TIMED)} device_ms calls found no kernel "
           f"in any trace and were timed by CUDA events: {EVENT_TIMED}")

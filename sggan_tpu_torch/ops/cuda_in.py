@@ -18,7 +18,9 @@ site.
 ``launches`` and ``bwd_launches`` count the calls that launched each
 kernel, whatever the number of CUDA launches inside, so a run can show
 that its path went through them; ``route_launches`` counts them by
-(direction, route).  The kernels are built by nvcc at the
+(direction, route).  A CUDA graph records a call once, at its capture,
+and its replays launch it again without the wrapper: the counters count
+the capture, not the replays.  The kernels are built by nvcc at the
 first call (``_build``), never at import.
 """
 
@@ -182,13 +184,33 @@ _counters = {}  # (device, stream) -> the backward's arrival counter
 def _counter(device: int) -> torch.Tensor:
     """One int32 per (device, current stream), zero between backward
     calls: the kernel's last block resets it, and calls on one stream do
-    not overlap."""
+    not overlap.  A graph's replays reuse the one of its capture stream,
+    which ``prepare_capture`` makes before the capture."""
     key = (device, _stream(device))
     t = _counters.get(key)
     if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the instance-norm backward has no counter "
+                               "for the capturing stream: call "
+                               "cuda_in.prepare_capture(stream) before the "
+                               "capture")
         t = _counters[key] = torch.zeros(1, dtype=torch.int32,
                                          device=torch.device("cuda", device))
     return t
+
+
+def prepare_capture(stream: torch.cuda.Stream) -> None:
+    """Before a CUDA graph is captured on ``stream``: build the kernels,
+    set their cluster attributes (``_init``) and make the backward's
+    counter of that stream.  Made inside the capture, the counter would
+    be a tensor of the graph's private memory pool; the launches
+    themselves allocate nothing and go to the current stream, so a
+    capture records them."""
+    dev = stream.device.index
+    _kernels()
+    _init(dev)
+    with torch.cuda.stream(stream):
+        _counter(dev)
 
 
 def max_active_clusters(p: Plan, direction: str, dtype: torch.dtype) -> int:

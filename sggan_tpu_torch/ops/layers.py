@@ -220,7 +220,8 @@ def _reflect_index(n: int, lo: int, hi: int,
     """The rows a reflect pad (lo, hi) of a size-n axis reads, cached per
     (n, lo, hi, device).  Under torch.export a missing index is built but
     not cached: it is the trace's fake tensor.  A cached one is a constant
-    of the exported graph."""
+    of the exported graph, and of a captured CUDA graph, whose warm-up
+    fills the cache: a miss inside a capture raises."""
     key = (n, lo, hi, device)
     index = _reflect_index_cache.get(key)
     if index is not None:
@@ -228,6 +229,10 @@ def _reflect_index(n: int, lo: int, hi: int,
     if not (0 <= lo < n and 0 <= hi < n):
         raise ValueError(f"reflect pad ({lo}, {hi}) needs a size > pad, "
                          f"got {n}")
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"reflect pad index ({n}, {lo}, {hi}) missing in "
+                           "a CUDA graph capture: run the captured function "
+                           "once before capturing it")
     # a normal tensor even when first asked for under inference_mode: the
     # cached index is reused by forwards that autograd records
     with torch.inference_mode(False):

@@ -21,7 +21,10 @@ norms on their moving stats (``Trainer.generate``).
 
 The device is explicit.  The CLI serves on ``cuda``; a missing GPU is an
 error, never a quiet move to the CPU.  An artifact runs on the device it
-was exported on.
+was exported on.  On the card either forward is one CUDA graph of the
+(1, H, W, 3) request, captured at start-up, the analog of the JAX
+service's compiled forward; requests take the lock that serialises them
+on the one graph.
 """
 
 from __future__ import annotations
@@ -107,15 +110,17 @@ class _Service:
         else:
             from .train import evaluate
             trainer, self.loaded = _trainer(cfg, self.device)
-            # what Trainer.generate runs, taken once
+            # what Trainer.generate runs, taken once, through its graphs
             self.gen = evaluate.eval_generator(trainer)
             self.gen_bn = trainer.state.gen_bn
             self._fn = lambda x: evaluate.generate(
-                cfg, self.gen, x, self.device, gen_bn=self.gen_bn)
+                cfg, self.gen, x, self.device, gen_bn=self.gen_bn,
+                graphs=trainer.fwd_graphs)
         self.device_name = (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu")
         self._lock = threading.Lock()
-        # warm the kernel build and cuDNN's algorithm choice
+        # warm the kernel build and cuDNN's algorithm choice, and on the
+        # card capture the forward's CUDA graph
         self._fn(np.zeros((1, h, w, 3), np.float32))
 
     def translate_png(self, png_bytes: bytes) -> bytes:

@@ -24,7 +24,8 @@ the pre-step discriminators, frozen: ``torch.autograd.grad`` over the
 generators' parameters only.  Each discriminator makes one call over
 ``[real; pooled fake]`` (instance norm is per sample).  Adam, the EMA
 (one shadow over both generators, keyed ``a2b.*`` and ``b2a.*``), TF32
-off in f32 mode and the explicit draws are ``train/step.py``'s.
+off in f32 mode, the explicit draws and the updates in place are
+``train/step.py``'s.
 
 Dropout: the JAX step splits its key into r1..r4 and gives the U-Net's
 calls G(a) r1, F(b) r2, F(G(a)) and G(b) r3, G(F(b)) and F(a) r4; the
@@ -33,12 +34,13 @@ mask sets (``cycle_dropout_masks``) and feeds set 3 to F(G(a)) and G(b),
 set 4 to G(F(b)) and F(a).
 
 Not ported, raising ``NotImplementedError`` that names its ROADMAP item
-(``step._require_ported``): ``--remat`` and data or spatial parallelism.
+(``step._require_ported``): ``--remat``, ``--pad_free_head`` and data or
+spatial parallelism.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -46,10 +48,10 @@ from torch import nn
 from .. import losses
 from ..ops import dropout_masks as _draw_masks
 from ..ops.deriv import seg_boundary_weight
-from .pool import PoolDraws, pool_init, pool_update
+from .pool import PoolDraws, PoolPlan, pool_init, pool_update
 from .step import (TrainState, _conv_precision, _dtype, _ema_update, _grads,
-                   _require_ported, adam_init, adam_update, deterministic,
-                   new_discriminator, new_generator)
+                   _keep_pool, _require_ported, adam_init, adam_update,
+                   deterministic, new_discriminator, new_generator, pools)
 
 N_MASK_SETS = 4  # r1..r4 of the JAX step
 
@@ -105,7 +107,7 @@ def cycle_dropout_masks(cfg, gen: nn.ModuleDict, generator: torch.Generator,
 
 
 def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
-                     draws: Optional[PoolDraws],
+                     draws: Union[PoolDraws, PoolPlan, None],
                      drop_masks: Optional[Sequence] = None):
     """The cycle step's forward and backward, without the updates.
 
@@ -158,7 +160,7 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
         entry = {"fakes": torch.stack([fake_a.detach(), fake_b.detach()], 1),
                  "masks": torch.stack([mask_b, mask_a], 1)}
         new_pool, pooled = state.pool, entry
-        if cfg.max_size > 0:
+        if pools(cfg):
             new_pool, pooled = pool_update(state.pool, entry, draws)
         n = real_a.shape[0]
         d_loss = 0.0
@@ -179,26 +181,24 @@ def build_cycle_step_fn(cfg, axis_name: Optional[str] = None):
     -> (state, metrics)``.
 
     batch: both domains, {"real_a", "seg_a", "mask_a", "real_b", "seg_b",
-    "mask_b"} as the sggan step's batch has them for A; ``pool_draws``
-    from ``pool.pool_draws(generator, B, cfg.max_size)`` (unused with
-    ``max_size`` 0); ``drop_masks`` from ``cycle_dropout_masks`` (None
-    for the ResNet or under ``--dropout_mode keras_quirk``).  The nets'
-    parameters and the EMA are updated in place; metrics are device
+    "mask_b"} as the sggan step's batch has them for A; ``lr`` a float or
+    a 0-d f32 tensor on the state's device; ``pool_draws`` from
+    ``pool.pool_draws(generator, B, cfg.max_size)``, or a
+    ``pool.PoolPlan`` of this update (unused with ``max_size`` 0);
+    ``drop_masks`` from ``cycle_dropout_masks`` (None for the ResNet or
+    under ``--dropout_mode keras_quirk``).  Every tensor of the state is
+    updated in place, as the sggan step does it; metrics are device
     scalars."""
     _require_ported(cfg, axis_name)
 
-    def step_fn(state: TrainState, batch, lr: float,
-                pool_draws: Optional[PoolDraws],
+    def step_fn(state: TrainState, batch, lr: Union[float, torch.Tensor],
+                pool_draws: Union[PoolDraws, PoolPlan, None],
                 drop_masks: Optional[Sequence] = None):
         metrics, g_grads, d_grads, pool = losses_and_grads(
             cfg, state, batch, pool_draws, drop_masks)
-        g_opt = adam_update(state.gen_params, state.g_opt, g_grads, lr,
-                            cfg.beta1)
-        d_opt = adam_update(state.disc_params, state.d_opt, d_grads, lr,
-                            cfg.beta1)
-        new_state = state._replace(
-            g_opt=g_opt, d_opt=d_opt, pool=pool, step=state.step + 1,
-            ema=_ema_update(cfg, state.ema, state.gen_params))
-        return new_state, metrics
+        adam_update(state.gen_params, state.g_opt, g_grads, lr, cfg.beta1)
+        adam_update(state.disc_params, state.d_opt, d_grads, lr, cfg.beta1)
+        _ema_update(cfg, state.ema, state.gen_params)
+        return _keep_pool(state, pool)._replace(step=state.step + 1), metrics
 
     return step_fn

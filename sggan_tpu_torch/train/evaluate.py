@@ -30,6 +30,7 @@ from ..data.loader import load_test_triplet, test_files
 from ..data.preprocess import fake_u8, preprocess_test, seg_labels_u8
 from ..metrics.scores import scores, scores_seg_fake
 from ..utils import checkpoint as ckpt
+from ..utils.cuda_graph import ForwardGraphs
 from ..utils.images import imsave, merge, save_images
 from ..utils.summary import SummaryWriter
 from .step import new_generator
@@ -69,29 +70,39 @@ def gen_forward(cfg: Config, gen: torch.nn.Module, x: torch.Tensor,
 @torch.inference_mode()
 def generate(cfg: Config, gen: torch.nn.Module, images01,
              device: torch.device, as_u8: bool = False,
-             gen_bn: Optional[dict] = None) -> np.ndarray:
+             gen_bn: Optional[dict] = None,
+             graphs: Optional[ForwardGraphs] = None) -> np.ndarray:
     """Generator forward on [0, 1]-range NHWC images (a numpy array, or a
     tensor, which stays on the device), honouring the test-time
     input-scale flag (``round(x * 255)`` under ``--test_uint8_input``,
     half to even as numpy rounds) and ``--eval_sharpen``.  Returns the f32
     [-1, 1] output on the host, or with ``as_u8`` its uint8 conversion
     made on the device by ``fake_u8`` (bit-exact to the host
-    ``inverse_transform``, a quarter of the bytes to copy)."""
+    ``inverse_transform``, a quarter of the bytes to copy).
+
+    With ``graphs`` and a CUDA ``device``, the whole of it from the
+    uploaded input to that output runs as one CUDA graph per input shape
+    (``utils.cuda_graph.ForwardGraphs``): the analog of the JAX package's
+    jitted forward (``tr._gen_jit``), captured again when a weight or a
+    batch norm's stats moved to another tensor."""
     if isinstance(images01, torch.Tensor):
         x = images01.to(device=device, dtype=torch.float32)
+    else:
+        x = torch.as_tensor(np.asarray(images01, np.float32)).to(device)
+
+    def forward(x):
         if cfg.test_uint8_input:
             x = torch.round(x * 255.0)
-    else:
-        x = np.asarray(images01, np.float32)
-        if cfg.test_uint8_input:
-            x = np.round(x * 255.0)
-        x = torch.as_tensor(x).to(device)
-    y = gen_forward(cfg, gen, x, gen_bn)
-    if cfg.eval_sharpen != 1.0:
-        y = sharpen(y, cfg.eval_sharpen)
-    if as_u8:
-        y = fake_u8(y)
-    return y.cpu().numpy()
+        y = gen_forward(cfg, gen, x, gen_bn)
+        if cfg.eval_sharpen != 1.0:
+            y = sharpen(y, cfg.eval_sharpen)
+        return fake_u8(y) if as_u8 else y
+
+    if graphs is None or x.device.type != "cuda":
+        return forward(x).cpu().numpy()
+    weights = [*gen.parameters(), *gen.buffers(),
+               *(t for v in (gen_bn or {}).values() for t in v.values())]
+    return graphs(forward, (x,), (id(gen), as_u8), weights).cpu().numpy()
 
 
 def eval_generator(tr) -> torch.nn.Module:
@@ -160,7 +171,7 @@ def test_during_train(tr, epoch: int,
         trips += [trips[-1]] * (chunk - len(paths))
         img, seg = _test_inputs(tr, trips)
         fakes = generate(cfg, gen, img, tr.device, as_u8=True,
-                         gen_bn=tr.state.gen_bn)
+                         gen_bn=tr.state.gen_bn, graphs=tr.fwd_graphs)
         seg_key = (tuple(paths), cfg.image_size)
         seg_np = tr._eval_seg_cache.get(seg_key)
         if seg_np is None:
@@ -205,7 +216,7 @@ def run_test(tr) -> None:
         print("Processing image: " + path)
         img, _ = _test_inputs(tr, [load_test_triplet(path)])
         fake = generate(cfg, gen, img, tr.device, as_u8=True,
-                        gen_bn=tr.state.gen_bn)
+                        gen_bn=tr.state.gen_bn, graphs=tr.fwd_graphs)
         base = os.path.basename(path)
         # the reference saves the real copy through inverse_transform of
         # [0, 1]-range data (model.py:566): reproduced exactly
@@ -229,7 +240,7 @@ def sample_model(tr, epoch: int, idx: int) -> None:
         p, cache_mb=cfg.decode_cache_mb, max_hw=tr.max_src_hw)
         for p in paths])
     fake = generate(cfg, eval_generator(tr), img, tr.device, as_u8=True,
-                    gen_bn=tr.state.gen_bn)
+                    gen_bn=tr.state.gen_bn, graphs=tr.fwd_graphs)
     os.makedirs(cfg.sample_dir, exist_ok=True)
     name = os.path.basename(paths[0]).split(".")[0]
     imsave(fake, [fake.shape[0], 1],

@@ -12,13 +12,18 @@ be reproduced in torch, so a test feeds both packages the same draws.
 Every decision depends only on the draws and the running count, so it is
 made on the host, item by item in the JAX order (``filling``,
 ``write_idx``, ``use_hist``, ``do_write``), and the device does one gather
-per leaf for the output and one for the new buffer: no host sync.
+per leaf for the output and one for the new buffer: no host sync.  A
+CUDA graph of the step cannot copy a new index to the device at each
+replay, so ``plan_steps`` plans K updates at once from K steps' draws
+(the count follows from them) and the step reads each update's rows from
+a buffer on the device (``PoolPlan``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, NamedTuple, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -30,6 +35,15 @@ class PoolState(NamedTuple):
 class PoolDraws(NamedTuple):
     u: torch.Tensor    # (B,) uniforms in [0, 1): history if u > 0.5
     idx: torch.Tensor  # (B,) int64 slots in [0, slots)
+
+
+class PoolPlan(NamedTuple):
+    """One update planned ahead (``plan_steps``): its rows of the table
+    [buffer; items] as int64 tensors on the buffer's device, and the
+    count after it."""
+    out: torch.Tensor  # (B,) the output's rows
+    buf: torch.Tensor  # (slots,) the new buffer's rows
+    count: int
 
 
 def pool_init(max_size: int, item_shapes: Mapping[str, Tuple[int, ...]],
@@ -67,6 +81,20 @@ def _plan(slots: int, count: int, draws: PoolDraws,
     return out, src, count
 
 
+def plan_steps(slots: int, count: int, draws: Sequence[PoolDraws]
+               ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """K updates planned in order from their draws: the output's rows (K,
+    B), the new buffer's rows (K, slots), each update's rows of its own
+    table, and the count after the last."""
+    outs, bufs = [], []
+    for d in draws:
+        out, buf, count = _plan(slots, count, d, len(d.u))
+        outs.append(out)
+        bufs.append(buf)
+    return (np.array(outs, np.int64).reshape(len(draws), -1),
+            np.array(bufs, np.int64).reshape(len(draws), slots), count)
+
+
 def _index(rows: List[int], device: torch.device) -> torch.Tensor:
     t = torch.tensor(rows, dtype=torch.int64)
     if device.type == "cuda":  # pinned, so the copy does not sync the host
@@ -75,15 +103,21 @@ def _index(rows: List[int], device: torch.device) -> torch.Tensor:
 
 
 def pool_update(state: PoolState, items: Mapping[str, torch.Tensor],
-                draws: PoolDraws) -> Tuple[PoolState, Dict[str, torch.Tensor]]:
-    """items: dict of (B, *item_shape) with the buffer's keys.  Returns
-    (new state, output items), both in the buffer's dtype (items are cast
-    on entry)."""
-    first = next(iter(state.buffer.values()))
-    slots, device = first.shape[0], first.device
-    b = next(iter(items.values())).shape[0]
-    out_rows, buf_rows, count = _plan(slots, state.count, draws, b)
-    out_i, buf_i = _index(out_rows, device), _index(buf_rows, device)
+                draws: Union[PoolDraws, PoolPlan]
+                ) -> Tuple[PoolState, Dict[str, torch.Tensor]]:
+    """items: dict of (B, *item_shape) with the buffer's keys; ``draws``
+    this update's draws, or its ``PoolPlan``.  Returns (new state, output
+    items), both new tensors in the buffer's dtype (items are cast on
+    entry); ``state`` is not changed."""
+    if isinstance(draws, PoolPlan):
+        out_i, buf_i, count = draws
+    else:
+        first = next(iter(state.buffer.values()))
+        b = next(iter(items.values())).shape[0]
+        out_rows, buf_rows, count = _plan(first.shape[0], state.count, draws,
+                                          b)
+        out_i = _index(out_rows, first.device)
+        buf_i = _index(buf_rows, first.device)
     new_buf, out = {}, {}
     for k, buf in state.buffer.items():
         table = torch.cat([buf, items[k].to(buf.dtype)])

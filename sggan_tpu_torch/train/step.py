@@ -20,8 +20,8 @@ calls, real then fake, threading the BN state, and the generator loss's
 call runs in inference mode on the pre-step state (``_gen_fwd`` and
 ``_disc_fwd`` of the JAX step); the pix2pix pool holds fakes only.  Not
 ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``--compat_fake_history``, ``--remat`` and data parallelism
-(``axis_name``), in every loss mode.
+item: ``--compat_fake_history``, ``--remat``, ``--pad_free_head`` and data
+parallelism (``axis_name``), in every loss mode.
 
 Adam is optax's ``scale_by_adam`` (betas (beta1, 0.999), eps 1e-7, the
 Keras default, not optax's 1e-8) with the learning rate applied outside the
@@ -29,6 +29,14 @@ update, ``p -= lr * m_hat / (sqrt(v_hat) + eps)``, and one step count per
 optimizer.  Every parameter gets a gradient: the conv biases that feed an
 instance norm are unused (the norm removes them exactly) and get zeros,
 so the Adam state has optax's layout.
+
+The step updates the state in place: the parameters, Adam's moments and
+its count (an int32 tensor on the device, from which the bias corrections
+are computed there), the batch norms' moving stats, the pool's buffer and
+the EMA keep their storage from step to step, and ``lr`` may be a device
+scalar.  So a CUDA graph of the step replays on the same addresses
+(``train/fused.py``).  ``losses_and_grads`` changes nothing: it returns
+the new BN states and pool as new tensors, which the step copies in.
 
 TF32: under ``--compute_dtype float32`` the step runs its convolutions in
 IEEE f32, turning cuDNN's TF32 (on by default in PyTorch) off for the
@@ -48,7 +56,7 @@ The step keeps its losses on the device: it makes no host sync.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,15 +64,16 @@ import torch
 from .. import losses
 from ..models import build
 from ..ops import dropout_masks as _draw_masks
-from .pool import PoolDraws, PoolState, pool_init, pool_update
+from .pool import PoolDraws, PoolPlan, PoolState, pool_init, pool_update
 
 ADAM_EPS = 1e-7
 ADAM_B2 = 0.999
 
 
 class AdamState(NamedTuple):
-    """optax ``ScaleByAdamState``: moments keyed by parameter name."""
-    count: int
+    """optax ``ScaleByAdamState``: moments keyed by parameter name, the
+    step count a 0-d int32 tensor on their device."""
+    count: torch.Tensor
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
 
@@ -102,17 +111,42 @@ def _require_ported(cfg, axis_name=None) -> None:
                 "--compat_fake_history and --dropout_mode)")
     elif cfg.remat:
         todo = "--remat (ROADMAP Queue 1: --remat)"
+    elif cfg.pad_free_head is not None:
+        todo = ("--pad_free_head (ROADMAP Queue 1: the space-to-depth head "
+                "and --pad_free_head)")
     elif axis_name is not None or cfg.mesh_data > 1 or cfg.mesh_space > 1:
         todo = "data and spatial parallelism (ROADMAP Queue 1: parallel)"
     if todo:
         raise NotImplementedError(f"{todo} is not ported yet; pass one "
                                   "of --loss_mode sggan/p2p/simple/cycle "
-                                  "on one device")
+                                  "on one device, without that flag")
 
 
 def adam_init(net: torch.nn.Module) -> AdamState:
     zeros = {k: torch.zeros_like(p) for k, p in net.named_parameters()}
-    return AdamState(0, zeros, {k: z.clone() for k, z in zeros.items()})
+    count = torch.zeros((), dtype=torch.int32,
+                        device=next(iter(zeros.values())).device)
+    return AdamState(count, zeros, {k: z.clone() for k, z in zeros.items()})
+
+
+def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
+    """Every tensor of ``state`` that a step writes, by name: the nets'
+    parameters (``gen.*``, ``disc.*``), their BN moving stats, both Adam
+    states with their counts, the pool's buffers and the EMA."""
+    out = {}
+    for name, net in (("gen", state.gen_params), ("disc", state.disc_params)):
+        out.update((f"{name}.{k}", p) for k, p in net.named_parameters())
+    for name, bn in (("gen_bn", state.gen_bn), ("disc_bn", state.disc_bn)):
+        out.update((f"{name}.{k}.{n}", t) for k, v in bn.items()
+                   for n, t in v.items())
+    for name, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+        out[f"{name}.count"] = opt.count
+        for part in ("mu", "nu"):
+            out.update((f"{name}.{part}.{k}", t)
+                       for k, t in getattr(opt, part).items())
+    out.update((f"pool.{k}", t) for k, t in state.pool.buffer.items())
+    out.update((f"ema.{k}", t) for k, t in (state.ema or {}).items())
+    return out
 
 
 def new_generator(cfg, generator: Optional[torch.Generator] = None):
@@ -167,6 +201,22 @@ def init_state(cfg, generator: torch.Generator,
     return TrainState(gen, gen.init_bn_state(device), disc,
                       disc.init_bn_state(device), adam_init(gen),
                       adam_init(disc), pool, 0, ema)
+
+
+def pools(cfg) -> bool:
+    """Whether the step passes its fakes through the pool: the sggan and
+    cycle modes with ``max_size`` > 0 (the p2p and simple steps judge this
+    step's fakes)."""
+    return cfg.max_size > 0 and cfg.loss_mode in ("sggan", "cycle")
+
+
+def _keep_pool(state: TrainState, pool: PoolState) -> TrainState:
+    """``state`` with the updated ``pool`` copied into its buffers and its
+    count taken (``state`` itself where the step left the pool alone)."""
+    if pool is state.pool:
+        return state
+    _assign(state.pool.buffer, pool.buffer)
+    return state._replace(pool=state.pool._replace(count=pool.count))
 
 
 def deterministic(cfg) -> bool:
@@ -227,13 +277,14 @@ def _disc_fwd(cfg, disc, disc_bn, img, mask_or_tar, cd, train):
 
 
 def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
-                     draws: Optional[PoolDraws],
+                     draws: Union[PoolDraws, PoolPlan, None],
                      drop_masks: Optional[Sequence[torch.Tensor]] = None):
     """The step's forward and backward, without the updates.
 
     Returns ``(metrics, gen grads, disc grads, new pool, (new gen BN
     state, new disc BN state))``; the grads are keyed by parameter name.
-    ``state`` is not changed."""
+    ``draws``: the pool's draws, or its update planned ahead
+    (``pool.plan_steps``).  ``state`` is not changed."""
     cd = _dtype(cfg)
     bn_train = not deterministic(cfg)
     gen, disc = state.gen_params, state.disc_params
@@ -261,7 +312,7 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
         g_grads = _grads(g_loss, gen)
 
         fake_sg, mask_for_d, new_pool = fake.detach(), mask_a, state.pool
-        if cfg.loss_mode == "sggan" and cfg.max_size > 0:
+        if pools(cfg):
             items = {"fake": fake_sg}
             if not p2p_nets:
                 items["mask"] = mask_a
@@ -295,37 +346,51 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
     return metrics, g_grads, d_grads, new_pool, (new_gbn, new_dbn)
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    # 1 - decay ** count in f32, as optax computes it
-    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    # 1 - decay ** count in f32, as optax computes it, on the count's device
+    return 1 - torch.pow(decay, count.float())
 
 
 @torch.no_grad()
 def adam_update(net: torch.nn.Module, opt: AdamState,
-                grads: Dict[str, torch.Tensor], lr: float,
-                beta1: float) -> AdamState:
-    """One optax ``scale_by_adam`` update, then ``p += -lr * update``, in
-    place on ``net``'s parameters; returns the new state.  The order of
-    operations is optax's."""
+                grads: Dict[str, torch.Tensor],
+                lr: Union[float, torch.Tensor], beta1: float) -> AdamState:
+    """One optax ``scale_by_adam`` update, then ``p += -lr * update``, all
+    in place: ``net``'s parameters, ``opt``'s moments and count; returns
+    ``opt``.  ``lr`` is a float or a 0-d f32 tensor on the parameters'
+    device.  The order of operations is optax's."""
     names = list(opt.mu)
     params = dict(net.named_parameters())
     p = [params[k] for k in names]
     g = [grads[k] for k in names]
-    mu = torch._foreach_mul(g, 1 - beta1)
-    torch._foreach_add_(mu, torch._foreach_mul([opt.mu[k] for k in names],
-                                               beta1))
-    nu = torch._foreach_mul(torch._foreach_mul(g, g), 1 - ADAM_B2)
-    torch._foreach_add_(nu, torch._foreach_mul([opt.nu[k] for k in names],
-                                               ADAM_B2))
-    count = opt.count + 1
-    mu_hat = torch._foreach_div(mu, _bias_correction(beta1, count))
+    mu = [opt.mu[k] for k in names]
+    nu = [opt.nu[k] for k in names]
+    torch._foreach_mul_(mu, beta1)
+    torch._foreach_add_(mu, torch._foreach_mul(g, 1 - beta1))
+    torch._foreach_mul_(nu, ADAM_B2)
+    torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g),
+                                               1 - ADAM_B2))
+    opt.count.add_(1)
+    mu_hat = torch._foreach_div(mu, _bias_correction(beta1, opt.count))
     den = torch._foreach_sqrt(torch._foreach_div(
-        nu, _bias_correction(ADAM_B2, count)))
+        nu, _bias_correction(ADAM_B2, opt.count)))
     torch._foreach_add_(den, ADAM_EPS)
     upd = torch._foreach_div(mu_hat, den)
-    torch._foreach_mul_(upd, -float(np.float32(lr)))
+    torch._foreach_mul_(upd, -lr if isinstance(lr, torch.Tensor)
+                        else -float(np.float32(lr)))
     torch._foreach_add_(p, upd)
-    return AdamState(count, dict(zip(names, mu)), dict(zip(names, nu)))
+    return opt
+
+
+@torch.no_grad()
+def _assign(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst``, a tree of the same
+    dicts (BN states, pool buffers), keeping ``dst``'s storage."""
+    for k, t in dst.items():
+        if isinstance(t, dict):
+            _assign(t, src[k])
+        else:
+            t.copy_(src[k])
 
 
 @torch.no_grad()
@@ -348,32 +413,32 @@ def build_step_fn(cfg, axis_name: Optional[str] = None):
 
     batch: {"real_a": (B,H,W,3) [0,1] float, "seg_a": (B,H,W,3),
     "mask_a": (B,hm,wm,n_class) one-hot (unused by the pix2pix nets)};
-    ``pool_draws`` from ``pool.pool_draws(generator, B, cfg.max_size)``
-    (unused, may be None, outside the sggan mode or with ``max_size`` 0);
-    ``drop_masks`` from ``dropout_masks(cfg, state.gen_params, generator,
-    B)`` (None for the ResNet or under ``--dropout_mode keras_quirk``).
-    The nets' parameters and the EMA are updated in place; metrics are
-    device scalars.  Under ``--loss_mode cycle``, the cycle step
+    ``lr`` a float or a 0-d f32 tensor on the state's device;
+    ``pool_draws`` from ``pool.pool_draws(generator, B, cfg.max_size)``,
+    or a ``pool.PoolPlan`` of this update (unused, may be None, outside
+    the sggan mode or with ``max_size`` 0); ``drop_masks`` from
+    ``dropout_masks(cfg, state.gen_params, generator, B)`` (None for the
+    ResNet or under ``--dropout_mode keras_quirk``).  Every tensor of the
+    state is updated in place (``state_tensors``); the returned state
+    holds them, with the new step and pool count.  Metrics are device
+    scalars.  Under ``--loss_mode cycle``, the cycle step
     (``cycle.build_cycle_step_fn``)."""
     if cfg.loss_mode == "cycle":
         from .cycle import build_cycle_step_fn
         return build_cycle_step_fn(cfg, axis_name)
     _require_ported(cfg, axis_name)
 
-    def step_fn(state: TrainState, batch, lr: float,
-                pool_draws: Optional[PoolDraws],
+    def step_fn(state: TrainState, batch, lr: Union[float, torch.Tensor],
+                pool_draws: Union[PoolDraws, PoolPlan, None],
                 drop_masks: Optional[Sequence[torch.Tensor]] = None):
         metrics, g_grads, d_grads, pool, (gen_bn, disc_bn) = \
             losses_and_grads(cfg, state, batch, pool_draws, drop_masks)
-        g_opt = adam_update(state.gen_params, state.g_opt, g_grads, lr,
-                            cfg.beta1)
-        d_opt = adam_update(state.disc_params, state.d_opt, d_grads, lr,
-                            cfg.beta1)
-        new_state = state._replace(
-            gen_bn=gen_bn, disc_bn=disc_bn, g_opt=g_opt, d_opt=d_opt,
-            pool=pool, step=state.step + 1,
-            ema=_ema_update(cfg, state.ema, state.gen_params))
-        return new_state, metrics
+        adam_update(state.gen_params, state.g_opt, g_grads, lr, cfg.beta1)
+        adam_update(state.disc_params, state.d_opt, d_grads, lr, cfg.beta1)
+        _assign(state.gen_bn, gen_bn)
+        _assign(state.disc_bn, disc_bn)
+        _ema_update(cfg, state.ema, state.gen_params)
+        return _keep_pool(state, pool)._replace(step=state.step + 1), metrics
 
     return step_fn
 

@@ -11,10 +11,13 @@ epochs and always the last) with fake PNGs, scores and TensorBoard
 scalars; saves every ``--save_freq`` steps, at the end (in ``finally``)
 and on KeyboardInterrupt (model.py:272-275).
 
-``--scan_steps`` is accepted and runs the JAX package's per-step path,
-which that package documents as numerically identical to its scan chunks
-(fused.py:187-193); its analog on the card, a CUDA graph of the step, is
-ROADMAP Queue 1, item 2.
+``--scan_steps K`` runs the resident split in chunks of K steps, each a
+replay of one CUDA graph of the whole step, as the JAX package's lax.scan
+chunks run it (``train/fused.py``); the graph is captured at the first
+chunk of training, after a ``--continue_train`` load.  ``--scan_steps 1``
+and the host iterator run the eager step, as the JAX package runs its
+per-step path.  The learning rate is a device scalar (``lr``) that each
+epoch writes, so a captured step reads each epoch's.
 
 Randomness: the nets are drawn from ``--data_seed`` (``init_state``); the
 preprocess's draws and the generator's dropout masks come from a generator
@@ -51,6 +54,7 @@ from ..data.loader import (Dataset, DeviceDataset, _load_triplet,
                            train_iterator)
 from ..data.preprocess import make_preprocess_train
 from ..utils import checkpoint as ckpt
+from ..utils.cuda_graph import ForwardGraphs
 from ..utils.profiling import StepTimer, TraceWindow
 from ..utils.summary import SummaryWriter
 from . import evaluate, fused
@@ -81,6 +85,10 @@ class Trainer:
         self.data_gen = torch.Generator(device=self.device).manual_seed(
             cfg.data_seed)
         self.pool_gen = torch.Generator().manual_seed(cfg.data_seed)
+        # the step's learning rate, written each epoch (lr_schedule)
+        self.lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        # the eval's and the service's forward graphs (evaluate.generate)
+        self.fwd_graphs = ForwardGraphs()
         self.preprocess = make_preprocess_train(cfg)
         # host-side source shrink cap before upload (loader._downscale)
         self.max_src_hw = (
@@ -98,7 +106,8 @@ class Trainer:
         """See evaluate.generate; runs the EMA shadow under --gen_ema."""
         return evaluate.generate(self.cfg, evaluate.eval_generator(self),
                                  images01, self.device, as_u8=as_u8,
-                                 gen_bn=self.state.gen_bn)
+                                 gen_bn=self.state.gen_bn,
+                                 graphs=self.fwd_graphs)
 
     def _maybe_device_dataset(self):
         """The training split resident on the device (loader.DeviceDataset)
@@ -153,9 +162,8 @@ class Trainer:
             ts = [t.pin_memory() for t in ts]
         return [t.to(self.device, non_blocking=pinned) for t in ts]
 
-    def _host_epoch(self, epoch: int, lr: float, g_losses: list,
-                    d_losses: list, global_step: int,
-                    start_time: float) -> int:
+    def _host_epoch(self, epoch: int, g_losses: list, d_losses: list,
+                    global_step: int, start_time: float) -> int:
         """One epoch over the host iterator: decoded uint8 batches,
         uploaded, preprocessed on the device, one step each; under
         ``--loss_mode cycle`` trainA's iterator zipped with trainB's, whose
@@ -185,8 +193,8 @@ class Trainer:
                            up, draws if self.cycle else (draws,))]
             batch = fused.two_domain(*batches) if self.cycle \
                 else batches[0]
-            self.state, m = self.step_fn(self.state, batch, lr, pdraws,
-                                         masks)
+            self.state, m = self.step_fn(self.state, batch, self.lr,
+                                         pdraws, masks)
             global_step = fused.end_step(
                 self, epoch, idx, m, up[0][0].shape[0], g_losses, d_losses,
                 global_step, start_time)
@@ -221,20 +229,26 @@ class Trainer:
             else None
         dev_ds = self._maybe_device_dataset()
         make_batch = fused.make_batch_fn(cfg) if dev_ds is not None else None
+        # K steps a chunk through one CUDA graph, captured at the first
+        graph = (fused.StepGraph(self, dev_ds, make_batch)
+                 if dev_ds is not None and cfg.scan_steps > 1 else None)
         try:
             for epoch in range(cfg.epoch):
-                lr = lr_schedule(cfg, epoch)
+                self.lr.fill_(float(np.float32(lr_schedule(cfg, epoch))))
                 g_losses, d_losses = [], []
                 self._timer.reset()
                 self._timer.start()
-                if dev_ds is not None:
+                if graph is not None:
+                    global_step = fused.run_epoch_chunked(
+                        self, epoch, graph, g_losses, d_losses, global_step,
+                        start_time)
+                elif dev_ds is not None:
                     global_step = fused.run_epoch_fused(
-                        self, epoch, lr, dev_ds, make_batch, g_losses,
+                        self, epoch, dev_ds, make_batch, g_losses,
                         d_losses, global_step, start_time)
                 else:
                     global_step = self._host_epoch(
-                        epoch, lr, g_losses, d_losses, global_step,
-                        start_time)
+                        epoch, g_losses, d_losses, global_step, start_time)
 
                 # throughput before eval, synced on the last loss
                 rate = self._timer.read(d_losses[-1]) if d_losses else None

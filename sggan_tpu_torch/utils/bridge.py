@@ -75,7 +75,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
 
 
 def _adam_from_jax(opt, device) -> AdamState:
-    return AdamState(int(np.asarray(opt.count)),
+    return AdamState(torch.tensor(int(np.asarray(opt.count)),
+                                  dtype=torch.int32, device=device),
                      {k: v.to(device) for k, v in
                       params_from_jax(opt.mu).items()},
                      {k: v.to(device) for k, v in
@@ -125,7 +126,8 @@ def train_state_to_jax(state: TrainState) -> dict:
     ``gen_params``, ``gen_bn``, ``disc_params``, ``disc_bn``, and
     ``g_opt``/``d_opt`` with ``count``, ``mu``, ``nu``."""
     def adam(opt: AdamState) -> dict:
-        return {"count": np.int32(opt.count), "mu": params_to_jax(opt.mu),
+        return {"count": np.int32(int(opt.count)),
+                "mu": params_to_jax(opt.mu),
                 "nu": params_to_jax(opt.nu)}
 
     return {"gen_params": params_to_jax(state.gen_params.state_dict()),

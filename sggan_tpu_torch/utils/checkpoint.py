@@ -12,7 +12,7 @@ loaded onto the template's device, so a round trip is exact.
 
 The ``.pt`` suffix keeps these apart from the JAX package's Orbax
 directories ``cp-NNNN`` in the same tree: importing those is ROADMAP
-Queue 1, item 5.
+Queue 1, item 11.
 """
 
 from __future__ import annotations
@@ -51,6 +51,12 @@ def _steps(path: str):
 
 def _adam(opt: AdamState) -> dict:
     return {"count": opt.count, "mu": opt.mu, "nu": opt.nu}
+
+
+def _adam_state(d: dict, device) -> AdamState:
+    # a count saved as a Python int (before it became a tensor) is read too
+    return AdamState(torch.as_tensor(d["count"], dtype=torch.int32,
+                                     device=device), d["mu"], d["nu"])
 
 
 def save(state: TrainState, checkpoint_dir: str, dataset_dir: str,
@@ -116,6 +122,7 @@ def load(template: TrainState, checkpoint_dir: str, dataset_dir: str,
     # checkpoints of the IN nets written before "bn" was saved have none
     return template._replace(
         gen_bn=gen.get("bn", {}), disc_bn=disc.get("bn", {}),
-        g_opt=AdamState(**gen["opt"]), d_opt=AdamState(**disc["opt"]),
+        g_opt=_adam_state(gen["opt"], dev),
+        d_opt=_adam_state(disc["opt"], dev),
         pool=PoolState(tr["pool_buffer"], tr["pool_count"]),
         step=tr["step"], ema=ema)

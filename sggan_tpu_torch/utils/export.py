@@ -14,7 +14,11 @@ node per call, which runs K1 on a CUDA tensor and the plain version on a
 CPU one.  ``load`` imports that module before it reads a program.
 
 A program holds the device it was exported on, and runs there only: an
-input on another device is an error, not a move.
+input on another device is an error, not a move.  On the card an
+``Artifact`` runs its program as one CUDA graph of its input shape,
+captured at its first call (``utils.cuda_graph``): the GraphModule's
+Python dispatches each of its nodes once, at the capture, and a call is
+one replay, as a ``jax.export`` program is one dispatch.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import norm  # noqa: F401  registers the op a program calls
+from .cuda_graph import ForwardGraphs
 
 _META = "sggan_meta.json"
 
@@ -84,8 +89,10 @@ def save(path: str, program: torch.export.ExportedProgram,
 class Artifact:
     """A loaded program: ``artifact(x)`` runs it on ``x`` (a tensor on the
     program's device, or a numpy array, copied there) under inference
-    mode and returns its output on that device.  ``meta`` is what
-    ``save`` stored; ``input_shapes`` the shapes the program takes."""
+    mode, through its CUDA graph on the card, and returns its output on
+    that device, a tensor of its own.  ``meta`` is what ``save`` stored;
+    ``input_shapes`` the shapes the program takes.  Calls are not
+    thread-safe on the card: they share the graph's buffers."""
 
     def __init__(self, program: torch.export.ExportedProgram, meta: dict):
         self.program, self.meta = program, meta
@@ -99,6 +106,7 @@ class Artifact:
         self.device = devices.pop()
         self.input_shapes = [tuple(x.shape) for x in inputs]
         self._module = program.module()
+        self._graphs = ForwardGraphs()
 
     def __call__(self, *args):
         xs = []
@@ -110,7 +118,11 @@ class Artifact:
                                  f"got an input on {x.device}")
             xs.append(x)
         with torch.inference_mode():
-            return self._module(*xs)
+            if self.device.type != "cuda":
+                return self._module(*xs)
+            weights = [*self._module.parameters(), *self._module.buffers()]
+            return self._graphs(self._module, tuple(xs), "program",
+                                weights).clone()
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

@@ -3,8 +3,11 @@ saved moments, backward) and the fused conv3x3 + instance norm kernel
 (both conv routes, and the gradients of its autograd Function) against
 their plain versions, the wrappers' refusals, the generator's CUDA forward
 and the gradients of one train step and of one cycle step against the
-CPU, and a generator exported on the card (one K1 op node per instance
-norm, each launching K1 on its planned route).  Every test needs an NVIDIA GPU and skips without one.
+CPU, a generator exported on the card (one K1 op node per instance
+norm, each launching K1 on its planned route), and the CUDA graphs: the
+trainer's step graph in every loss mode against its eager steps, the
+forward graph against the eager forward, its capture when a weight
+moves.  Every test needs an NVIDIA GPU and skips without one.
 
 Imports torch and numpy only, so it runs where JAX is absent:
 
@@ -521,8 +524,10 @@ def test_device_ms_times_by_events_when_no_trace_holds_the_kernel(
 
 def test_exported_generator_launches_k1_through_the_op(dev, tmp_path):
     """An artifact exported on the card: 23 op nodes, run from the saved
-    file with one K1 call per node on the planned routes, against the
-    eager forward of the same weights and against the CPU artifact."""
+    file through its CUDA graph, whose capture makes one K1 call per node
+    on the planned routes in the warm-up and one in the capture, against
+    the eager forward of the same weights (TF32 off: another graph) and
+    against the CPU artifact."""
     from sggan_tpu_torch.utils import export as gexport
 
     gen = GeneratorResnet(ngf=8, generator=torch.Generator().manual_seed(0))
@@ -539,13 +544,13 @@ def test_exported_generator_launches_k1_through_the_op(dev, tmp_path):
     assert ops.get("sggan_tpu_torch.instance_norm.default") == 23
     routes = dict(cuda_in.route_launches)
     before = cuda_in.launches
-    got = art(x.to(dev))
-    assert cuda_in.launches == before + 23
+    got = art(x.to(dev))  # captures its CUDA graph: a warm-up, a capture
+    assert cuda_in.launches == before + 2 * 23
     want = {}
     for (h, w, c), k in (((64, 64, 8), 2), ((32, 32, 16), 2),
                          ((16, 16, 32), 19)):
         r = cuda_in.plan(1, h, w, c, torch.float32, "fwd").route
-        want[r] = want.get(r, 0) + k
+        want[r] = want.get(r, 0) + 2 * k
     assert {r: cuda_in.route_launches["fwd", r] - routes["fwd", r]
             for r in ("cluster", "stream", "scalar")
             if cuda_in.route_launches["fwd", r] != routes["fwd", r]} == want
@@ -561,3 +566,110 @@ def test_exported_generator_launches_k1_through_the_op(dev, tmp_path):
     torch.testing.assert_close(got.cpu(), cpu_y, rtol=0, atol=1e-3)
     with pytest.raises(ValueError, match="runs on cuda"):
         art(x)
+
+
+GRAPH_SMALL = dict(image_height=32, image_width=32, ngf=4, ndf=4,
+                   segment_class=8, max_size=3, compute_dtype="float32",
+                   save_freq=0, print_freq=1000, data_seed=29, gen_ema=0.5)
+GRAPH_MODES = {
+    "sggan_resnet": dict(batch_size=2, loss_mode="sggan", use_resnet=True),
+    "p2p_unet": dict(batch_size=1, dropout_mode="intended"),
+    "pix2pix": dict(batch_size=1, use_pix2pix=True, dropout_mode="intended"),
+    "cycle_resnet": dict(batch_size=1, loss_mode="cycle", use_resnet=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_step_graph_replays_the_eager_steps(dev, mode, monkeypatch):
+    """--scan_steps on the card: from one snapshot of the state and both
+    generators, 6 eager steps of the trainer's loop and the same 6 as
+    replays of the step's CUDA graph in chunks of 4 (a tail of 2), with
+    cuDNN deterministic: losses and every state tensor bitwise equal, the
+    step and the pool's count equal; the capture trains nothing."""
+    import chip_smoke
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import fused
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = Config(**GRAPH_SMALL, **GRAPH_MODES[mode])
+    tr, ds = chip_smoke.graph_trainer(cfg, dev, 6)
+    snap = chip_smoke.train_snapshot(tr)
+    eager = chip_smoke.loop_epoch(tr, ds, 0)
+    ref = chip_smoke.train_snapshot(tr)
+    chip_smoke.train_restore(tr, snap)
+    tr.cfg = tr.cfg.replace(scan_steps=4)
+    graph = fused.StepGraph(tr, ds, fused.make_batch_fn(tr.cfg))
+    got = chip_smoke.loop_epoch(tr, ds, 0, graph)
+    after = chip_smoke.train_snapshot(tr)
+    assert graph.graph is not None
+    assert torch.equal(got, eager)
+    assert chip_smoke.differing(ref[0], after[0]) == []
+    assert after[1:3] == ref[1:3]
+
+
+def test_forward_graph_equals_eager_and_replays_without_the_wrapper(dev):
+    """evaluate.generate through ForwardGraphs: the first call captures
+    (K1's 23 calls twice: the warm-up and the capture), a second replays
+    (none), both bitwise the eager forward's; another batch size is
+    another graph."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import evaluate
+    from sggan_tpu_torch.utils.cuda_graph import ForwardGraphs
+
+    cfg = Config(use_resnet=True, image_height=32, image_width=32, ngf=8,
+                 compute_dtype="float32")
+    gen = evaluate.build_generator(cfg).to(dev)
+    graphs = ForwardGraphs()
+    for b in (2, 1):
+        x = torch.rand(b, 32, 32, 3, device=dev)
+        eager = evaluate.generate(cfg, gen, x, dev)
+        before = cuda_in.launches
+        first = evaluate.generate(cfg, gen, x, dev, graphs=graphs)
+        assert cuda_in.launches == before + 2 * 23
+        again = evaluate.generate(cfg, gen, x, dev, graphs=graphs)
+        assert cuda_in.launches == before + 2 * 23
+        np.testing.assert_array_equal(first, eager)
+        np.testing.assert_array_equal(again, eager)
+    assert len(graphs) == 2
+
+
+def test_forward_graph_never_runs_stale_weights(dev):
+    """A parameter updated in place is read by the next replay; one
+    replaced by a new tensor (as a load that swaps a Parameter) makes the
+    next call capture again, on the new weights; so do new batch norm
+    stats (a loaded checkpoint's) under pix2pix."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import evaluate
+    from sggan_tpu_torch.utils.cuda_graph import ForwardGraphs
+
+    cfg = Config(use_resnet=True, image_height=32, image_width=32, ngf=8,
+                 compute_dtype="float32")
+    gen = evaluate.build_generator(cfg).to(dev)
+    graphs = ForwardGraphs()
+    x = torch.rand(1, 32, 32, 3, device=dev)
+    old = evaluate.generate(cfg, gen, x, dev, graphs=graphs)
+    with torch.no_grad():
+        gen.c1["w"].mul_(0.5)
+    inplace = evaluate.generate(cfg, gen, x, dev, graphs=graphs)
+    np.testing.assert_array_equal(inplace, evaluate.generate(cfg, gen, x,
+                                                             dev))
+    assert not np.array_equal(inplace, old)
+    before = cuda_in.launches
+    gen.c1["w"] = torch.nn.Parameter(gen.c1["w"].detach() * 2.0)
+    swapped = evaluate.generate(cfg, gen, x, dev, graphs=graphs)
+    assert cuda_in.launches == before + 2 * 23  # captured again
+    np.testing.assert_array_equal(swapped, evaluate.generate(cfg, gen, x,
+                                                             dev))
+    assert not np.array_equal(swapped, inplace) and len(graphs) == 1
+
+    p2p = Config(use_pix2pix=True, image_height=32, image_width=32, ngf=4,
+                 compute_dtype="float32")
+    gen = evaluate.build_generator(p2p).to(dev)
+    bn = gen.init_bn_state(dev)
+    y0 = evaluate.generate(p2p, gen, x, dev, gen_bn=bn, graphs=graphs)
+    moved = {k: {"moving_mean": v["moving_mean"] + 0.5,
+                 "moving_var": v["moving_var"] * 2.0} for k, v in bn.items()}
+    y1 = evaluate.generate(p2p, gen, x, dev, gen_bn=moved, graphs=graphs)
+    np.testing.assert_array_equal(y1, evaluate.generate(p2p, gen, x, dev,
+                                                        gen_bn=moved))
+    assert not np.array_equal(y0, y1)
