@@ -195,12 +195,41 @@ Phases, each of which raises on failure:
      forward graphs of ``evaluate.generate``, the ResNet at 256x512 and
      the U-Net at 128x128, bf16, b=1 and 16: bitwise equal to the eager
      forward, K1's calls only at the capture, a replay's kernels
-     profiled, ms a call beside eager's.  In a fresh process: late in a
-     long one the profiler drops kernels from short traces.
+     profiled, ms a call beside eager's.  The ResNet sggan cell also
+     under ``--remat``: its graph holds the backward's recompute, K1's
+     calls at the capture 55 + 37.  In a fresh process: late in a long
+     one the profiler drops kernels from short traces;
+  30. the reflect layers, in a fresh process with 31 and 32: the reflect
+     pad's ``autograd.Function`` (the strip-add adjoint) and both forms
+     of the reflect conv, the pad-free Function and the gather + VALID
+     conv, against their plain twins (the gather with autograd's index
+     adjoint) at c1 (16,256,512,3 -> 64, k7) and a resblock conv
+     (16,64,128,256 -> 256, k3), f32 (TF32 off: 1e-5 of each tensor's
+     largest) and bf16 (phase 13's limits): value, dx, dw; each form's
+     forward + backward by CUDA events; the profiler's reflect pads in
+     one ResNet sggan step at b=16 and one cycle step at b=8, the
+     parent's forms beside the path's;
+  31. the head, 7x7 64 -> 3 at (8 and 16, 256, 512), bf16, forward +
+     backward: cuDNN's conv (after the pad, and pad-free) beside the
+     space-to-depth forms at ``best_block``'s (8, 4), (4, 4), (4, 8) and
+     (2, 2), each against the plain twin; the table, the fastest and
+     ``s2d.head_block``'s choice; the generator with ``pad_free_head``
+     true, false and by default, f32 card vs CPU at 256x512 (phase 4's
+     limit);
+  32. ``--remat`` (main path): the ResNet sggan step (256x512 b=16), the
+     p2p U-Net step (128x128 b=2, masks fed) and the ResNet cycle step
+     (256x512 b=8) with and without it from one state, cuDNN
+     deterministic: losses and every gradient bitwise equal; K1's exact
+     calls (the forward's rise by the recomputed norms: 55, 42 and 274,
+     the backward's stay 37, 27 and 166) on the planned routes; peak
+     memory and ms each way; then the largest batch that fits for the
+     ResNet sggan step at 2048x1024 and the cycle step at 512x1024, with
+     and without it (doubling, then bisecting, at most 8 probes).
 
 Prints a JSON line of the trainer's and the preprocess's rates, one of
 the default nets' numbers, one of the cycle mode's, one of the inference
-cell's, one of the CUDA graphs', a JSON line of the kernels, then as the
+cell's, one of the CUDA graphs', one of phases 30-32, a JSON line of the
+kernels, then as the
 last line ``{"ok":
 true, "device": {...}}``.  Exits non-zero, printing neither,
 when no CUDA device is visible or any phase fails.
@@ -2400,11 +2429,17 @@ def cycle_cli_phase(card: str, dev, work: str, root: str) -> dict:
           f"{[round(r, 2) for r in rates]} (StepTimer), sustained (epochs "
           f">= 1) {sustained:.2f} pairs/s, whole run {wall_rate:.2f} pairs/s")
 
+    def test(direction_dir):
+        direction, tdir = direction_dir
+        return run_cli(run_dir, f"test {direction}",
+                       ["--phase", "test", "--which_direction", direction,
+                        "--test_dir", tdir, *args])
+
     pngs = {}
-    for direction, tdir in (("AtoB", "test"), ("BtoA", "test_btoa")):
-        out, _ = run_cli(run_dir, f"test {direction}",
-                         ["--phase", "test", "--which_direction", direction,
-                          "--test_dir", tdir, *args])
+    dirs = (("AtoB", "test"), ("BtoA", "test_btoa"))
+    with ThreadPoolExecutor(len(dirs)) as pool:  # side by side: both read
+        tested = list(pool.map(test, dirs))
+    for (direction, tdir), (out, _) in zip(dirs, tested):
         d = os.path.join(run_dir, tdir)
         need(" [*] Load SUCCESS" in out
              and all(os.path.isfile(os.path.join(d, f"real_s{i:04d}.png"))
@@ -2972,18 +3007,23 @@ class Resident:
 
 def graph_cases() -> dict:
     """label -> (config, K1 sites of one step) of phase 29's step cells:
-    the ResNet sggan step at 256x512 b=8 doubled to 16; the default p2p
-    U-Net at 128x128 b=1 doubled to 2, dropout on; the pix2pix pair there
-    with batch norm; the ResNet cycle step at 256x512 b=4 doubled to 8.
-    bf16, pool 50, 34 classes, no saves, one print an epoch."""
+    the ResNet sggan step at 256x512 b=8 doubled to 16, and the same under
+    ``--remat`` (whose forward sites are its own: each resblock's two
+    norms again); the default p2p U-Net at 128x128 b=1 doubled to 2,
+    dropout on; the pix2pix pair there with batch norm; the ResNet cycle
+    step at 256x512 b=4 doubled to 8.  bf16, pool 50, 34 classes, no
+    saves, one print an epoch."""
     from sggan_tpu_torch.config import Config
     quiet = dict(save_freq=0, print_freq=1000, data_seed=29)
+    sggan = Config(image_height=H, image_width=W, ngf=NGF, ndf=64,
+                   segment_class=N_CLASS, batch_size=B_TRAIN // 2,
+                   loss_mode="sggan", use_resnet=True, **quiet)
+    again = [(B_TRAIN, (H // 4, W // 4, 4 * NGF), act, 9)
+             for act in ("relu", None)]
     return {
-        "sggan_resnet_b16": (Config(
-            image_height=H, image_width=W, ngf=NGF, ndf=64,
-            segment_class=N_CLASS, batch_size=B_TRAIN // 2,
-            loss_mode="sggan", use_resnet=True, **quiet),
-            step_sites(B_TRAIN)),
+        "sggan_resnet_b16": (sggan, step_sites(B_TRAIN)),
+        "sggan_resnet_b16_remat": (sggan.replace(remat=True), {
+            "fwd": step_sites(B_TRAIN) + again, "bwd": step_sites(B_TRAIN)}),
         "p2p_unet_b2": (Config(**quiet), unet_step_sites(UNET_B, 128, 128)),
         "pix2pix_b2": (Config(use_pix2pix=True, **quiet), []),
         "cycle_resnet_b8": (cycle_cfg(CYCLE_B // 2).replace(**quiet),
@@ -3042,27 +3082,30 @@ def loop_epoch(tr, ds, epoch: int, graph=None) -> torch.Tensor:
     return torch.stack([torch.stack(gl), torch.stack(dl)], 1)
 
 
-def k1_window(fn, n_runs: int, want: dict, tries: int = 3) -> dict:
+def k1_window(fn, n_runs: int, want: dict, tries: int = 6) -> dict:
     """``k1_kernel_calls`` of a profiler window over ``fn()``, which runs
     ``n_runs`` times what the counts are per.  The window is padded by a
     pause at each end, since the profiler drops a kernel whose converted
     time falls outside it; and a trace may drop an event all the same
     (``perf_in.device_ms``), so a window that does not hold ``want`` is
-    taken again, up to ``tries`` windows, each said.  Returns the last
-    window's counts."""
+    taken again with a pause twice as long, up to ``tries`` windows, each
+    said on stdout and stderr.  Returns the last window's counts."""
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(tries):
+        pad = 0.05 * 2 ** attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)
+            time.sleep(pad)
             fn()
             torch.cuda.synchronize()
-            time.sleep(0.05)
+            time.sleep(pad)
         got = k1_kernel_calls(prof, n_runs)
         if got == want:
             break
-        print(f"  profiler: window {attempt + 1} holds K1's kernels for "
-              f"{got}, not {want}")
+        for f in (sys.stdout, sys.stderr):
+            print(f"  profiler: window {attempt + 1} (padded by {pad:.2f} s)"
+                  f" holds K1's kernels for {got}, not {want}", file=f,
+                  flush=True)
     return got
 
 
@@ -3102,7 +3145,8 @@ def step_graph_gate(card: str, label: str, tr, ds, sites) -> dict:
     snap = train_snapshot(tr)
     eager = loop_epoch(tr, ds, 0).cpu()
     ref = train_snapshot(tr)
-    want = {d: planned(sites, d) for d in ("fwd", "bwd")}
+    want = {d: planned(sites[d] if isinstance(sites, dict) else sites, d)
+            for d in ("fwd", "bwd")}
     res = {"eager_losses": eager.tolist()}
     for k in GRAPH_CHUNKS:
         train_restore(tr, snap)
@@ -3258,23 +3302,28 @@ def forward_graph_gate(card: str, dev) -> dict:
     return out
 
 
-GRAPHS_CHILD = ("import json, sys, torch, chip_smoke; print(json.dumps("
-                "chip_smoke.graphs_phase(sys.argv[1], torch.device('cuda'))))")
+FRESH_CHILD = ("import json, sys, torch, chip_smoke; print(json.dumps("
+               "getattr(chip_smoke, sys.argv[1])(sys.argv[2], "
+               "torch.device('cuda'))))")
 
 
-def graphs_phase_fresh(card: str) -> dict:
-    """``graphs_phase`` in a fresh process, its output shown: late in a
-    long process the profiler drops kernels from short traces (PERF.md
-    section 7), and this phase counts K1's kernels in its traces."""
-    proc = subprocess.run([sys.executable, "-c", GRAPHS_CHILD, card],
+def run_fresh(card: str, fn: str, timeout: int) -> dict:
+    """``chip_smoke.<fn>(card, device)`` in a fresh process, its output
+    shown and its last line's JSON returned: late in a long process the
+    profiler drops kernels from short traces (PERF.md section 7), which
+    phase 29 counts, and phase 32 needs the card's memory to itself."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_CHILD, fn, card],
                           cwd=REPO, env=repo_env(), capture_output=True,
-                          text=True, timeout=900)
+                          text=True, timeout=timeout)
     lines = proc.stdout.strip().splitlines()
     for ln in lines[:-1]:
         print(ln)
+    print(f"  {fn} in a fresh process: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     if proc.returncode:
         print(proc.stderr[-4000:], file=sys.stderr)
-        raise AssertionError("phase 29 failed")
+        raise AssertionError(f"{fn} failed")
     return json.loads(lines[-1])
 
 
@@ -3282,7 +3331,9 @@ def graphs_phase(card: str, dev) -> dict:
     """Phase 29: ``--scan_steps`` and the fixed-shape forward as CUDA
     graphs: each step cell's gate (``step_graph_gate``) and its loop
     eager beside the graph (``loop_timing``), the cycle step also at b=2
-    and 4; then the forward graphs (``forward_graph_gate``)."""
+    and 4.  The forward graphs (``forward_graph_gate``) run after it in a
+    process of their own, so that their profiler windows come early in a
+    process."""
     out = {"steps": {}, "timing": {}}
     for label, (cfg, sites) in graph_cases().items():
         tr, ds = graph_trainer(cfg, dev, GRAPH_STEPS)
@@ -3302,7 +3353,607 @@ def graphs_phase(card: str, dev) -> dict:
         out["timing"][label] = loop_timing(card, label, tr, ds)
         del tr, ds
         torch.cuda.empty_cache()
-    out["forward"] = forward_graph_gate(card, dev)
+    return out
+
+
+# ----------------------------------------------------------------------
+# The generator's layer forms and --remat (phases 30-32)
+# ----------------------------------------------------------------------
+
+# (label, (N, H, W, Cin), Cout, k) of the ResNet's reflect convs: c1, and
+# a resblock conv (the other 17 alike)
+REFLECT_SITES = [("c1", (B_TRAIN, H, W, 3), NGF, 7),
+                 ("resblock", (B_TRAIN, H // 4, W // 4, 4 * NGF), 4 * NGF,
+                  3)]
+REFLECT_ITERS = 10
+# phase 31: the 7x7 64 -> 3 head at best_block's (8, 4) and these
+HEAD_BLOCKS = [(8, 4), (4, 4), (4, 8), (2, 2)]
+HEAD_BATCHES = (8, 16)
+HEAD_ITERS = 10
+# phase 32's largest-batch search: at most this many probes a search
+MAX_PROBES = 8
+
+
+def held_to(name: str, got, ref, dtype) -> dict:
+    """One tensor of a form against its plain twin's: in f32 within 1e-5
+    of the twin's largest element; in bf16 at phase 13's limits: a value
+    within two ulps of the largest's binade, a gradient STEP_NORM_REL in
+    norm and STEP_MAX_REL of its largest pointwise."""
+    d = got.float() - ref.float()
+    scale = ref.float().abs().max().item()
+    err = d.abs().max().item()
+    norm = (d.norm() / ref.float().norm()).item()
+    if dtype == torch.float32:
+        ok = err <= 1e-5 * scale
+    elif name == "y":
+        ok = err <= 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    else:
+        ok = norm <= STEP_NORM_REL and err <= STEP_MAX_REL * scale
+    return {"max_abs": err, "scale": scale, "norm_rel": norm, "ok": ok}
+
+
+def conv_grads(f, x, w, dy, cd, need_dx: bool = True) -> tuple:
+    """(y, dx or None, dw) of ``f({"w": w}, x, cd, bias=False)``, the
+    backward fed ``dy``."""
+    xl = x.detach().requires_grad_(need_dx)
+    wl = w.detach().requires_grad_(True)
+    y = f({"w": wl}, xl, cd, bias=False)
+    gs = torch.autograd.grad(y, (xl, wl) if need_dx else (wl,), dy)
+    return (y.detach(), *gs) if need_dx else (y.detach(), None, gs[0])
+
+
+class net_forms:
+    """Inside: the ResNet generator with ``conv`` as its reflect conv and,
+    with ``block``, its head at that block (a (1, 1) head is that conv
+    too); the parent's forms are ``conv2d_reflect_ref`` at (1, 1)."""
+
+    def __init__(self, conv, block=None):
+        self.conv, self.block = conv, block
+
+    def __enter__(self):
+        from sggan_tpu_torch.models import generator_resnet as gr
+        from sggan_tpu_torch.ops import s2d
+        self.saved = (gr.conv2d_reflect, s2d.head_block)
+        gr.conv2d_reflect = self.conv
+        if self.block is not None:
+            s2d.head_block = lambda k, cout, h, w: self.block
+
+    def __exit__(self, *exc):
+        from sggan_tpu_torch.models import generator_resnet as gr
+        from sggan_tpu_torch.ops import s2d
+        gr.conv2d_reflect, s2d.head_block = self.saved
+
+
+def kernel_listing(fn, iters: int) -> list:
+    """``kernel_times`` of a profiler window of ``iters`` calls of ``fn``
+    after a warm-up: (device ms a call, launches a call, name)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_times(prof, iters)
+
+
+def busy_ms(fn, iters: int) -> float:
+    """Device ms of one call of ``fn``: all kernels' time in a profiler
+    window of ``iters`` calls after a warm-up, over ``iters``.  A window
+    that holds no kernel is taken again (``perf_in.device_ms``), up to
+    three; the window is padded by a pause at each end."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        ms = sum(k[0] for k in kernel_times(prof, iters))
+        if ms > 0:
+            return ms
+    raise AssertionError("three profiler windows held no kernel")
+
+
+def category_ms(prof, n_runs: int, categories) -> dict:
+    """(device ms, launches) per run of each category of a trace (the
+    first category a kernel's name matches, as ``print_breakdown``), and
+    of all kernels under "busy"."""
+    kern = kernel_times(prof, n_runs)
+    out = {"busy": (sum(k[0] for k in kern), sum(k[1] for k in kern))}
+    for cat, keys in categories:
+        mine = [k for k in kern if any(t in k[2] for t in keys)]
+        kern = [k for k in kern if k not in mine]
+        out[cat] = (sum(k[0] for k in mine), sum(k[1] for k in mine))
+    return out
+
+
+def step_profile(cfg, b: int, dev, n_runs: int = 2) -> dict:
+    """``category_ms`` of ``n_runs`` steps of ``cfg`` at batch ``b``, after
+    one that warms up, from a fresh state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sggan_tpu_torch.train import pool as tpool
+    from sggan_tpu_torch.train import step as tstep
+    cfg = cfg.replace(batch_size=b)
+    holder = [tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)]
+    make = cycle_batch if cfg.loss_mode == "cycle" else train_batch
+    batch = make(cfg, b, dev, seed=5)
+    step_fn = tstep.build_step_fn(cfg)
+    draw_gen = torch.Generator().manual_seed(6)
+
+    def one():
+        holder[0] = step_fn(holder[0], batch, 1e-3, tpool.pool_draws(
+            draw_gen, b, cfg.max_size))[0]
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_runs):
+            one()
+        torch.cuda.synchronize()
+    out = category_ms(prof, n_runs, STEP_CATEGORIES)
+    del holder, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def reflect_phase(card: str, dev) -> dict:
+    """Phase 30.  The reflect pad's Function against its plain twin (the
+    gather, autograd's index adjoint), and both forms of the reflect conv
+    (the pad-free Function; the gather + VALID conv) against theirs
+    (``conv2d_reflect_ref``), at c1 and a resblock conv, f32 (TF32 off,
+    as the caller leaves it) and bf16: value, dx, dw; each form's forward
+    + backward timed by CUDA events; then the profiler's reflect pads in
+    one ResNet sggan step at b=16 and one cycle step at b=8, in the
+    parent's forms and in the path's."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.ops import layers as tl
+    forms = {"pad_free": tl.conv2d_reflect_pad_free,
+             "gather": tl.conv2d_reflect_gather,
+             "plain": tl.conv2d_reflect_ref}
+    path = next(k for k, f in forms.items() if f is tl.conv2d_reflect)
+    out = {"path_form": path, "sites": {}}
+    for label, shape, cout, k in REFLECT_SITES:
+        p = k // 2
+        need_dx = label != "c1"  # c1 reads the image: no dx in the net
+        for cd in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(30)
+            x = torch.randn(shape, generator=g, device=dev).to(cd)
+            w = torch.randn(cout, shape[3], k, k, generator=g, device=dev) \
+                / math.sqrt(shape[3] * k * k)
+            dy = torch.randn(*shape[:3], cout, generator=g,
+                             device=dev).to(cd)
+            dyp = torch.randn(shape[0], shape[1] + 2 * p, shape[2] + 2 * p,
+                              shape[3], generator=g, device=dev).to(cd)
+
+            def pad_grads(f):
+                xl = x.detach().requires_grad_(True)
+                y = f(xl, p)
+                return y.detach(), torch.autograd.grad(y, xl, dyp)[0]
+            (yp, dxp), (yr, dxr) = (pad_grads(tl.reflect_pad),
+                                    pad_grads(tl.reflect_pad_ref))
+            pad_dx = held_to("dx", dxp, dxr, cd)
+            need(torch.equal(yp, yr) and pad_dx["ok"],
+                 f"{label} {cd}: the reflect pad's Function disagrees with "
+                 f"its plain twin: dx {pad_dx}")
+            ref = conv_grads(tl.conv2d_reflect_ref, x, w, dy, cd)
+            row = {"pad_dx": pad_dx}
+            for name in ("pad_free", "gather"):
+                got = conv_grads(forms[name], x, w, dy, cd)
+                row[name] = {t: held_to(t, a, b, cd) for t, a, b in
+                             zip(("y", "dx", "dw"), got, ref)}
+                need(all(v["ok"] for v in row[name].values()),
+                     f"{label} {cd}: {name} disagrees with the plain "
+                     f"twin: {row[name]}")
+            del ref, got, yp, yr, dxp, dxr
+            ms = {name: cuda_ms(lambda f=f: conv_grads(f, x, w, dy, cd,
+                                                       need_dx),
+                                REFLECT_ITERS, warmup=3)
+                  for name, f in forms.items()}
+            ms.update({f"dev_{name}": busy_ms(
+                lambda f=f: conv_grads(f, x, w, dy, cd, need_dx),
+                REFLECT_ITERS) for name, f in forms.items()})
+            with torch.no_grad():  # the forward alone, as serving runs it
+                ms.update({f"fwd_{name}": cuda_ms(
+                    lambda f=f: f({"w": w}, x, cd, bias=False),
+                    REFLECT_ITERS, warmup=3) for name, f in forms.items()})
+            ms.update({f"pad_{name}": cuda_ms(lambda f=f: pad_grads(f),
+                                              REFLECT_ITERS, warmup=3)
+                       for name, f in (("function", tl.reflect_pad),
+                                       ("plain", tl.reflect_pad_ref))})
+            row["ms"] = ms
+            key = f"{label} {str(cd)[6:]}"
+            out["sites"][key] = row
+            print(f"  [{card}] {key} {tuple(shape)} -> {cout}, k{k}: "
+                  + "; ".join(f"{n} y/dx/dw max abs "
+                              + "/".join(f"{row[n][t]['max_abs']:.3g}"
+                                         for t in ("y", "dx", "dw"))
+                              for n in ("pad_free", "gather"))
+                  + f"; the pad's dx {pad_dx['max_abs']:.3g}")
+            print(f"  [{card}] {key} forward + backward"
+                  f"{'' if need_dx else ' (dw only, as in the net)'}: "
+                  f"pad-free {ms['pad_free']:.3f} ms, gather + VALID "
+                  f"{ms['gather']:.3f} ms, plain twin {ms['plain']:.3f} "
+                  f"ms; device {ms['dev_pad_free']:.3f} / "
+                  f"{ms['dev_gather']:.3f} / {ms['dev_plain']:.3f} ms; "
+                  f"forward alone {ms['fwd_pad_free']:.3f} / "
+                  f"{ms['fwd_gather']:.3f} / {ms['fwd_plain']:.3f} ms; "
+                  f"the pad alone with its dx: Function "
+                  f"{ms['pad_function']:.3f} ms, plain "
+                  f"{ms['pad_plain']:.3f} ms")
+            del x, dy, dyp
+            torch.cuda.empty_cache()
+    faster = {key: {by: min(("pad_free", "gather"),
+                            key=lambda n: r["ms"][pre + n])
+                    for by, pre in (("events", ""), ("device", "dev_"))}
+              for key, r in out["sites"].items()}
+    print(f"  the faster form by site, by events and by device time: "
+          f"{faster}")
+    out["faster"] = faster
+    base = Config(image_height=H, image_width=W, ngf=NGF, ndf=64,
+                  segment_class=N_CLASS, max_size=50,
+                  compute_dtype="bfloat16", loss_mode="sggan",
+                  use_resnet=True)
+    cat = "reflect pads and their adjoints"
+    out["steps"] = {}
+    # the step in the parent's forms, then in each form of the reflect
+    # conv on the path's head: device time by category
+    variants = {"parent": (tl.conv2d_reflect_ref, (1, 1)),
+                "gather": (tl.conv2d_reflect_gather, None),
+                "pad_free": (tl.conv2d_reflect_pad_free, None)}
+    for label, cfg, b in (("sggan_resnet_b16", base, B_TRAIN),
+                          ("cycle_resnet_b8", cycle_cfg(CYCLE_B), CYCLE_B)):
+        res = {}
+        for name, (conv, block) in variants.items():
+            with net_forms(conv, block):
+                res[name] = step_profile(cfg, b, dev)
+        out["steps"][label] = res
+        print(f"  [{card}] {label}, profiler over 2 steps, ms (launches) a "
+              "step: " + "; ".join(
+                  f"{name}: {cat} {r[cat][0]:.3f} ({r[cat][1]}), "
+                  f"convolutions {r['convolutions'][0]:.3f}, copies and "
+                  f"casts {r['copies and casts'][0]:.3f}, busy "
+                  f"{r['busy'][0]:.3f}" for name, r in res.items()))
+    busy = {name: sum(out["steps"][k][name]["busy"][0]
+                      for k in out["steps"]) for name in variants}
+    out["faster_in_steps"] = min(("gather", "pad_free"), key=busy.get)
+    print(f"  the steps' busy summed: {busy}; faster in the steps: "
+          f"{out['faster_in_steps']}; the path's conv2d_reflect is {path}")
+    return out
+
+
+def head_phase(card: str, dev) -> dict:
+    """Phase 31.  The 7x7 64 -> 3 head at (8 and 16, 256, 512), bf16,
+    forward + backward (dx and dw): cuDNN's plain conv after the reflect
+    pad or pad-free (``conv2d_reflect``), beside ``conv2d_valid_s2d``
+    after the pad and ``conv2d_reflect_s2d`` at ``best_block``'s and the
+    other HEAD_BLOCKS, each held to the plain twin; the table; then the
+    generator with ``pad_free_head`` true, false and by default, f32 card
+    against the CPU at 256x512."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.models.generator_resnet import GeneratorResnet
+    from sggan_tpu_torch.ops import layers as tl
+    from sggan_tpu_torch.ops import s2d
+    from sggan_tpu_torch.train.step import pad_free_head
+    best = s2d.best_block(7, 3, H, W)
+    blocks = [best] + [r for r in HEAD_BLOCKS if r != best]
+
+    def forms():
+        yield "(1, 1) pad + conv", lambda p, x, cd, bias: tl.conv2d(
+            p, tl.reflect_pad(x, 3), 1, "VALID", cd)
+        yield "(1, 1) conv2d_reflect", lambda p, x, cd, bias: \
+            tl.conv2d_reflect(p, x, cd)
+        for r in blocks:
+            yield f"{r} pad + conv2d_valid_s2d", \
+                lambda p, x, cd, bias, r=r: s2d.conv2d_valid_s2d(
+                    p, tl.reflect_pad(x, 3), r, cd)
+            yield f"{r} conv2d_reflect_s2d", \
+                lambda p, x, cd, bias, r=r: s2d.conv2d_reflect_s2d(
+                    p, x, r, cd)
+
+    cd = torch.bfloat16
+    table, device = {}, {}
+    rule = s2d.head_block(7, 3, H, W)
+    # the path's two heads at its block, kernel by kernel
+    listed = {f"{rule} pad + conv2d_valid_s2d": None,
+              f"{rule} conv2d_reflect_s2d": None}
+    for n in HEAD_BATCHES:
+        g = torch.Generator(device=dev).manual_seed(31)
+        x = torch.randn(n, H, W, NGF, generator=g, device=dev).to(cd)
+        w = torch.randn(3, NGF, 7, 7, generator=g, device=dev) \
+            / math.sqrt(NGF * 49)
+        dy = torch.randn(n, H, W, 3, generator=g, device=dev).to(cd)
+        ref = conv_grads(tl.conv2d_reflect_ref, x, w, dy, cd)
+        for name, f in forms():
+            got = conv_grads(f, x, w, dy, cd)
+            held = {t: held_to(t, a, b, cd)
+                    for t, a, b in zip(("y", "dx", "dw"), got, ref)}
+            need(all(v["ok"] for v in held.values()),
+                 f"head {name} b={n} disagrees with the plain twin: {held}")
+            table.setdefault(name, {})[n] = cuda_ms(
+                lambda f=f: conv_grads(f, x, w, dy, cd), HEAD_ITERS,
+                warmup=3)
+            if n == HEAD_BATCHES[-1] and name in listed:
+                listed[name] = kernel_listing(
+                    lambda f=f: conv_grads(f, x, w, dy, cd), 3)
+            device.setdefault(name, {})[n] = busy_ms(
+                lambda f=f: conv_grads(f, x, w, dy, cd), HEAD_ITERS)
+        del x, dy, ref, got
+        torch.cuda.empty_cache()
+    print(f"  [{card}] the head, 7x7 64 -> 3 at 256x512 bf16, forward + "
+          f"backward (dx, dw), ms a call over {HEAD_ITERS}: CUDA events | "
+          "device (profiler)")
+    for name, row in table.items():
+        print(f"    {name:34s} " + "  ".join(
+            f"b={n}: {ms:8.3f} | {device[name][n]:8.3f}"
+            for n, ms in row.items()))
+    n = HEAD_BATCHES[-1]
+    for name, rows in listed.items():
+        print(f"  [{card}] {name} at b={n}, device ms a call by kernel:")
+        for ms, cnt, kname in rows[:10]:
+            print(f"      {ms:8.4f} ms  x{cnt:<3d} {kname[:90]}")
+    fastest = {"events": min(table, key=lambda k: table[k][n]),
+               "device": min(device, key=lambda k: device[k][n])}
+    print(f"  fastest at b={n}: {fastest}; best_block (the TPU's cost "
+          f"model) {best}; head_block, the path's rule, {rule}")
+    out = {"events": {k: {str(n): v for n, v in r.items()}
+                      for k, r in table.items()},
+           "device": {k: {str(n): v for n, v in r.items()}
+                      for k, r in device.items()},
+           "fastest": fastest, "best_block": list(best),
+           "head_block": list(rule)}
+    # the generator's three head settings, f32 card vs CPU (phase 4's)
+    gen = GeneratorResnet(ngf=NGF, generator=torch.Generator().manual_seed(0))
+    gx = torch.Generator().manual_seed(1)
+    x_cpu = torch.round(torch.rand(1, H, W, 3, generator=gx) * 255.0)
+    default = pad_free_head(Config(use_resnet=True))
+    errs = {}
+    with torch.inference_mode():
+        refs = {v: gen(x_cpu, {}, torch.float32, pad_free_head=v)[0]
+                for v in (True, False)}
+        gen = gen.to(dev)
+        for name, v in (("true", True), ("false", False),
+                        ("default", default)):
+            got = gen(x_cpu.to(dev), {}, torch.float32,
+                      pad_free_head=v)[0].cpu()
+            errs[name] = (got - refs[v]).abs().max().item()
+            need(got.shape == (1, H, W, 3) and bool(torch.isfinite(got).all())
+                 and errs[name] <= SLICE_ATOL,
+                 f"pad_free_head {name}: the f32 card forward disagrees with "
+                 f"the CPU")
+    print(f"  the generator, f32 card vs CPU at 256x512, max abs diff by "
+          f"pad_free_head: {errs} (atol {SLICE_ATOL}; the default is "
+          f"{default})")
+    out["generator_card_vs_cpu"] = errs
+    del gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_extra(cfg) -> int:
+    """K1 forward calls that ``--remat`` adds to one step of ``cfg``: the
+    instance norms inside the recomputed units (the ResNet's 9 resblocks,
+    2 each; the U-Net's 15 stages, 1 each) of every generator call whose
+    output the generator loss differentiates: 1 in the sggan and p2p
+    steps, 6 in the cycle step with its identity term (4 without)."""
+    per_call = 2 * 9 if cfg.use_resnet else 15
+    calls = (6 if cfg.identity_lambda else 4) if cfg.loss_mode == "cycle" \
+        else 1
+    return per_call * calls
+
+
+def remat_cells() -> dict:
+    """label -> (config, batch, K1 sites of one step) of phase 32's step
+    cells: the ResNet sggan step 256x512 b=16, the default p2p U-Net
+    128x128 b=2 (masks fed), the ResNet cycle step 256x512 b=8; bf16."""
+    from sggan_tpu_torch.config import Config
+    return {
+        "sggan_resnet_b16": (Config(
+            image_height=H, image_width=W, ngf=NGF, ndf=64,
+            segment_class=N_CLASS, batch_size=B_TRAIN, max_size=50,
+            compute_dtype="bfloat16", loss_mode="sggan", use_resnet=True),
+            step_sites(B_TRAIN)),
+        "p2p_unet_b2": (Config(
+            image_height=128, image_width=128, ngf=NGF, ndf=64,
+            segment_class=N_CLASS, batch_size=UNET_B,
+            compute_dtype="bfloat16"), unet_step_sites(UNET_B, 128, 128)),
+        "cycle_resnet_b8": (cycle_cfg(CYCLE_B), cycle_step_sites(CYCLE_B)),
+    }
+
+
+def step_grads_once(cfg, state, batch, draws, masks):
+    """(losses, gen grads, disc grads) of one step's ``losses_and_grads``
+    (the state is not changed), K1's calls by direction, peak GiB."""
+    from sggan_tpu_torch.train import cycle as tcycle
+    from sggan_tpu_torch.train import step as tstep
+    fn = tcycle.losses_and_grads if cfg.loss_mode == "cycle" \
+        else tstep.losses_and_grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_k1()
+    m, gg, dg, *_ = fn(cfg, state, batch, draws, masks)
+    counts, routes = read_k1()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (torch.stack([m["gen_loss"], m["disc_loss"]]), gg, dg), \
+        counts, routes, peak
+
+
+def remat_step_cells(card: str, dev) -> dict:
+    """Phase 32's step cells: from one state, the step's losses and
+    gradients with ``--remat`` and without it (both on the head that
+    ``--remat`` defaults to, the pre-padded one), cuDNN deterministic:
+    bitwise equal; K1's exact calls (forward + ``remat_extra``, the
+    backward's unchanged) on the planned routes; peak memory and the
+    forward + backward's ms each way."""
+    from sggan_tpu_torch.train import pool as tpool
+    from sggan_tpu_torch.train import step as tstep
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, (cfg, sites) in remat_cells().items():
+            b = cfg.batch_size
+            plain = cfg.replace(pad_free_head=False)
+            remat = cfg.replace(remat=True)
+            need(tstep.pad_free_head(remat) is False, "--remat's head")
+            state = tstep.init_state(plain, torch.Generator().manual_seed(0),
+                                     dev)
+            h, w = cfg.image_size
+            make = cycle_batch if cfg.loss_mode == "cycle" else train_batch
+            batch = make(cfg, b, dev, seed=5)
+            draws = tpool.pool_draws(torch.Generator().manual_seed(6), b,
+                                     cfg.max_size)
+            masks = tstep.dropout_masks(
+                cfg, state.gen_params,
+                torch.Generator(device=dev).manual_seed(7), b)
+            res, extra = {}, remat_extra(cfg)
+            for name, c in (("plain", plain), ("remat", remat)):
+                got, counts, routes, peak = step_grads_once(
+                    c, state, batch, draws, masks)
+                if name == "plain":
+                    again = []
+                elif cfg.use_resnet:  # each resblock's two norms again
+                    again = [(b, (h // 4, w // 4, 4 * NGF), act, extra // 2)
+                             for act in ("relu", None)]
+                else:  # the U-Net's 15, once each
+                    again = unet_sites(b, h, w)
+                want = {"fwd": planned(sites + again, "fwd"),
+                        "bwd": planned(sites, "bwd")}
+                per = sum(c for *_, c in sites)
+                ms = cuda_ms(lambda c=c: step_grads_once(
+                    c, state, batch, draws, masks), 3, warmup=1)
+                res[name] = {"out": got, "k1": counts, "routes": routes,
+                             "peak_gib": peak, "ms": ms}
+                print(f"  [{card}] {label} {name}: K1 forward "
+                      f"{counts['fwd']}, backward {counts['bwd']} by route "
+                      f"{routes} (planned {want}); peak {peak:.2f} GiB; "
+                      f"forward + backward {ms:.3f} ms")
+                need(counts == {"fwd": per + (extra if name == "remat"
+                                              else 0), "bwd": per}
+                     and routes == want,
+                     f"{label} {name}: K1's calls left their count or "
+                     "their planned routes")
+            (la, ga, da), (lb, gb, db) = (res["plain"]["out"],
+                                          res["remat"]["out"])
+            bad = [k for k in ga if not torch.equal(ga[k], gb[k])] + \
+                [k for k in da if not torch.equal(da[k], db[k])]
+            same = torch.equal(la, lb) and not bad
+            print(f"  [{card}] {label}: --remat vs without, losses "
+                  f"{la.tolist()} {'bitwise equal' if torch.equal(la, lb) else 'DIFFER ' + str(lb.tolist())}; "
+                  f"{len(ga) + len(da) - len(bad)} of {len(ga) + len(da)} "
+                  f"gradients bitwise equal (differ: {bad[:6]}); peak "
+                  f"{res['plain']['peak_gib']:.2f} -> "
+                  f"{res['remat']['peak_gib']:.2f} GiB; forward + backward "
+                  f"{res['plain']['ms']:.3f} -> {res['remat']['ms']:.3f} ms")
+            need(same, f"{label}: --remat changed the losses or gradients")
+            out[label] = {
+                "bitwise": same, "k1_plain": res["plain"]["k1"],
+                "k1_remat": res["remat"]["k1"], "remat_extra_fwd": extra,
+                **{f"{k}_{n}": res[n][k] for n in ("plain", "remat")
+                   for k in ("peak_gib", "ms")}}
+            del state, batch, res, ga, gb, da, db
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def largest_batch(card: str, label: str, cfg, dev) -> tuple:
+    """The largest batch of ``cfg``'s step that fits on the card: batches
+    doubled from 1 until one does not fit, then bisected, at most
+    MAX_PROBES probes; a probe builds the state and runs two steps, a
+    warm-up and the probe's own.  Only ``torch.cuda.OutOfMemoryError`` is
+    caught, and only here.  Returns (largest, [(batch, fits, peak GiB)])."""
+    from sggan_tpu_torch.train import pool as tpool
+    from sggan_tpu_torch.train import step as tstep
+    probes = []
+
+    def fits(b: int) -> bool:
+        c = cfg.replace(batch_size=b)
+        state = batch = None
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            state = tstep.init_state(c, torch.Generator().manual_seed(0),
+                                     dev)
+            make = cycle_batch if c.loss_mode == "cycle" else train_batch
+            batch = make(c, b, dev, seed=5)
+            step_fn = tstep.build_step_fn(c)
+            draw_gen = torch.Generator().manual_seed(6)
+            for _ in range(2):
+                state, _ = step_fn(state, batch, 1e-3, tpool.pool_draws(
+                    draw_gen, b, c.max_size))
+            torch.cuda.synchronize()
+            ok = True
+        except torch.cuda.OutOfMemoryError:
+            ok = False
+        del state, batch
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.empty_cache()
+        probes.append((b, ok, peak))
+        print(f"    {label} b={b}: {'fits' if ok else 'out of memory'} "
+              f"(peak {peak:.2f} GiB)")
+        return ok
+
+    lo, hi = 0, None
+    b = 1
+    while len(probes) < MAX_PROBES and hi is None:
+        if fits(b):
+            lo, b = b, 2 * b
+        else:
+            hi = b
+    while hi is not None and hi - lo > 1 and len(probes) < MAX_PROBES:
+        mid = (lo + hi) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid
+    return lo, probes
+
+
+def remat_phase(card: str, dev) -> dict:
+    """Phase 32.  ``--remat``: the step cells (``remat_step_cells``), then
+    the largest batch that fits for the ResNet sggan step at 2048x1024
+    and the ResNet cycle step at 512x1024, with and without it."""
+    out = {"steps": remat_step_cells(card, dev), "largest_batch": {}}
+    sggan = remat_cells()["sggan_resnet_b16"][0]
+    for label, cfg in (
+            ("sggan_resnet_2048x1024",
+             sggan.replace(image_height=1024, image_width=2048)),
+            ("cycle_resnet_512x1024",
+             cycle_cfg(1).replace(image_height=512, image_width=1024))):
+        res = {}
+        for name, c in (("plain", cfg), ("remat", cfg.replace(remat=True))):
+            res[name], probes = largest_batch(card, f"{label} {name}", c,
+                                              dev)
+            res[f"{name}_probes"] = probes
+        print(f"  [{card}] {label}: the largest batch that fits, without "
+              f"--remat {res['plain']}, with it {res['remat']}")
+        need(res["plain"] >= 1 and res["remat"] >= res["plain"],
+             f"{label}: --remat's largest batch {res['remat']} is below "
+             f"{res['plain']}, or a batch of 1 does not fit")
+        out["largest_batch"][label] = res
+    return out
+
+
+def forms_phases(card: str, dev) -> dict:
+    """Phases 30-32 in one process, the f32 twins with TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase("30 the reflect layers: the pad's Function and the pad-free "
+          "reflect conv against their plain twins; both forms timed")
+    out = {"reflect": reflect_phase(card, dev)}
+    phase("31 the head: cuDNN's conv beside the space-to-depth forms; the "
+          "generator under each --pad_free_head")
+    out["head"] = head_phase(card, dev)
+    phase("32 --remat (main path): bitwise against the step without it, "
+          "K1's exact counts, peak memory, the largest batch")
+    out["remat"] = remat_phase(card, dev)
     return out
 
 
@@ -3850,7 +4501,11 @@ def main() -> int:
 
     phase("29 CUDA graphs (main path): --scan_steps K in every loss mode, "
           "eager beside the graph; the forward graphs")
-    graphs = graphs_phase_fresh(card)
+    graphs = run_fresh(card, "graphs_phase", 600)
+    graphs["forward"] = run_fresh(card, "forward_graph_gate", 300)
+
+    # phases 30-32 print their own headers
+    forms = run_fresh(card, "forms_phases", 700)
 
     def entry(name, d, replaces, launches, errs_d):
         return {"name": name, "route": "cuda",
@@ -3963,6 +4618,14 @@ def main() -> int:
             "CUDA graph, one step's (phase 29); graph_kernels_per_replay: "
             "the calls its kernels in a profiler window of the replays "
             "make, per replay")
+        # --remat (phase 32)
+        ent["launches_remat"] = {k: v["k1_remat"][d] for k, v in
+                                 forms["remat"]["steps"].items()}
+        ent["launches_remat_is"] = (
+            "calls of one step's forward and backward under --remat in "
+            "each step cell of phase 32 (without it: "
+            + ", ".join(f"{k} {v['k1_plain'][d]}" for k, v in
+                        forms["remat"]["steps"].items()) + ")")
     print(card)
     print(json.dumps({"e2e": {
         "config": "perf_epoch_e2e fused-aug: 96 PNG triplets 512x1024, "
@@ -4015,6 +4678,16 @@ def main() -> int:
                   "deterministic, the times with its default; the forward "
                   "graphs of evaluate.generate",
         **graphs}}))
+    print(card)
+    print(json.dumps({"forms": {
+        "config": "phases 30-32: the reflect pad and conv at c1 (16,256,512,"
+                  "3->64, k7) and a resblock conv (16,64,128,256->256, k3), "
+                  "f32 and bf16; the 7x7 64->3 head at b=8 and 16, "
+                  "256x512, bf16; --remat in the ResNet sggan step 256x512 "
+                  "b=16, the p2p U-Net 128x128 b=2 and the ResNet cycle "
+                  "step 256x512 b=8, bf16; the largest batch of the ResNet "
+                  "sggan step at 2048x1024 and the cycle step at 512x1024",
+        **forms}}))
     from sggan_tpu_torch.perf_in import EVENT_TIMED
     print(f"  profiler: {len(EVENT_TIMED)} device_ms calls found no kernel "
           f"in any trace and were timed by CUDA events: {EVENT_TIMED}")

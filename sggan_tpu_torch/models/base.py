@@ -7,8 +7,11 @@ explicit state that the caller threads: ``init_bn_state`` makes them
 ({} for the instance-norm nets).  A generator's dropout takes keep masks
 that the caller draws: ``drop_shapes`` gives their shapes ([] for the
 ResNet), ``drop_rate`` their rate.  Every generator has one signature,
-``forward(x, state, compute_dtype=None, drop_masks=None, train=False) ->
-(y, new state)``.
+``forward(x, state, compute_dtype=None, drop_masks=None, train=False,
+remat=False, pad_free_head=True) -> (y, new state)``: ``remat`` recomputes
+the ResNet's resblocks or the U-Net's stages in the backward,
+``pad_free_head`` picks the ResNet's head form; a net ignores what it
+does not have.
 """
 
 from __future__ import annotations

@@ -79,12 +79,14 @@ class GeneratorPix2pix(Net):
     def forward(self, x: torch.Tensor, state: BNState,
                 compute_dtype: Optional[torch.dtype] = None,
                 drop_masks: Optional[Sequence[torch.Tensor]] = None,
-                train: bool = False) -> Tuple[torch.Tensor, BNState]:
+                train: bool = False, remat: bool = False,
+                pad_free_head: bool = True) -> Tuple[torch.Tensor, BNState]:
         """x: (N, H, W, C) with log2(H) down blocks' worth of height;
         ``train``: batch norm on the batch's statistics (moving the state)
         else on the moving stats; ``drop_masks``: keep masks of the first
         three up blocks, or None.  Returns the float32 tanh image and the
-        new state."""
+        new state.  ``remat`` and ``pad_free_head`` change nothing, as the
+        JAX step's ``_gen_fwd`` passes neither to this net."""
         cd = compute_dtype or x.dtype
         self._check_state(state)
         if int(math.log2(x.shape[1])) != len(self.down_ch):

@@ -5,13 +5,19 @@ reflect-pad 3 -> c7s1-ngf -> d(2ngf) -> d(4ngf) -> 9 residual blocks
 (reflect-pad 1 + conv3 VALID + IN + relu, reflect-pad 1 + conv3 VALID +
 IN, identity skip) -> u(2ngf) -> u(ngf) -> reflect-pad 3 + c7s1-out ->
 tanh.  Every instance norm goes through ``ops.norm.instance_norm``, so on
-a CUDA device all 23 run the hand-written kernel.
+a CUDA device all 23 run the hand-written kernel.  ``c1`` and the
+resblocks' convs are ``ops.conv2d_reflect``; the output conv (the head)
+takes the JAX package's branches (``generator_resnet.apply``): with
+``pad_free_head`` the space-to-depth strided conv with the pad folded in
+(``ops.s2d.conv2d_reflect_s2d``), else a reflect pad and the pre-padded
+strided conv (``conv2d_valid_s2d``), at the block ``s2d.head_block``
+picks; where that is (1, 1), ``conv2d_reflect``, or the pad and a VALID
+conv.  ``remat`` recomputes each resblock in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint``).
 
 Parameters are ``nn.ParameterDict``s named as the JAX tree (``c1.w``,
 ``r1.in1.gamma``, ...), so ``utils.bridge.params_from_jax`` output loads
-with ``load_state_dict``.  The head is a plain reflect pad and a VALID
-7x7 conv: the JAX package's space-to-depth head (``ops/s2d.py``) is the
-same math in another summation order, shaped for the TPU's matrix unit.
+with ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -20,10 +26,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import (conv2d, conv2d_init, conv2d_reflect, conv2d_transpose,
                    conv2d_transpose_init, instance_norm, instance_norm_init,
-                   reflect_pad, tanh)
+                   reflect_pad, s2d, tanh)
 from .base import BNState, Net, _params
 
 N_BLOCKS = 9
@@ -65,14 +72,36 @@ class GeneratorResnet(Net):
         y = instance_norm(b["in2"], y)
         return y + x
 
+    def _head(self, y: torch.Tensor, cd, pad_free: bool) -> torch.Tensor:
+        w = self.out["w"]
+        r = s2d.head_block(w.shape[2], w.shape[0], y.shape[1], y.shape[2])
+        blocked = r[0] * r[1] > 1
+        if pad_free:
+            if blocked and s2d.applicable_reflect(y, w, r):
+                return s2d.conv2d_reflect_s2d(self.out, y, r, cd)
+            return conv2d_reflect(self.out, y, cd)
+        y = reflect_pad(y, 3)
+        if blocked and s2d.applicable(y, w, r):
+            return s2d.conv2d_valid_s2d(self.out, y, r, cd)
+        return conv2d(self.out, y, 1, "VALID", cd)
+
     def forward(self, x: torch.Tensor, state: BNState,
                 compute_dtype: Optional[torch.dtype] = None,
                 drop_masks: Optional[Sequence[torch.Tensor]] = None,
-                train: bool = False) -> Tuple[torch.Tensor, BNState]:
+                train: bool = False, remat: bool = False,
+                pad_free_head: bool = True) -> Tuple[torch.Tensor, BNState]:
         """x: (N, H, W, C) with H, W divisible by 4.  Returns the float32
         tanh image, NHWC, and ``state`` as it came: the net has no batch
         norm and no dropout, so ``state`` is {} and ``drop_masks`` and
-        ``train`` change nothing (the generators' common signature)."""
+        ``train`` change nothing (the generators' common signature).
+
+        ``remat``: where autograd records the forward, each resblock is
+        recomputed in the backward instead of keeping its four
+        intermediate activations; the same kernels on the same inputs, so
+        the same values.  The blocks draw nothing, so no RNG state is kept
+        (and none read inside a CUDA graph capture).  ``pad_free_head``:
+        the head's form (the module docstring), the same math up to f32
+        summation order."""
         cd = compute_dtype or x.dtype
         y = conv2d_reflect(self.c1, x.to(cd), cd, bias=False)
         y = instance_norm(self.c1_in, y, act="relu")
@@ -80,11 +109,16 @@ class GeneratorResnet(Net):
         y = instance_norm(self.c2_in, y, act="relu")
         y = conv2d(self.c3, y, 2, "SAME", cd, bias=False)
         y = instance_norm(self.c3_in, y, act="relu")
+        remat = remat and torch.is_grad_enabled()
         for i in range(N_BLOCKS):
-            y = self._res_block(getattr(self, f"r{i + 1}"), y, cd)
+            b = getattr(self, f"r{i + 1}")
+            if remat:
+                y = checkpoint(self._res_block, b, y, cd, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                y = self._res_block(b, y, cd)
         y = conv2d_transpose(self.d1, y, 2, "SAME", cd, bias=False)
         y = instance_norm(self.d1_in, y, act="relu")
         y = conv2d_transpose(self.d2, y, 2, "SAME", cd, bias=False)
         y = instance_norm(self.d2_in, y, act="relu")
-        y = conv2d(self.out, reflect_pad(y, 3), 1, "VALID", cd)
-        return tanh(y.float()), state
+        return tanh(self._head(y, cd, pad_free_head).float()), state

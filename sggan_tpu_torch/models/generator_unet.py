@@ -14,7 +14,11 @@ Parameters are ``nn.ParameterDict``s named as the JAX tree (``e1.w``,
 output loads with ``load_state_dict``.  Dropout's randomness is explicit:
 ``forward`` takes the d1-d3 keep masks (``drop_shapes`` gives their
 shapes, ``ops.dropout_masks`` draws them at ``drop_rate``); without masks
-it is deterministic.
+it is deterministic.  ``remat`` recomputes each encoder and decoder
+stage in the backward (``torch.utils.checkpoint``, as the JAX package's
+``jax.checkpoint`` of ``enc_stage`` and ``dec_stage``): the masks are
+inputs, so the recompute draws nothing, and the additive skips stay
+live.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import (conv2d, conv2d_init, conv2d_transpose,
                    conv2d_transpose_init, dropout, instance_norm,
@@ -65,33 +70,52 @@ class GeneratorUnet(Net):
         """Shapes of the d1-d3 dropout masks for an (n, h, w, C) input."""
         return [(n, h, w, self.d1["w"].shape[1])] * N_DROP
 
+    def _enc_stage(self, i: int, y: torch.Tensor, cd) -> torch.Tensor:
+        # bias=False: IN follows directly, and removes it exactly
+        y = conv2d(getattr(self, f"e{i}"), y, 1, "SAME", cd, bias=False)
+        return instance_norm(getattr(self, f"e{i}_in"), y,
+                             act="relu" if i == 8 else "leaky_relu")
+
+    def _dec_stage(self, i: int, y: torch.Tensor, skip: torch.Tensor,
+                   mask: Optional[torch.Tensor], cd) -> torch.Tensor:
+        # d1-d3 keep the bias: dropout sits between the conv-transpose and
+        # IN, and a masked shift is not removed by the norm
+        y = conv2d_transpose(getattr(self, f"d{i}"), y, 1, "SAME", cd,
+                             bias=i <= N_DROP)
+        if mask is not None:
+            y = dropout(y, self.drop_rate, mask)
+        y = instance_norm(getattr(self, f"d{i}_in"), y)
+        y = y + skip
+        return relu(y) if i in (3, 7) else y
+
     def forward(self, x: torch.Tensor, state: BNState,
                 compute_dtype: Optional[torch.dtype] = None,
                 drop_masks: Optional[Sequence[torch.Tensor]] = None,
-                train: bool = False) -> Tuple[torch.Tensor, BNState]:
+                train: bool = False, remat: bool = False,
+                pad_free_head: bool = True) -> Tuple[torch.Tensor, BNState]:
         """x: (N, H, W, C).  ``drop_masks``: the three keep masks of
-        d1-d3, or None (no dropout).  Returns the float32 tanh image,
-        NHWC, and ``state`` as it came: the net has no batch norm, so
-        ``state`` is {} and ``train`` changes nothing."""
+        d1-d3, or None (no dropout).  ``remat``: each stage recomputed in
+        the backward where autograd records the forward.  Returns the
+        float32 tanh image, NHWC, and ``state`` as it came: the net has no
+        batch norm, so ``state`` is {} and ``train`` changes nothing;
+        ``pad_free_head`` is the ResNet's (the generators' common
+        signature)."""
         cd = compute_dtype or x.dtype
+        if remat and torch.is_grad_enabled():
+            def run(f, *a):
+                return checkpoint(f, *a, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            def run(f, *a):
+                return f(*a)
         y = x.to(cd)
         enc = []
         for i in range(1, 9):
-            # bias=False: IN follows directly, and removes it exactly
-            y = conv2d(getattr(self, f"e{i}"), y, 1, "SAME", cd, bias=False)
-            y = instance_norm(getattr(self, f"e{i}_in"), y,
-                              act="relu" if i == 8 else "leaky_relu")
+            y = run(self._enc_stage, i, y, cd)
             enc.append(y)
         for i in range(1, 8):
-            # d1-d3 keep the bias: dropout sits between the conv-transpose
-            # and IN, and a masked shift is not removed by the norm
-            y = conv2d_transpose(getattr(self, f"d{i}"), y, 1, "SAME", cd,
-                                 bias=i <= N_DROP)
-            if i <= N_DROP and drop_masks is not None:
-                y = dropout(y, self.drop_rate, drop_masks[i - 1])
-            y = instance_norm(getattr(self, f"d{i}_in"), y)
-            y = y + enc[7 - i]
-            if i in (3, 7):
-                y = relu(y)
+            mask = drop_masks[i - 1] if i <= N_DROP and drop_masks is not None \
+                else None
+            y = run(self._dec_stage, i, y, enc[7 - i], mask, cd)
         y = conv2d_transpose(self.d8, y, 1, "SAME", cd)
         return tanh(y.float()), state

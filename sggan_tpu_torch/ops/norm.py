@@ -128,25 +128,25 @@ class _InstanceNorm(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
-@torch.library.custom_op("sggan_tpu_torch::instance_norm", mutates_args=(),
-                         device_types="cpu")
-def instance_norm_op(x: torch.Tensor, gamma: torch.Tensor,
-                     beta: torch.Tensor, eps: float, act: Optional[str],
-                     alpha: float) -> torch.Tensor:
-    """K1's forward as a registered op, for calls that need no gradient:
-    the plain version on a CPU tensor, the kernel on a CUDA one."""
-    return _ref_forward(x, gamma, beta, eps, act, alpha)[0]
+# K1's forward as a registered op, for calls that need no gradient: the
+# plain version on a CPU tensor, the kernel on a CUDA one.  Defined
+# through ``torch.library.Library`` and not ``custom_op``: a custom op's
+# first call imports ``torch._dynamo`` (seconds in every process that
+# serves or evaluates), and each call goes through its Python wrappers.
+_LIB = torch.library.Library("sggan_tpu_torch", "DEF")
+_LIB.define("instance_norm(Tensor x, Tensor gamma, Tensor beta, float eps, "
+            "str? act, float alpha) -> Tensor")
+_LIB.impl("instance_norm", instance_norm_ref, "CPU")
+_LIB.impl("instance_norm", cuda_in.instance_norm_cuda, "CUDA")
 
 
-@instance_norm_op.register_kernel("cuda")
-def _(x, gamma, beta, eps, act, alpha):
-    return cuda_in.instance_norm_cuda(x, gamma, beta, eps, act, alpha)
-
-
-@instance_norm_op.register_fake
+@torch.library.register_fake("sggan_tpu_torch::instance_norm", lib=_LIB)
 def _(x, gamma, beta, eps, act, alpha):
     cuda_in.check_act(act)
     return torch.empty_like(x)
+
+
+instance_norm_op = torch.ops.sggan_tpu_torch.instance_norm.default
 
 
 def instance_norm(params: Mapping, x: torch.Tensor, act: Optional[str] = None,

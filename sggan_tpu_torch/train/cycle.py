@@ -33,9 +33,10 @@ same key at the same shapes draws the same masks.  So the port draws four
 mask sets (``cycle_dropout_masks``) and feeds set 3 to F(G(a)) and G(b),
 set 4 to G(F(b)) and F(a).
 
-Not ported, raising ``NotImplementedError`` that names its ROADMAP item
-(``step._require_ported``): ``--remat``, ``--pad_free_head`` and data or
-spatial parallelism.
+``--remat`` and the ResNet head of ``pad_free_head`` reach both
+generators as in the sggan step (cycle.py:87-100).  Not ported, raising
+``NotImplementedError`` that names its ROADMAP item
+(``step._require_ported``): data or spatial parallelism.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ from ..ops.deriv import seg_boundary_weight
 from .pool import PoolDraws, PoolPlan, pool_init, pool_update
 from .step import (TrainState, _conv_precision, _dtype, _ema_update, _grads,
                    _keep_pool, _require_ported, adam_init, adam_update,
-                   deterministic, new_discriminator, new_generator, pools)
+                   deterministic, new_discriminator, new_generator,
+                   pad_free_head, pools)
 
 N_MASK_SETS = 4  # r1..r4 of the JAX step
 
@@ -123,8 +125,11 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
     masks = drop_masks if train and drop_masks is not None \
         else (None,) * N_MASK_SETS
 
+    pfh = pad_free_head(cfg)
+
     def g_apply(net, x, k):
-        return gen[net](x, {}, cd, masks[k], train=train)[0]
+        return gen[net](x, {}, cd, masks[k], train=train, remat=cfg.remat,
+                        pad_free_head=pfh)[0]
 
     crit = losses.criterion_gan(cfg.use_lsgan)
     real_a, real_b = batch["real_a"].float(), batch["real_b"].float()

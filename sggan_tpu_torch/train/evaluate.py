@@ -33,7 +33,7 @@ from ..utils import checkpoint as ckpt
 from ..utils.cuda_graph import ForwardGraphs
 from ..utils.images import imsave, merge, save_images
 from ..utils.summary import SummaryWriter
-from .step import new_generator
+from .step import new_generator, pad_free_head
 
 CRF_TODO = ("--eval_crf is not ported yet (ROADMAP Queue 1: eval, "
             "checkpoints, summaries: the CRF)")
@@ -63,8 +63,10 @@ def gen_forward(cfg: Config, gen: torch.nn.Module, x: torch.Tensor,
                 gen_bn: Optional[dict] = None) -> torch.Tensor:
     """The generator's inference forward (evaluate.py:47-63): no dropout;
     the pix2pix batch norms on ``gen_bn``'s moving stats (None: the net
-    has no batch norm)."""
-    return gen(x, {} if gen_bn is None else gen_bn, compute_dtype(cfg))[0]
+    has no batch norm); the ResNet head that ``step.pad_free_head`` picks
+    from the config, without ``--remat`` (nothing is recorded)."""
+    return gen(x, {} if gen_bn is None else gen_bn, compute_dtype(cfg),
+               pad_free_head=pad_free_head(cfg))[0]
 
 
 @torch.inference_mode()

@@ -18,10 +18,13 @@ it, so a caller takes every mode through this module's entry points.
 Under pix2pix the discriminator's batch norm makes the JAX step's two
 calls, real then fake, threading the BN state, and the generator loss's
 call runs in inference mode on the pre-step state (``_gen_fwd`` and
-``_disc_fwd`` of the JAX step); the pix2pix pool holds fakes only.  Not
-ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``--compat_fake_history``, ``--remat``, ``--pad_free_head`` and data
-parallelism (``axis_name``), in every loss mode.
+``_disc_fwd`` of the JAX step); the pix2pix pool holds fakes only.  The
+generator runs with ``--remat`` (the ResNet's resblocks or the U-Net's
+stages recomputed in the backward) and the ResNet head that
+``pad_free_head`` picks, as the JAX step's ``_gen_fwd``.  Not ported yet,
+each raising ``NotImplementedError`` that names its ROADMAP item:
+``--compat_fake_history`` and data parallelism (``axis_name``), in every
+loss mode.
 
 Adam is optax's ``scale_by_adam`` (betas (beta1, 0.999), eps 1e-7, the
 Keras default, not optax's 1e-8) with the learning rate applied outside the
@@ -109,11 +112,6 @@ def _require_ported(cfg, axis_name=None) -> None:
     if cfg.loss_mode == "p2p" and cfg.compat_fake_history:
         todo = ("--compat_fake_history (ROADMAP Queue 1: "
                 "--compat_fake_history and --dropout_mode)")
-    elif cfg.remat:
-        todo = "--remat (ROADMAP Queue 1: --remat)"
-    elif cfg.pad_free_head is not None:
-        todo = ("--pad_free_head (ROADMAP Queue 1: the space-to-depth head "
-                "and --pad_free_head)")
     elif axis_name is not None or cfg.mesh_data > 1 or cfg.mesh_space > 1:
         todo = "data and spatial parallelism (ROADMAP Queue 1: parallel)"
     if todo:
@@ -260,13 +258,23 @@ def _grads(loss: torch.Tensor,
                                                materialize_grads=True)))
 
 
+def pad_free_head(cfg) -> bool:
+    """The ResNet head's form: ``--pad_free_head`` where given, else the
+    pad-free head unless ``--remat`` (the JAX package's default, which
+    keeps the pre-padded head's lower peak memory under ``--remat``)."""
+    if cfg.pad_free_head is not None:
+        return cfg.pad_free_head
+    return not cfg.remat
+
+
 def _gen_fwd(cfg, gen, gen_bn, x, drop_masks, cd):
     """(fake, new generator BN state), as the JAX step's ``_gen_fwd``."""
     train = not deterministic(cfg)
     if train and drop_masks is None and gen.drop_rate:
         raise ValueError("--dropout_mode intended: the step needs the "
                          "generator's dropout masks (step.dropout_masks)")
-    return gen(x, gen_bn, cd, drop_masks if train else None, train=train)
+    return gen(x, gen_bn, cd, drop_masks if train else None, train=train,
+               remat=cfg.remat, pad_free_head=pad_free_head(cfg))
 
 
 def _disc_fwd(cfg, disc, disc_bn, img, mask_or_tar, cd, train):

@@ -35,8 +35,11 @@ semantic discriminator, or the pix2pix pair with its batch-norm state.
 (``train/cycle.py``) on two domains: trainA and trainB resident together
 when both fit, else two host iterators zipped, trainB's shuffled from
 ``data_seed + 7919`` (trainer.py:152-197, :322-351).
-Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: meshes and multi-host training, ``--remat``, ``--eval_crf``.
+``--remat`` and ``--pad_free_head`` reach the step and the eval
+(``step.pad_free_head``); under ``--scan_steps`` the step's graph holds
+the backward's recompute.  Not ported, each raising
+``NotImplementedError`` that names its ROADMAP item: meshes and
+multi-host training, ``--eval_crf``.
 """
 
 from __future__ import annotations

@@ -576,6 +576,11 @@ GRAPH_MODES = {
     "p2p_unet": dict(batch_size=1, dropout_mode="intended"),
     "pix2pix": dict(batch_size=1, use_pix2pix=True, dropout_mode="intended"),
     "cycle_resnet": dict(batch_size=1, loss_mode="cycle", use_resnet=True),
+    # --remat: the graph holds the backward's recompute
+    "sggan_resnet_remat": dict(batch_size=2, loss_mode="sggan",
+                               use_resnet=True, remat=True),
+    "p2p_unet_remat": dict(batch_size=1, dropout_mode="intended",
+                           remat=True),
 }
 
 
@@ -605,6 +610,35 @@ def test_step_graph_replays_the_eager_steps(dev, mode, monkeypatch):
     assert torch.equal(got, eager)
     assert chip_smoke.differing(ref[0], after[0]) == []
     assert after[1:3] == ref[1:3]
+
+
+@pytest.mark.parametrize("k", [3, 7])
+def test_reflect_forms_on_the_card_match_the_cpu(dev, k):
+    """The reflect pad's Function and both reflect-conv forms on CUDA
+    tensors, f32 with TF32 off, against the plain twin on the CPU: value,
+    dx and dw within 1e-5 of each tensor's largest."""
+    from sggan_tpu_torch.ops import layers as tl
+    g = torch.Generator().manual_seed(k)
+    x = torch.randn(2, 13, 11, 8, generator=g)
+    w = torch.randn(6, 8, k, k, generator=g) * 0.1
+    dy = torch.randn(2, 13, 11, 6, generator=g)
+
+    def grads(f, device):
+        xl = x.to(device).requires_grad_(True)
+        wl = w.to(device).requires_grad_(True)
+        y = f({"w": wl}, xl, bias=False)
+        return [t.cpu() for t in (y, *torch.autograd.grad(
+            y, (xl, wl), dy.to(device)))]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = grads(tl.conv2d_reflect_ref, "cpu")
+        for f in (tl.conv2d_reflect_pad_free, tl.conv2d_reflect_gather):
+            for got, r in zip(grads(f, dev), ref):
+                torch.testing.assert_close(
+                    got, r, rtol=0, atol=1e-5 * r.abs().max().item())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 def test_forward_graph_equals_eager_and_replays_without_the_wrapper(dev):

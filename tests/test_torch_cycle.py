@@ -216,6 +216,35 @@ def test_resnet_cycle_step_matches_jax(resnet_run):
     _hold_first_step(resnet_run, RESNET)
 
 
+def test_resnet_cycle_step_under_remat_matches_jax_and_without(resnet_run):
+    """--remat in the cycle step recomputes both generators' resblocks in
+    the backward, the schedule and not the math (as
+    tests/test_cycle.py::test_cycle_remat_matches holds the JAX package):
+    losses and every gradient as the port's step without it (rtol 1e-6)
+    and as the JAX step's at this file's limits, on the head of
+    ``resnet_run`` (pad-free, set explicitly: --remat's default is the
+    pre-padded one)."""
+    (metrics, g_grads, d_grads, _), jax_out, _, _, fed = resnet_run
+    kw = dict(RESNET, remat=True, pad_free_head=True)
+    cfg = Config(**kw)
+    ts = bridge.train_state_from_jax(
+        cfg, jax.tree.map(np.asarray, _jax_state(RESNET)))
+    m, g, d, _ = tcycle.losses_and_grads(cfg, ts, *fed)
+    for k in m:
+        assert m[k].item() == pytest.approx(metrics[k].item(), rel=1e-6)
+    for got, ref in ((g, g_grads), (d, d_grads)):
+        for k in ref:
+            np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
+                                       rtol=1e-6, atol=0, err_msg=k)
+    jstate, jm = jax_out[0]
+    for k in ("gen_loss", "disc_loss"):
+        assert abs(m[k].item() - jm[k]) <= 1e-5 * abs(jm[k]), (k, m, jm)
+    b1 = cfg.beta1
+    for grads, mu in ((g, jstate.g_opt.mu), (d, jstate.d_opt.mu)):
+        ref = jax.tree.map(lambda v: np.asarray(v) / (1 - b1), mu)
+        _close(bridge.params_to_jax(grads), ref, atol_of_max=2e-4)
+
+
 def test_resnet_cycle_second_step_matches_jax_in_losses_and_pool(resnet_run):
     """Step 2 runs the full pool (max_size 2, batch 2) with the JAX
     step's draws, so the discriminators see swapped history.  Its fakes
@@ -327,10 +356,10 @@ def test_identity_term_adds_two_generator_calls(identity, calls):
 
 
 def test_cycle_refuses_remat_and_meshes():
-    for kw in ({"remat": True}, {"mesh_data": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstep.init_state(Config(**dict(RESNET, **kw)), torch.Generator(),
-                             "cpu")
+    """Meshes are not ported (--remat is: tests/test_torch_remat.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tstep.init_state(Config(**dict(RESNET, mesh_data=2)),
+                         torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstep.build_step_fn(Config(**RESNET), axis_name="data")
     with pytest.raises(ValueError, match="four dropout mask sets"):

@@ -82,7 +82,8 @@ def test_generator_matches_jax(golden_case, pad_free_head):
                               "xla_llvm_disable_expensive_passes": True,
                               "xla_cpu_use_fusion_emitters": False})(p, x)
     with torch.inference_mode():
-        got, st = _port(p)(torch.from_numpy(x.copy()), {}, torch.float32)
+        got, st = _port(p)(torch.from_numpy(x.copy()), {}, torch.float32,
+                           pad_free_head=pad_free_head)
     assert st == {}
     assert got.dtype == torch.float32 and got.shape == (1, 32, 32, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,

@@ -7,10 +7,13 @@ Pins the two TF-padding traps of the port: stride-2 SAME conv pads
 conv-transpose crops the END of the full output, which
 F.conv_transpose2d(padding=1, output_padding=1) gets wrong."""
 
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -122,6 +125,115 @@ def test_conv2d_reflect(k, bias):
     got = tl.conv2d_reflect(params_from_jax(p), torch.from_numpy(x),
                             bias=bias)
     _close(got, ref)
+
+
+# one program, without XLA's LLVM passes and CPU fusion emitters, as
+# tests/test_torch_step.py compiles the JAX step
+FAST = {"xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True,
+        "xla_cpu_use_fusion_emitters": False}
+
+
+def _fast(fn, *args):
+    args = [jnp.asarray(a) for a in args]
+    return jax.jit(fn).lower(*args).compile(FAST)(*args)
+
+
+REFLECT_PADS = [1, 3, ((0, 0), (2, 1), (0, 3), (0, 0)),
+                ((0, 0), (0, 2), (3, 1), (0, 0))]
+
+
+@pytest.mark.parametrize("hw", [(7, 9), (8, 5)])
+@pytest.mark.parametrize("pad", REFLECT_PADS)
+def test_reflect_pad_gradient_matches_jax_vjp(pad, hw):
+    """The Function's strip-add adjoint and the plain twin's index adjoint
+    against ``jax.vjp`` of the JAX package's ``reflect_pad`` (its custom
+    VJP), odd and even H and W; the one-copy adjoint equals
+    ``unpad_reflect_transpose`` applied per axis, W then H, bitwise."""
+    x = np.random.default_rng(5).standard_normal((2, *hw, 3)) \
+        .astype(np.float32)
+    y = np.asarray(jl.reflect_pad(jnp.asarray(x), pad))
+    ct = np.random.default_rng(6).standard_normal(y.shape).astype(np.float32)
+    ref = np.asarray(_fast(lambda v, c: jax.vjp(
+        lambda u: jl.reflect_pad(u, pad), v)[1](c)[0], x, ct))
+    for fn in (tl.reflect_pad, tl.reflect_pad_ref):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        got = fn(xt, pad)
+        np.testing.assert_array_equal(got.detach().numpy(), np.asarray(y))
+        dx, = torch.autograd.grad(got, xt, torch.from_numpy(ct))
+        np.testing.assert_allclose(dx.numpy(), ref, rtol=1e-5, atol=1e-5)
+    (ht, hb), (wl, wr) = ((pad, pad), (pad, pad)) if isinstance(pad, int) \
+        else pad[1:3]
+    dyt = torch.from_numpy(ct)
+    per_axis = tl.unpad_reflect_transpose(
+        tl.unpad_reflect_transpose(dyt, wl, wr, 2), ht, hb, 1)
+    assert torch.equal(tl.reflect_pad_adjoint(dyt, ht, hb, wl, wr), per_axis)
+
+
+@functools.lru_cache(maxsize=None)
+def _conv2d_reflect_vjp(k, bias, hw):
+    """(x, params, cotangent, (y, dw, dx)) of the JAX ``conv2d_reflect``,
+    one reference for every form."""
+    x, p = _data(7, (2, *hw, 4), (k, k, 4, 5))
+    ct = np.random.default_rng(8).standard_normal((2, *hw, 5)) \
+        .astype(np.float32)
+
+    def f(w, v, b, c):
+        y, vjp = jax.vjp(lambda w, v: jl.conv2d_reflect(
+            {"w": w, "b": b}, v, bias=bias), w, v)
+        return (y, *vjp(c))
+    return x, p, ct, _fast(f, p["w"], x, p["b"], ct)
+
+
+# the nets' conv2d_reflect is one of these (test_conv2d_reflect_is_a_form)
+CONV_FORMS = {"pad_free": tl.conv2d_reflect_pad_free,
+              "gather": tl.conv2d_reflect_gather, "ref": tl.conv2d_reflect_ref}
+
+
+def test_conv2d_reflect_is_a_form():
+    assert tl.conv2d_reflect in (tl.conv2d_reflect_pad_free,
+                                 tl.conv2d_reflect_gather)
+
+
+@pytest.mark.parametrize("hw", [(10, 9), (13, 11)])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("k", [3, 7])
+@pytest.mark.parametrize("form", list(CONV_FORMS))
+def test_conv2d_reflect_vjp_matches_jax(form, k, bias, hw):
+    """Value, dx and dw of each form of the reflect conv against
+    ``jax.vjp`` of the JAX package's ``conv2d_reflect`` (its pad-free
+    custom VJP), as tests/test_ops.py holds it against the padded form;
+    rtol 1e-5 / atol 1e-5 of each tensor's scale."""
+    x, p, ct, (y, jdw, jdx) = _conv2d_reflect_vjp(k, bias, hw)
+    tp = params_from_jax(p)
+    w = tp["w"].requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = CONV_FORMS[form]({"w": w, "b": tp["b"]}, xt, bias=bias)
+    dw, dx = torch.autograd.grad(got, (w, xt), torch.from_numpy(ct))
+    for g, r in ((got.detach().numpy(), y), (dx.numpy(), jdx),
+                 (dw.permute(2, 3, 1, 0).numpy(), jdw)):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g, r, rtol=1e-5,
+                                   atol=1e-5 * np.abs(r).max())
+
+
+def test_conv2d_reflect_without_grad_is_its_forward_body():
+    """Where no input needs a gradient the reflect conv and pad record no
+    Function (``torch.export`` then sees plain ops), with the same values;
+    an even kernel is refused."""
+    x, p = _data(9, (1, 6, 7, 3), (3, 3, 3, 2))
+    tp = params_from_jax(p)
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        y = tl.conv2d_reflect_pad_free(tp, xt)
+        assert y.grad_fn is None
+    w = tp["w"].clone().requires_grad_(True)
+    y2 = tl.conv2d_reflect_pad_free({"w": w, "b": tp["b"]}, xt)
+    assert y2.grad_fn is not None
+    assert torch.equal(y, y2.detach())
+    assert tl.reflect_pad(xt, 1).grad_fn is None
+    with pytest.raises(ValueError, match="odd kernel"):
+        tl.conv2d_reflect_pad_free({"w": torch.zeros(2, 3, 4, 4)}, xt)
 
 
 def test_glorot_uniform_bounds_and_layouts():

@@ -12,7 +12,8 @@ where no card is.
   loop (``scan_steps`` 1): the same eager ops on the CPU, so the losses
   and the state are bitwise equal; prints and saves land where the JAX
   chunk loop puts them (``sggan_tpu/train/fused.py:262-281``);
-* an explicit ``--pad_free_head`` is refused at every entry point.
+* ``--pad_free_head`` true, false or by default reaches the ResNet's
+  head at every entry point.
 
 32x32, ngf and ndf 4, 8 classes, one torch thread."""
 
@@ -31,6 +32,8 @@ from PIL import Image  # noqa: E402
 from sggan_tpu.train import pool as jpool  # noqa: E402
 from sggan_tpu_torch import serve  # noqa: E402
 from sggan_tpu_torch.config import Config  # noqa: E402
+from sggan_tpu_torch.models import generator_resnet  # noqa: E402
+from sggan_tpu_torch.models.generator_resnet import GeneratorResnet  # noqa: E402
 from sggan_tpu_torch.train import pool as tpool  # noqa: E402
 from sggan_tpu_torch.train import step as tstep  # noqa: E402
 from sggan_tpu_torch.train.trainer import Trainer  # noqa: E402
@@ -290,22 +293,43 @@ def test_chunk_loop_equals_the_per_step_loop(dataset, tmp_path, mode, k,
 @pytest.mark.parametrize("pad_free_head", [True, False, None])
 @pytest.mark.parametrize("entry", ["step", "cycle_step", "trainer",
                                    "service"])
-def test_explicit_pad_free_head_is_refused(entry, pad_free_head, tmp_path):
-    """--pad_free_head true or false is not ported (the space-to-depth
-    head): the step, the cycle step, the trainer and the service refuse
-    it as they refuse --remat; the default (None) runs."""
+def test_explicit_pad_free_head_is_refused(entry, pad_free_head, tmp_path,
+                                           monkeypatch):
+    """--pad_free_head true, false or by default (None: pad-free unless
+    --remat) is honoured at every entry point that the JAX package passes
+    it to: the step, the cycle step, the trainer's eval and the service
+    build, and the ResNet's head takes the branch the JAX rule gives
+    (``step._gen_fwd``, ``cycle.py:87-100``, ``evaluate.py:59-62``): the
+    pad-free head, or the reflect pad before the strided conv."""
     cfg = Config(**BASE, **MODES["sggan_resnet"],
                  checkpoint_dir=str(tmp_path / "ck"),
                  pad_free_head=pad_free_head)
-    make = {"step": lambda: tstep.build_step_fn(cfg),
-            "cycle_step": lambda: tstep.build_step_fn(
-                cfg.replace(loss_mode="cycle")),
-            "trainer": lambda: Trainer(cfg, device="cpu"),
-            "service": lambda: serve._Service(cfg, device="cpu")}[entry]
-    if pad_free_head is None:
-        assert make() is not None
+    want = True if pad_free_head is None else pad_free_head
+    assert tstep.pad_free_head(cfg) is want
+    heads, pads = [], []
+    head, pad = GeneratorResnet._head, generator_resnet.reflect_pad
+
+    def spy_head(self, y, cd, pad_free):
+        heads.append(pad_free)
+        return head(self, y, cd, pad_free)
+
+    def spy_pad(y, p):
+        pads.append(p)
+        return pad(y, p)
+    monkeypatch.setattr(GeneratorResnet, "_head", spy_head)
+    monkeypatch.setattr(generator_resnet, "reflect_pad", spy_pad)
+    g = torch.Generator().manual_seed(0)
+    if entry in ("step", "cycle_step"):
+        c = cfg if entry == "step" else cfg.replace(loss_mode="cycle")
+        state = tstep.init_state(c, g, "cpu")
+        _, m = tstep.build_step_fn(c)(state, _batch(c, 0), 1e-3,
+                                      tpool.pool_draws(g, B, c.max_size))
+        assert all(torch.isfinite(v) for v in m.values())
+    elif entry == "trainer":
+        out = Trainer(cfg, device="cpu").generate(np.zeros((1, H, W, 3)))
+        assert out.shape == (1, H, W, 3)
     else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1: the space-to-depth head "
-                                 "and --pad_free_head"):
-            make()
+        assert serve._Service(cfg, device="cpu").loaded is False
+    assert heads and set(heads) == {want}, heads
+    # the pre-padded head reflect-pads its input by 3; nothing else does
+    assert pads == ([] if want else [3] * len(heads))

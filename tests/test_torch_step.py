@@ -167,6 +167,34 @@ def test_one_step_matches_jax(runs):
     assert pool.count == int(jstate.pool.count) == POOL
 
 
+def test_one_step_under_remat_matches_jax_and_without(runs):
+    """--remat recomputes the resblocks in the backward: the same ops on the
+    same inputs, so the same losses and gradients as the port's step
+    without it (rtol 1e-6, as tests/test_models.py:194 holds the JAX
+    package), and the JAX step's at this file's limits (the head set to
+    the pad-free one of ``runs``; jax.checkpoint itself is held to the
+    port's recompute in tests/test_torch_remat.py)."""
+    (metrics, g_grads, d_grads, _, _), jax_out, _, _ = runs
+    cfg = Config(**KW, remat=True, pad_free_head=True)
+    js = _jax_state(JConfig(**KW))
+    ts = bridge.train_state_from_jax(cfg, jax.tree.map(np.asarray, js))
+    tbatch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    m, g, d, *_ = tstep.losses_and_grads(cfg, ts, tbatch, _draws(RNGS)[0])
+    for k in m:
+        assert m[k].item() == pytest.approx(metrics[k].item(), rel=1e-6)
+    for got, ref in ((g, g_grads), (d, d_grads)):
+        for k in ref:
+            np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
+                                       rtol=1e-6, atol=0, err_msg=k)
+    jstate, jm = jax_out[0]
+    for k in ("gen_loss", "disc_loss"):
+        assert abs(m[k].item() - jm[k]) <= 1e-5 * abs(jm[k])
+    b1 = cfg.beta1
+    for grads, mu in ((g, jstate.g_opt.mu), (d, jstate.d_opt.mu)):
+        ref = jax.tree.map(lambda v: np.asarray(v) / (1 - b1), mu)
+        _close(bridge.params_to_jax(grads), ref, atol_of_max=2e-4)
+
+
 def test_one_step_updates_params_as_jax(runs):
     """Adam's first update is -lr * g / (|g| + eps), which is -lr * sign(g)
     wherever the gradient stands clear of the two packages' noise (above
@@ -344,9 +372,7 @@ def test_bf16_step_stores_the_pool_in_bf16_and_restores_tf32():
 
 
 @pytest.mark.parametrize("kw", [
-    {"loss_mode": "cycle", "remat": True},
-    {"loss_mode": "p2p", "compat_fake_history": True}, {"remat": True},
-    {"mesh_data": 2}])
+    {"loss_mode": "p2p", "compat_fake_history": True}, {"mesh_data": 2}])
 def test_unported_modes_raise_naming_the_roadmap(kw):
     cfg = Config(**{**KW, **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

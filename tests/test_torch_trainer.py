@@ -33,7 +33,8 @@ from sggan_tpu_torch.metrics.scores import hist_device  # noqa: E402
 from sggan_tpu_torch.models.generator_resnet import GeneratorResnet  # noqa: E402
 from sggan_tpu_torch.train import evaluate, fused  # noqa: E402
 from sggan_tpu_torch.train.pool import pool_draws  # noqa: E402
-from sggan_tpu_torch.train.step import build_step_fn, init_state  # noqa: E402
+from sggan_tpu_torch.train.step import (build_step_fn, init_state,  # noqa: E402
+                                         pad_free_head)
 from sggan_tpu_torch.train.trainer import Trainer  # noqa: E402
 from sggan_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 
@@ -239,13 +240,28 @@ def test_main_without_a_gpu_is_an_error(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("cfg_kw,what", [
-    (dict(loss_mode="cycle", remat=True), "remat"),
     (dict(mesh_data=2), "parallel"),
     (dict(eval_crf=True), "CRF")])
 def test_trainer_refuses_what_is_not_ported(dataset, tmp_path, cfg_kw,
                                             what):
     with pytest.raises(NotImplementedError, match=what):
         Trainer(_cfg(dataset, tmp_path, **cfg_kw), device="cpu")
+
+
+def test_trainer_trains_under_remat(dataset, tmp_path):
+    """--remat through the trainer: the resident epoch's chunk loop (the
+    step eagerly on the CPU) recomputes the resblocks in the backward, the
+    eval runs the pre-padded head --remat defaults to; finite losses, the
+    checkpoint, the eval's PNGs."""
+    cfg = _cfg(dataset, tmp_path, remat=True)
+    tr = Trainer(cfg, device="cpu")
+    tr.train()
+    assert tr.state.step == 2
+    assert all(bool(torch.isfinite(p).all())
+               for p in tr.state.gen_params.parameters())
+    assert os.listdir(tmp_path / "checkpoint" / "city" / "gen")
+    assert len(os.listdir(tmp_path / "test")) > 0
+    assert pad_free_head(cfg) is False
 
 
 def test_port_sources_import_no_jax():
