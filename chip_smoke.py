@@ -224,12 +224,37 @@ Phases, each of which raises on failure:
      the backward's stay 37, 27 and 166) on the planned routes; peak
      memory and ms each way; then the largest batch that fits for the
      ResNet sggan step at 2048x1024 and the cycle step at 512x1024, with
-     and without it (doubling, then bisecting, at most 8 probes).
+     and without it (doubling, then bisecting, at most 8 probes);
+  33. ``--compat_fake_history`` (main path), in a fresh process: both K1
+     kernels against their plain versions at the discriminator's new
+     sites (N = 11 and 13 at 128x128, 17 and 25 at 256x512), f32 and
+     bf16, on the planned routes; the f32 history step card vs CPU at
+     32x64 with a history of 6 earlier fakes (phase 19's limits); bf16
+     steps of the default config with the flag at 128x128 b=1 doubled to
+     2 (a history of 11) and 256x512 b=4 doubled to 8 (17): 12 steps,
+     the count sequence of the JAX step (2, 4, 6, 8, 10, 2, ...), exactly
+     27 + 27 K1 calls a step on the planned routes, ms, peak memory,
+     busy and idle; the trainer's loop eager against the step's graph
+     (chunks of 8 and 3) bitwise, and both timed;
+  34. the default CLI with ``--compat_fake_history --eval_crf
+     --scan_steps 4`` on phase 20's PNG set: it trains through the graph
+     (27 + 27 K1 calls at the capture), the eval refines every fake with
+     the dense CRF, the checkpoint holds the history's count, and a
+     resume continues the count; the CRF library built from
+     ``native/crf/`` held to the numpy mean field at 16x16 and timed on
+     the host at 128x128x3 and 512x1024x34 (run beside phases 29-33);
+     the MFU of phase 29's sggan and cycle graph steps from
+     ``utils/flops.py`` against the dense bf16 peak;
+  35. ``python -m sggan_tpu_torch.utils.hbm`` in fresh processes: the
+     sggan step at 2048x1024 under ``--remat`` at b=12 doubled to 24
+     fits, and at b=64 doubled to 128 without it runs out of memory, its
+     bytes parsed; ``python -m sggan_tpu_torch.cycle_recon_eval`` on
+     phase 25's checkpoint: finite scores and both PNG strips.
 
 Prints a JSON line of the trainer's and the preprocess's rates, one of
 the default nets' numbers, one of the cycle mode's, one of the inference
-cell's, one of the CUDA graphs', one of phases 30-32, a JSON line of the
-kernels, then as the
+cell's, one of the CUDA graphs', one of phases 30-32, one of phases
+33-35, a JSON line of the kernels, then as the
 last line ``{"ok":
 true, "device": {...}}``.  Exits non-zero, printing neither,
 when no CUDA device is visible or any phase fails.
@@ -569,6 +594,13 @@ def step_grads(cfg, b: int, dev: str):
     draws = tpool.pool_draws(torch.Generator().manual_seed(4), b,
                              cfg.max_size)
     st = tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)
+    if tstep.compat_hist(cfg):
+        # a history of 6 earlier fakes, so the losses judge more than this
+        # step's
+        buf = st.pool.buffer["fake"]
+        buf.copy_(torch.rand(buf.shape, generator=torch.Generator()
+                             .manual_seed(9)).mul(2).sub(1))
+        st = st._replace(pool=st.pool._replace(count=6))
     # the generator's dropout masks (None for the ResNet; the cycle step's
     # four sets), drawn on the CPU
     masks = to_dev(tstep.dropout_masks(cfg, st.gen_params,
@@ -719,12 +751,22 @@ def time_sites(card: str, dev, sites=None,
     return tot, rows
 
 
-def k1_vs_plain(n, hwc, act, dtype, dev, seed) -> tuple:
+def k1_vs_plain(n, hwc, act, dtype, dev, seed,
+                own_moments: bool = False) -> tuple:
     """Both K1 kernels against their plain twins at one site (phases 7 and
     18): the site's plan, the forward's output and saved moments, then the
     backward fed the kernel's own moments; two calls of each bitwise
     equal.  Returns the largest forward and dx differences; raises outside
-    the limits (tests/test_pallas.py's and tests/test_torch_cuda.py's)."""
+    the limits (tests/test_pallas.py's and tests/test_torch_cuda.py's).
+
+    ``own_moments`` (phase 33): the forward's output is held against the
+    plain normalize, affine and act of the kernel's own moments, as the
+    backward is fed them, and the moments against the plain twin's.  Both
+    sides compute var = E[x^2] - mean^2 in f32, as the JAX package does,
+    and on a plane of 5 elements whose variance is ~1e-2 of mean^2 their
+    two summation orders move rstd by 1e-5 to 3e-5 of itself, each as far
+    from the f64 moments as the other (PERF.md section 7), past the f32
+    output's 1e-5; the moments' own limit (1e-4 of rstd) holds there."""
     from sggan_tpu_torch.ops import cuda_in
     from sggan_tpu_torch.ops import norm as tnorm
     x, g, b = site_inputs(n, hwc, dtype, dev, seed=seed)
@@ -738,6 +780,9 @@ def k1_vs_plain(n, hwc, act, dtype, dev, seed) -> tuple:
     if not all(torch.equal(a, c) for a, c in zip((y, mean, rstd), again)):
         raise AssertionError("two K1 forward calls differ bitwise")
     ry, rmean, rrstd = tnorm._ref_forward(x, g, b, 1e-3, act, 0.3)
+    if own_moments:
+        ry = tnorm._act((x.float() - mean[:, None, None])
+                        * rstd[:, None, None] * g + b, act, 0.3).to(dtype)
     if y.dtype != dtype or mean.shape != (n, hwc[-1]):
         raise AssertionError(f"forward output {y.dtype}, moments "
                              f"{tuple(mean.shape)}")
@@ -752,8 +797,9 @@ def k1_vs_plain(n, hwc, act, dtype, dev, seed) -> tuple:
     print(f"  ({n},{','.join(map(str, hwc))}) act={act} "
           f"{str(dtype)[6:]}: fwd {plan_line(n, hwc, dtype, 'fwd')}"
           f"; bwd {plan_line(n, hwc, dtype, 'bwd')}")
-    print(f"    fwd y/mean/rstd max abs diff {f_err:.3g}, {n_bad} "
-          "outside; bitwise repeatable")
+    print(f"    fwd y{' (of its own moments)' if own_moments else ''}"
+          f"/mean/rstd max abs diff {f_err:.3g}, {n_bad} outside; bitwise "
+          "repeatable")
     if n_bad:
         raise AssertionError("forward kernel or its moments disagree with "
                              "plain")
@@ -1364,14 +1410,15 @@ def chunk_prints(nb: int, k: int, pf: int) -> list:
     return out
 
 
-def need_captured(out: str, k1_per_step: int) -> None:
+def need_captured(out: str, k1_per_step: int, k: int = 8) -> None:
     """A CLI training run's output shows its step captured as a CUDA graph
-    with ``k1_per_step`` K1 calls each way, and no per-step fallback."""
+    with ``k1_per_step`` K1 calls each way, ``k`` steps a chunk, and no
+    per-step fallback."""
     need(" [*] train step captured as a CUDA graph" in out
          and f"(K1 calls a step: {k1_per_step} forward, {k1_per_step} "
-             "backward); 8 steps a chunk" in out,
+             f"backward); {k} steps a chunk" in out,
          "the run did not capture its step as a CUDA graph of "
-         f"{k1_per_step} + {k1_per_step} K1 calls, 8 steps a chunk")
+         f"{k1_per_step} + {k1_per_step} K1 calls, {k} steps a chunk")
     need("falling back" not in out, "the run fell back to per-step "
          "dispatch")
 
@@ -1782,56 +1829,67 @@ def unet_k1_phase(card: str, dev, errs: dict, bwd_errs: dict) -> dict:
 
 
 def unet_step_cell(card: str, dev, h: int, w: int, b: int,
-                   n_steps: int) -> dict:
+                   n_steps: int, hist: bool = False) -> dict:
     """The bf16 p2p step with the U-Net (the default nets, dropout on) at
     h x w, batch b: ``n_steps`` steps from counts of 0 with K1's exact
     calls per step by route; then img/s by CUDA events, peak memory and a
     profiler breakdown of 2 steps (by kernel and by op) with the idle
-    share.  Raises torch.cuda.OutOfMemoryError if it does not fit."""
+    share.  With ``hist``, under ``--compat_fake_history`` (b the batch
+    doubled by augmentation, a history of 9 + b), the history's count
+    after each step as the JAX step's.  Raises torch.cuda.OutOfMemoryError
+    if it does not fit."""
     from torch.profiler import ProfilerActivity, profile
 
     from sggan_tpu_torch.config import Config
     from sggan_tpu_torch.train import step as tstep
     cfg = Config(image_height=h, image_width=w, ngf=NGF, ndf=64,
-                 segment_class=N_CLASS, batch_size=b,
-                 compute_dtype="bfloat16")
+                 segment_class=N_CLASS, batch_size=b // 2 if hist else b,
+                 compute_dtype="bfloat16", compat_fake_history=hist)
     holder = [tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)]
     batch = train_batch(cfg, b, dev, seed=5)
     step_fn = tstep.build_step_fn(cfg)
     mask_gen = torch.Generator(device=dev).manual_seed(8)
+    seen = []  # the history's count after each step
 
     def one():
         masks = tstep.dropout_masks(cfg, holder[0].gen_params, mask_gen, b)
         holder[0], m = step_fn(holder[0], batch, 1e-3, None, masks)
+        seen.append(holder[0].pool.count)
         return m
     torch.cuda.reset_peak_memory_stats()
     reset_k1()  # this cell's main path starts here
     losses = torch.stack([torch.stack(list(one().values()))
                           for _ in range(n_steps)]).cpu()
     counts, routes = read_k1()
-    sites = unet_step_sites(b, h, w)
+    sites = hist_step_sites(b, h, w) if hist else unet_step_sites(b, h, w)
     per = sum(c for *_, c in sites)
     want = {d: planned(sites, d, n_steps) for d in ("fwd", "bwd")}
-    print(f"  [{card}] p2p U-Net step bf16 {h}x{w} b={b}: {n_steps} steps, "
+    label = "p2p U-Net step" + (f" with a history of {9 + b}" if hist
+                                else "")
+    print(f"  [{card}] {label} bf16 {h}x{w} b={b}: {n_steps} steps, "
           f"K1 forward {counts['fwd']}, backward {counts['bwd']} ({per} "
           f"each a step expected); by route {routes}, planned {want}; "
-          f"losses {[round(v, 4) for v in losses.flatten().tolist()]}")
+          f"losses {[round(v, 4) for v in losses.flatten().tolist()]}"
+          + (f"; the history's count {seen}" if hist else ""))
     need(counts == {"fwd": per * n_steps, "bwd": per * n_steps}
-         and routes == want, "the U-Net step's K1 calls left their count "
-                             "or their planned routes")
+         and routes == want, f"the {label}'s K1 calls left their count or "
+                             "their planned routes")
     need(bool(torch.isfinite(losses).all()) and holder[0].step == n_steps,
-         "the U-Net step's losses are not finite")
+         f"the {label}'s losses are not finite")
+    need(not hist or seen == hist_counts(b, n_steps),
+         f"the history's count {seen} is not the JAX step's "
+         f"{hist_counts(b, n_steps)}")
     iters = UNET_ITERS if b * h * w <= 2 * 128 * 128 else 4
     ms = cuda_ms(one, iters, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"  [{card}] p2p U-Net step bf16 {h}x{w} b={b}: {ms:.3f} ms, "
+    print(f"  [{card}] {label} bf16 {h}x{w} b={b}: {ms:.3f} ms, "
           f"{1e3 * b / ms:.1f} img/s, peak memory {peak:.2f} GiB")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             one()
         torch.cuda.synchronize()
-    title = f"[{card}] profiler, p2p U-Net step bf16 {h}x{w} b={b}"
+    title = f"[{card}] profiler, {label} bf16 {h}x{w} b={b}"
     print_breakdown(prof, 2, ms, title, UNET_CATEGORIES)
     busy = sum(k[0] for k in kernel_times(prof, 2))
     rows = op_rows(prof, 2, ms, title)
@@ -1851,11 +1909,33 @@ def unet_step_phase(card: str, dev) -> dict:
     tests/test_torch_unet.py explains); then the bf16 step cells at
     128x128 b=2 and at 256x512 at the largest of UNET_WIDE_B that fits."""
     from sggan_tpu_torch.config import Config
+    unet_card_vs_cpu(Config(image_height=32, image_width=64, ngf=4, ndf=4,
+                            segment_class=8, batch_size=2,
+                            compute_dtype="float32"), dev)
+    cells = {}
+    for (h, w), bs, n in (((128, 128), (UNET_B,), 6),
+                          ((256, 512), UNET_WIDE_B, 2)):
+        for b in bs:
+            try:
+                cells[f"{h}x{w}"] = unet_step_cell(card, dev, h, w, b, n)
+                break
+            except torch.cuda.OutOfMemoryError:
+                print(f"  [{card}] p2p U-Net step bf16 {h}x{w} b={b}: out "
+                      "of memory")
+            finally:
+                torch.cuda.empty_cache()
+        need(f"{h}x{w}" in cells, f"no U-Net step fits at {h}x{w}")
+    return cells
+
+
+def unet_card_vs_cpu(small, dev) -> dict:
+    """One f32 step of ``small`` (the U-Net, dropout masks fed, b=2),
+    card against CPU: phase 8's limits, or the full-width ones where a
+    generator gate falls on opposite sides on the two devices, counted.
+    Returns the losses' difference, the worst rows and the flips."""
     from sggan_tpu_torch.train import step as tstep
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    small = Config(image_height=32, image_width=64, ngf=4, ndf=4,
-                   segment_class=8, batch_size=2, compute_dtype="float32")
     loss_err, rows, _, dead_live = step_card_vs_cpu(small, 2)
     st = tstep.init_state(small, torch.Generator().manual_seed(0), "cpu")
     masks = tstep.dropout_masks(small, st.gen_params,
@@ -1878,20 +1958,9 @@ def unet_step_phase(card: str, dev) -> dict:
          and max(r[0] for r in rows) <= lim[0]
          and max(r[1] for r in rows) <= lim[1],
          "the card's U-Net step disagrees with the CPU's")
-    cells = {}
-    for (h, w), bs, n in (((128, 128), (UNET_B,), 6),
-                          ((256, 512), UNET_WIDE_B, 2)):
-        for b in bs:
-            try:
-                cells[f"{h}x{w}"] = unet_step_cell(card, dev, h, w, b, n)
-                break
-            except torch.cuda.OutOfMemoryError:
-                print(f"  [{card}] p2p U-Net step bf16 {h}x{w} b={b}: out "
-                      "of memory")
-            finally:
-                torch.cuda.empty_cache()
-        need(f"{h}x{w}" in cells, f"no U-Net step fits at {h}x{w}")
-    return cells
+    return {"loss_max_rel": loss_err, "gate_flips": flips,
+            "grad_max_rel": max(r[0] for r in rows),
+            "grad_norm_rel": max(r[1] for r in rows)}
 
 
 def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
@@ -2986,25 +3055,6 @@ K1_KERNEL = re.compile(r"\bin_(fwd_cluster|stats|apply|bwd_cluster|"
                        r"bwd_stats|bwd_apply)<")
 
 
-class Resident:
-    """A resident split made on the card from a seed, as
-    ``loader.DeviceDataset`` holds one: ``n`` uint8 photos, seg maps and
-    class maps of ``src_hw``."""
-
-    def __init__(self, n: int, src_hw, n_class: int, dev, seed: int):
-        g = torch.Generator(device=dev).manual_seed(seed)
-
-        def u8(shape, hi):
-            return torch.randint(0, hi, shape, generator=g, device=dev,
-                                 dtype=torch.uint8)
-        self.img = u8((n, *src_hw, 3), 256)
-        self.seg = u8((n, *src_hw, 3), 256)
-        self.cls = u8((n, *src_hw), n_class)
-
-    def __len__(self):
-        return self.img.shape[0]
-
-
 def graph_cases() -> dict:
     """label -> (config, K1 sites of one step) of phase 29's step cells:
     the ResNet sggan step at 256x512 b=8 doubled to 16, and the same under
@@ -3036,11 +3086,13 @@ def graph_trainer(cfg, dev, n_steps: int, seed: int = 0):
     (a pair under the cycle mode) of ``n_steps`` batches of sources
     twice the image size)."""
     from sggan_tpu_torch.train.trainer import Trainer
+    from sggan_tpu_torch.utils.hbm import SyntheticSplit
     tr = Trainer(cfg, device=dev)
     tr.lr.fill_(float(np.float32(1e-3)))
     src = (2 * cfg.image_height, 2 * cfg.image_width)
-    splits = [Resident(n_steps * cfg.batch_size, src, cfg.segment_class, dev,
-                       seed + i) for i in range(2 if tr.cycle else 1)]
+    splits = [SyntheticSplit(n_steps * cfg.batch_size, src,
+                             cfg.segment_class, dev, seed + i)
+              for i in range(2 if tr.cycle else 1)]
     return tr, tuple(splits) if tr.cycle else splits[0]
 
 
@@ -3957,6 +4009,371 @@ def forms_phases(card: str, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# --compat_fake_history, --eval_crf, the memory probe and the recon eval
+# (phases 33-35)
+# ----------------------------------------------------------------------
+
+# (h, w, b) of phase 33's step cells, b the batch doubled by augmentation:
+# the default config (a history of 11) and 256x512 b=4 doubled (17)
+HIST_CELLS = ((128, 128, UNET_B), (256, 512, 8))
+HIST_STEPS = 12
+HIST_CLI_TRAIN, HIST_CLI_EPOCHS, HIST_CLI_K = 48, 2, 4
+CRF_SMALL, CRF_BIG = (128, 128, 3), (512, 1024, 34)  # (H, W, classes)
+CRF_TIMER = r"""
+import json, sys, time
+import numpy as np
+from sggan_tpu_torch.metrics import crf
+h, w, c = map(int, sys.argv[1:4])
+t0 = time.perf_counter()
+crf._lib()
+build_s = time.perf_counter() - t0
+rng = np.random.default_rng(0)
+probs = np.ascontiguousarray(rng.dirichlet(np.ones(c), (h, w)).astype(
+    np.float32).transpose(2, 0, 1))
+img = rng.integers(0, 256, (h, w, 3), np.uint8)
+t0 = time.perf_counter()
+q = crf.dense_crf(img, probs)
+ms = 1e3 * (time.perf_counter() - t0)
+print(json.dumps({"hw": [h, w], "classes": c, "ms_per_image": ms,
+                  "finite": bool(np.isfinite(q).all()),
+                  "library_wait_s": build_s}))
+"""
+
+
+def hist_counts(b: int, n: int, count: int = 0) -> list:
+    """The history's count after each of ``n`` steps of ``b`` fakes from
+    ``count``: it grows by ``b`` until it reaches 10, then starts again
+    (sggan_tpu/train/step.py:196-201)."""
+    out = []
+    for _ in range(n):
+        count = (0 if count >= 10 else count) + b
+        out.append(count)
+    return out
+
+
+def hist_step_sites(b: int, h: int, w: int) -> list:
+    """Every instance norm of one ``--compat_fake_history`` step with the
+    U-Net at batch ``b``: the generator's 15, the discriminator's over the
+    history (N = 9 + b) in the generator loss and over [seg; history]
+    (N = b + 9 + b) in the discriminator loss."""
+    k = 9 + b
+    ds = d_sites(h, w)
+    return (unet_sites(b, h, w) + [(k, hwc, act, 1) for hwc, act in ds]
+            + [(b + k, hwc, act, 1) for hwc, act in ds])
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it: its model name, or where a
+    sandbox hides that, its vendor, family, model and clock; with the
+    logical CPUs."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break  # the first processor's fields
+            key, _, val = line.partition(":")
+            info[key.strip()] = val.strip()
+    name = info.get("model name", "")
+    if name in ("", "unknown"):
+        name = (f"{info.get('vendor_id', '?')} family "
+                f"{info.get('cpu family', '?')} model {info.get('model', '?')}"
+                f" at {info.get('cpu MHz', '?')} MHz (model name hidden)")
+    return f"{name}, {os.cpu_count()} logical CPUs"
+
+
+def crf_timer_start(hwc) -> subprocess.Popen:
+    """The native CRF on one seeded image of ``hwc`` in a process of its
+    own (host only: it runs beside the card's phases)."""
+    return subprocess.Popen([sys.executable, "-c", CRF_TIMER,
+                             *map(str, hwc)], cwd=REPO, env=repo_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def crf_timer_result(proc: subprocess.Popen) -> dict:
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode:
+        print(err[-4000:], file=sys.stderr)
+        raise AssertionError("the native CRF's timing run failed")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def hist_phase(card: str, dev) -> dict:
+    """Phase 33, in a fresh process: ``--compat_fake_history``.  Both K1
+    kernels against their plain twins at the discriminator's sites over
+    the history and over [seg; history] (N = 11, 13 at 128x128; 17, 25 at
+    256x512), f32 and bf16, each call on its planned route, the forward's
+    output of its own moments (``k1_vs_plain``'s ``own_moments``); the f32
+    history step card against CPU at 32x64 with a history of 6 earlier
+    fakes (``unet_card_vs_cpu``); the bf16 step cells of HIST_CELLS
+    (``unet_step_cell`` with the history); then the trainer's loop over a
+    resident split of the default config with the flag, eager against the
+    step's graph, bitwise (``step_graph_gate``), and both timed
+    (``loop_timing``)."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.ops import cuda_in
+    phase("33 --compat_fake_history (main path): K1 at the history's "
+          "sites, the step card vs CPU, the step cells, eager vs the "
+          "step's graph")
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    bwd_errs = dict(errs)
+    sites = list(dict.fromkeys(
+        (n, hwc, act) for h, w, b in HIST_CELLS
+        for n, hwc, act, _ in hist_step_sites(b, h, w) if n != b))
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (n, (h, w, c), act) in enumerate(sites):
+            p = {d: cuda_in.plan(n, h, w, c, dtype, d)
+                 for d in ("fwd", "bwd")}
+            reset_k1()
+            f_err, b_err = k1_vs_plain(n, (h, w, c), act, dtype, dev,
+                                       seed=330 + i, own_moments=True)
+            _, routes = read_k1()
+            need(routes == {d: {p[d].route: 2} for d in ("fwd", "bwd")},
+                 f"K1 calls left their planned route: {routes}, plan {p}")
+            name = str(dtype)[6:]
+            errs[name] = max(errs[name], f_err)
+            bwd_errs[name] = max(bwd_errs[name], b_err)
+        torch.cuda.empty_cache()
+    print(f"  K1 held to its plain twins on its planned routes at "
+          f"{len(sites)} history sites (N = "
+          f"{sorted({n for n, *_ in sites})}) x 2 dtypes")
+    small = Config(image_height=32, image_width=64, ngf=4, ndf=4,
+                   segment_class=8, batch_size=1, compute_dtype="float32",
+                   compat_fake_history=True)
+    parity = unet_card_vs_cpu(small, dev)
+    cells = {}
+    for h, w, b in HIST_CELLS:
+        cells[f"{h}x{w}"] = unet_step_cell(card, dev, h, w, b, HIST_STEPS,
+                                           hist=True)
+        torch.cuda.empty_cache()
+    cfg = Config(compat_fake_history=True, save_freq=0, print_freq=1000,
+                 data_seed=33)
+    tr, ds = graph_trainer(cfg, dev, GRAPH_STEPS)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gate = step_graph_gate(card, "hist_unet_b2", tr, ds,
+                               hist_step_sites(UNET_B, 128, 128))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    timing = loop_timing(card, "hist_unet_b2", tr, ds)
+    return {"k1_max_abs_err": {"fwd": errs, "bwd": bwd_errs},
+            "f32_card_vs_cpu": parity, "step": cells, "graph": gate,
+            "timing": timing}
+
+
+def hist_cli_phase(card: str, dev, work: str, root: str, crf_big,
+                   graphs: dict) -> dict:
+    """Phase 34.  ``python -m sggan_tpu_torch.main --compat_fake_history
+    --eval_crf --scan_steps 4`` with no net or loss flag on phase 20's PNG
+    set: train HIST_CLI_EPOCHS epochs (through the step's graph, finite
+    losses, the saved history's count that of the JAX step), then resume
+    for one epoch (the count continues); the eval of the checkpoint
+    in-process, each fake refined with the CRF; the CRF library held to
+    the numpy mean field at 16x16 and timed on the host (``crf_big``: the
+    512x1024x34 image's process, started before phase 29); the MFU of
+    phase 29's graph steps."""
+    from sggan_tpu_torch.config import parse_args
+    from sggan_tpu_torch.metrics import crf
+    from sggan_tpu_torch.train import evaluate
+    from sggan_tpu_torch.train.trainer import Trainer
+    from sggan_tpu_torch.utils import checkpoint as ckpt
+    from sggan_tpu_torch.utils import flops
+    args = ["--dataset_dir", root, "--train_size", str(HIST_CLI_TRAIN),
+            "--print_freq", "1000", "--data_seed", "34",
+            "--compat_fake_history", "--eval_crf", "--scan_steps",
+            str(HIST_CLI_K)]
+    run_dir = os.path.join(work, "hist_cli")
+    os.makedirs(run_dir)
+    ck = os.path.join(run_dir, "checkpoint", "city")
+
+    def saved(epoch: int) -> dict:
+        return torch.load(os.path.join(ck, "train", f"cp-{epoch:04d}.pt"),
+                          weights_only=True)
+
+    out, dt = run_cli(run_dir, f"--compat_fake_history --eval_crf "
+                      f"--scan_steps {HIST_CLI_K}, train {HIST_CLI_EPOCHS} "
+                      "epochs", ["--phase", "train", "--epoch",
+                                 str(HIST_CLI_EPOCHS), *args])
+    need(" [*] training split resident" in out,
+         "the history run did not take the resident split")
+    per = sum(c for *_, c in hist_step_sites(UNET_B, 128, 128))
+    need_captured(out, per, HIST_CLI_K)
+    losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
+    need(len(losses) == HIST_CLI_EPOCHS
+         and all(math.isfinite(v) for p in losses for v in p),
+         f"losses not finite at every print: {losses}")
+    n = HIST_CLI_EPOCHS * HIST_CLI_TRAIN
+    first = saved(HIST_CLI_EPOCHS - 1)
+    need(first["step"] == n
+         and first["pool_count"] == hist_counts(UNET_B, n)[-1]
+         and first["pool_buffer"]["fake"].shape == (9 + UNET_B, 128, 128, 3),
+         f"the checkpoint's history: step {first['step']}, count "
+         f"{first['pool_count']}, not {n} and {hist_counts(UNET_B, n)[-1]}")
+    out, dt_resume = run_cli(run_dir, "resume for 1 epoch",
+                             ["--phase", "train", "--continue_train",
+                              "--epoch", "1", *args])
+    again = saved(HIST_CLI_EPOCHS)
+    want = hist_counts(UNET_B, n + HIST_CLI_TRAIN)[-1]
+    print(f"  the history's count: {first['pool_count']} after {n} steps, "
+          f"{again['pool_count']} after the resume's {HIST_CLI_TRAIN} "
+          f"(continued: {want}; started again: "
+          f"{hist_counts(UNET_B, HIST_CLI_TRAIN)[-1]})")
+    need(" [*] Load SUCCESS" in out and again["step"] == n + HIST_CLI_TRAIN
+         and again["pool_count"] == want,
+         "--continue_train did not continue the history's count")
+
+    # the eval of the checkpoint, in-process: every fake refined
+    own = os.path.join(work, "hist_eval")
+    cfg = parse_args(["--phase", "test", *args,
+                      *(x for d in ("checkpoint", "test", "sample", "log")
+                        for x in (f"--{d}_dir", os.path.join(
+                            run_dir if d == "checkpoint" else own, d)))])
+    tr = Trainer(cfg, device=dev)
+    tr.state = ckpt.load(tr.state, cfg.checkpoint_dir, cfg.dataset_dir)
+    calls = []
+    plain_crf = evaluate.dense_crf
+
+    def counted(img, probs):
+        calls.append(probs.shape)
+        return plain_crf(img, probs)
+    evaluate.dense_crf = counted
+    try:
+        t0 = time.perf_counter()
+        _, score = tr.test_during_train(0)
+        eval_s = time.perf_counter() - t0
+    finally:
+        evaluate.dense_crf = plain_crf
+    tr.cfg = cfg.replace(eval_crf=False)
+    _, plain = tr.test_during_train(0)
+    print(f"  the eval under --eval_crf: {len(calls)} fakes refined "
+          f"({calls[:1]}) in {eval_s:.2f} s; Mean IoU {score['Mean IoU']} "
+          f"(without the CRF {plain['Mean IoU']}), Overall Acc "
+          f"{score['Overall Acc']} ({plain['Overall Acc']})")
+    need(len(calls) == E2E_TEST and calls[0] == (3, 128, 128),
+         "the eval did not refine every fake with the CRF")
+    del tr
+    torch.cuda.empty_cache()
+
+    # the library, from native/crf/ into sggan_tpu_torch/_build/
+    lib = crf._lib()
+    rng = np.random.default_rng(16)
+    probs = np.ascontiguousarray(rng.dirichlet(np.ones(3) * 2.0, (16, 16))
+                                 .astype(np.float32).transpose(2, 0, 1))
+    img = rng.integers(0, 255, (16, 16, 3), np.uint8)
+    q_np = crf._mean_field_numpy(np.ascontiguousarray(
+        crf.unary_from_softmax(probs).transpose(1, 2, 0)), img, crf.MAX_ITER)
+    agree = float((crf.dense_crf(img, probs).argmax(0)
+                   == q_np.transpose(2, 0, 1).argmax(0)).mean())
+    need(agree > 0.9, f"the native CRF agrees with the numpy mean field on "
+                      f"{agree:.3f} of the pixels at 16x16")
+    h, w, c = CRF_SMALL
+    probs = np.ascontiguousarray(rng.dirichlet(np.ones(c), (h, w)).astype(
+        np.float32).transpose(2, 0, 1))
+    img = rng.integers(0, 256, (h, w, 3), np.uint8)
+    crf.dense_crf(img, probs)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        crf.dense_crf(img, probs)
+    small_ms = 1e3 * (time.perf_counter() - t0) / 5
+    big = crf_timer_result(crf_big)
+    need(big["finite"], "the CRF's 512x1024x34 output is not finite")
+    cpu = host_cpu()
+    print(f"  the native CRF ({os.path.basename(lib._name)}, built from "
+          f"native/crf/): agrees with the numpy mean field on {agree:.3f} "
+          f"of 16x16; {small_ms:.1f} ms an image at {h}x{w}x{c}, "
+          f"{big['ms_per_image']:.1f} ms at "
+          f"{'x'.join(map(str, CRF_BIG))}, one host thread of {cpu} "
+          f"(host times, beside {card})")
+
+    # MFU of phase 29's graph steps (a loop step, batch assembly included)
+    peak = BF16_FLOPS_PER_S
+    mfu = {}
+    for label, fl in (
+            ("sggan_resnet_b16", flops.sggan_train_step(H, W, B_TRAIN, NGF,
+                                                        64, N_CLASS)),
+            ("cycle_resnet_b8", flops.cycle_train_step(H, W, CYCLE_B, NGF,
+                                                       64, N_CLASS))):
+        ms = graphs["timing"][label]["graph"]["step_ms"]
+        mfu[label] = {"step_flops": fl["step_flops"], "graph_step_ms": ms,
+                      "tflops_per_s": fl["step_flops"] / ms / 1e9,
+                      "mfu": fl["step_flops"] / (ms * 1e-3) / peak}
+        print(f"  [{card}] {label}: {fl['step_flops'] / 1e12:.3f} TFLOP a "
+              f"step (utils/flops.py) in {ms:.3f} ms through the graph: "
+              f"{mfu[label]['tflops_per_s']:.1f} TFLOP/s, MFU "
+              f"{100 * mfu[label]['mfu']:.2f}% of {peak / 1e12:.0f} "
+              "TFLOP/s dense bf16")
+    return {"cli_train_s": dt, "cli_resume_s": dt_resume,
+            "count_after": [first["pool_count"], again["pool_count"]],
+            "eval_crf": {"refined": len(calls), "seconds": eval_s,
+                         "score": {k: score[k] for k in (
+                             "Overall Acc", "Mean IoU")},
+                         "without_crf": {k: plain[k] for k in (
+                             "Overall Acc", "Mean IoU")}},
+            "crf": {"host_cpu": cpu, "threads": 1, "agree_16x16": agree,
+                    "ms_per_image": {"x".join(map(str, CRF_SMALL)): small_ms,
+                                     "x".join(map(str, CRF_BIG)):
+                                     big["ms_per_image"]}},
+            "mfu": mfu}
+
+
+def probe_recon_phase(card: str, work: str, root: str) -> dict:
+    """Phase 35.  ``python -m sggan_tpu_torch.utils.hbm`` in fresh
+    processes: the ResNet sggan step at 2048x1024 under ``--remat`` at
+    b=12 doubled to 24 (phase 32: it fits) must fit; at b=64 doubled to
+    128 without it must run out of memory, with the bytes of torch's
+    message parsed.  Then ``python -m sggan_tpu_torch.cycle_recon_eval``
+    on phase 25's checkpoint, trainB as the B side: finite scores, both
+    strips."""
+    base = ["--use_resnet", "--loss_mode", "sggan", "--img_height", "1024",
+            "--img_width", "2048", "--segment_class", str(N_CLASS),
+            "--probe_kind", "step"]
+    probes = {}
+    for label, extra in (("fit", ["--remat", "--batch_size", "12",
+                                  "--probe_items", "12"]),
+                         ("oom", ["--batch_size", "64", "--probe_items",
+                                  "64"])):
+        out, dt = run_cli(work, f"the memory probe, {label}", base + extra,
+                          module="sggan_tpu_torch.utils.hbm")
+        res = json.loads(out.strip().splitlines()[-1])
+        res["seconds"] = dt
+        probes[label] = res
+        print(f"  [{card}] probe {label}: fits {res.get('fits')}, peak "
+              f"{res.get('total_bytes', 0) / 2 ** 30:.2f} GiB allocated of "
+              f"{res.get('device_total_bytes', 0) / 2 ** 30:.2f}"
+              + (f"; the OOM's bytes: used {res['oom_used_bytes']}, limit "
+                 f"{res['oom_limit_bytes']}, tried "
+                 f"{res.get('oom_tried_bytes')}"
+                 if "oom_used_bytes" in res else ""))
+    fit, oom = probes["fit"], probes["oom"]
+    need(fit.get("fits") is True and fit["kind"] == "step"
+         and 0 < fit["total_bytes"] <= fit["device_total_bytes"],
+         f"the probe of a batch that fits: {fit}")
+    need(oom.get("fits") is False and "error" in oom
+         and oom.get("oom_limit_bytes", 0) > 0
+         and oom.get("oom_used_bytes", 0) > 0,
+         f"the probe of a batch that does not fit: {oom}")
+    run_dir = os.path.join(work, "cycle_cli")
+    out, dt = run_cli(work, "phase 25's checkpoint",
+                      [run_dir, os.path.join(root, "trainB"),
+                       "use_resnet=true", f"image_height={H}",
+                       f"image_width={W}", f"segment_class={N_CLASS}",
+                       f"dataset_dir={root}"],
+                      module="sggan_tpu_torch.cycle_recon_eval")
+    line = [ln for ln in out.splitlines() if ln.startswith("RECON ")]
+    rec = json.loads(line[0][len("RECON "):]) if line else {}
+    strips = [os.path.join(run_dir, "recon", f"{d}_fake_recon.png")
+              for d in "ab"]
+    print(f"  [{card}] cycle recon on phase 25's checkpoint: {rec}")
+    need(rec.keys() >= {"cyc_a_l1", "idt_a_l1", "cyc_b_l1", "idt_b_l1"}
+         and all(math.isfinite(v) for v in rec.values())
+         and all(os.path.isfile(p) for p in strips),
+         "cycle_recon_eval gave no finite scores or no strips")
+    return {"probe": probes, "recon": rec, "recon_s": dt}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4497,15 +4914,38 @@ def main() -> int:
         if selftest.poll() is None:
             selftest.kill()
             selftest.communicate()
+
+    # the native CRF at 512x1024x34 on the host, beside phases 29-33
+    crf_big = crf_timer_start(CRF_BIG)
+    try:
+        phase("29 CUDA graphs (main path): --scan_steps K in every loss "
+              "mode, eager beside the graph; the forward graphs")
+        graphs = run_fresh(card, "graphs_phase", 600)
+        graphs["forward"] = run_fresh(card, "forward_graph_gate", 300)
+
+        # phases 30-32 and 33 print their own headers
+        forms = run_fresh(card, "forms_phases", 700)
+        hist = run_fresh(card, "hist_phase", 600)
+        for d, e in (("fwd", errs), ("bwd", bwd_errs)):
+            for dt in (torch.float32, torch.bfloat16):
+                e[dt] = max(e[dt], hist["k1_max_abs_err"][d][str(dt)[6:]])
+
+        phase("34 the default CLI with --compat_fake_history --eval_crf "
+              f"--scan_steps {HIST_CLI_K} (main path); the native CRF; "
+              "the MFU of the graph steps")
+        hist["cli"] = hist_cli_phase(card, dev, work,
+                                     os.path.join(work, "datasets", "city"),
+                                     crf_big, graphs)
+    finally:
+        if crf_big.poll() is None:
+            crf_big.kill()
+            crf_big.communicate()
+
+    phase("35 the memory probe (python -m sggan_tpu_torch.utils.hbm) and "
+          "python -m sggan_tpu_torch.cycle_recon_eval")
+    tools = probe_recon_phase(card, work,
+                              os.path.join(work, "datasets", "city"))
     shutil.rmtree(work)
-
-    phase("29 CUDA graphs (main path): --scan_steps K in every loss mode, "
-          "eager beside the graph; the forward graphs")
-    graphs = run_fresh(card, "graphs_phase", 600)
-    graphs["forward"] = run_fresh(card, "forward_graph_gate", 300)
-
-    # phases 30-32 print their own headers
-    forms = run_fresh(card, "forms_phases", 700)
 
     def entry(name, d, replaces, launches, errs_d):
         return {"name": name, "route": "cuda",
@@ -4618,6 +5058,19 @@ def main() -> int:
             "CUDA graph, one step's (phase 29); graph_kernels_per_replay: "
             "the calls its kernels in a profiler window of the replays "
             "make, per replay")
+        # --compat_fake_history (phases 33-34)
+        ent["hist_step_per_step"] = {
+            k: {"calls": c["k1_per_step"][d],
+                "routes": c["k1_routes_per_step"][d]}
+            for k, c in hist["step"].items()}
+        ent["launches_hist_graph_capture"] = hist["graph"]["k8"][
+            "k1_at_capture"][d]
+        ent["hist_step_per_step_is"] = (
+            "calls of one bf16 --compat_fake_history step of the default "
+            "config (the discriminator over the history of 9 + b and over "
+            "[seg; history]) at 128x128 b=2 and 256x512 b=8 (phase 33); "
+            "launches_hist_graph_capture: by route, recorded at the "
+            "capture of that step's graph at 128x128")
         # --remat (phase 32)
         ent["launches_remat"] = {k: v["k1_remat"][d] for k, v in
                                  forms["remat"]["steps"].items()}
@@ -4688,6 +5141,19 @@ def main() -> int:
                   "step 256x512 b=8, bf16; the largest batch of the ResNet "
                   "sggan step at 2048x1024 and the cycle step at 512x1024",
         **forms}}))
+    print(card)
+    print(json.dumps({"hist_tools": {
+        "config": "phase 33: --compat_fake_history with the default nets "
+                  "(U-Net ngf 64, semantic D ndf 64, p2p, dropout, 34 "
+                  "classes, bf16), 128x128 b=1 doubled to 2 (a history of "
+                  "11) and 256x512 b=4 doubled to 8 (17), the step's graph "
+                  "at 128x128; phase 34: the default CLI with "
+                  "--compat_fake_history --eval_crf --scan_steps 4 on "
+                  "phase 16's PNG set, --train_size 48; the native CRF on "
+                  "one host thread; the MFU of phase 29's graph steps; "
+                  "phase 35: utils.hbm's sggan ResNet step at 2048x1024, "
+                  "cycle_recon_eval on phase 25's checkpoint",
+        **hist, **tools}}))
     from sggan_tpu_torch.perf_in import EVENT_TIMED
     print(f"  profiler: {len(EVENT_TIMED)} device_ms calls found no kernel "
           f"in any trace and were timed by CUDA events: {EVENT_TIMED}")

@@ -1,1 +1,1 @@
-"""Segmentation scores (``scores``)."""
+"""Segmentation scores (``scores``) and the dense CRF (``crf``)."""

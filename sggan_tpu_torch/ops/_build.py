@@ -4,6 +4,9 @@ The shared library has a plain C interface, bound with ``ctypes`` by the
 wrapper; it does not include PyTorch's headers, so it builds in seconds.
 It goes into ``sggan_tpu_torch/_build/`` (ignored by git), named by a
 hash of the source and the flags, so an edited source builds anew.
+``build_host`` builds host C++ the same way with ``g++`` (``$CXX``): the
+dense CRF's permutohedral lattice from ``native/crf/`` (``metrics/crf.py``),
+whose tracked directory it only reads.
 Nothing here runs at import: the CPU tests import every module on a
 machine without nvcc.
 """
@@ -18,13 +21,14 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 
 def _nvcc() -> str:
@@ -38,15 +42,17 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def build(name: str) -> Tuple[Path, str, bool]:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    library's path, nvcc's output (ptxas register and spill report, kept
+def _compile(name: str, files: Sequence[Path], compiler: str,
+             flags: Sequence[str]) -> Tuple[Path, str, bool]:
+    """``compiler flags -o lib<name>-<hash>.so <sources>`` unless that
+    library exists (the hash is of ``files``, the sources and headers, and
+    the flags); returns the library's path, the compiler's output (kept
     beside the library, so a later call returns it too) and whether this
-    call compiled it."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    call compiled it.  A failed build raises with the compiler's output."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in files:
+        h.update(f.read_bytes())
+    lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         return lib, log.read_text() if log.exists() else "", False
@@ -54,12 +60,13 @@ def build(name: str) -> Tuple[Path, str, bool]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     tmp_log = tmp + ".log"
+    srcs = [str(f) for f in files if f.suffix in (".cu", ".cpp")]
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([compiler, *flags, "-o", tmp, *srcs],
                               capture_output=True, text=True)
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
-                               f"{proc.stderr}")
+            raise RuntimeError(f"{compiler} failed on {' '.join(srcs)}:\n"
+                               f"{proc.stdout}{proc.stderr}")
         # the log before the library, each atomic: a concurrent loader sees
         # all of a file or none
         Path(tmp_log).write_text(proc.stdout + proc.stderr)
@@ -70,6 +77,24 @@ def build(name: str) -> Tuple[Path, str, bool]:
             if os.path.exists(t):
                 os.unlink(t)
     return lib, proc.stdout + proc.stderr, True
+
+
+def build(name: str) -> Tuple[Path, str, bool]:
+    """Compile ``csrc/<name>.cu`` with nvcc unless its library exists (see
+    ``_compile``); the output is nvcc's ptxas register and spill
+    report."""
+    return _compile(name, [CSRC / f"{name}.cu"], _nvcc(), NVCC_FLAGS)
+
+
+def build_host(name: str, files: Sequence[Path]) -> Tuple[Path, str, bool]:
+    """Compile the host C++ sources among ``files`` (headers hashed too)
+    into one shared library with ``$CXX`` (default ``g++``), as
+    ``native/crf/Makefile`` does, unless it exists (see ``_compile``)."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("g++ not found (PATH, $CXX): the native CRF is "
+                           "built from native/crf/ at first use")
+    return _compile(name, files, cxx, CXX_FLAGS)
 
 
 @functools.cache

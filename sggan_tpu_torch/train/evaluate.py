@@ -12,7 +12,9 @@ ones do.  Under ``--loss_mode cycle`` they run the generator of
 trained parameters (``eval_generator``).  Every net runs in inference
 mode: the pix2pix generator's batch norms on the moving stats of the
 train state (``state.gen_bn``), under ``--gen_ema`` too, and no dropout.
-``--eval_crf`` is not ported yet.
+Under ``--eval_crf`` the epoch-end eval refines each fake's three
+channels with the dense CRF against the input photo on the host
+(``metrics/crf.py``) before it scores them (evaluate.py:166-189).
 """
 
 from __future__ import annotations
@@ -28,15 +30,13 @@ import torch
 from ..config import Config
 from ..data.loader import load_test_triplet, test_files
 from ..data.preprocess import fake_u8, preprocess_test, seg_labels_u8
+from ..metrics.crf import dense_crf
 from ..metrics.scores import scores, scores_seg_fake
 from ..utils import checkpoint as ckpt
 from ..utils.cuda_graph import ForwardGraphs
 from ..utils.images import imsave, merge, save_images
 from ..utils.summary import SummaryWriter
 from .step import new_generator, pad_free_head
-
-CRF_TODO = ("--eval_crf is not ported yet (ROADMAP Queue 1: eval, "
-            "checkpoints, summaries: the CRF)")
 
 
 def sharpen(y: torch.Tensor, t: float) -> torch.Tensor:
@@ -154,10 +154,10 @@ def test_during_train(tr, epoch: int,
     scalars under the reference's tags.  The ground-truth labels are
     pulled once per run (cached by chunk paths and size).  Returns
     (fakes as (N, H, W, 3) uint8, score dict), or (None, None) without
-    test files."""
+    test files.  Under ``--eval_crf`` the input photos come to the host
+    too, and each fake is refined with the dense CRF against its photo
+    before it is scored (its PNG is the generator's)."""
     cfg = tr.cfg
-    if cfg.eval_crf:
-        raise NotImplementedError(CRF_TODO)
     files = test_files(tr.root)
     if not files:
         return None, None
@@ -179,6 +179,8 @@ def test_during_train(tr, epoch: int,
         if seg_np is None:
             seg_np = seg_labels_u8(seg).cpu().numpy()
             tr._eval_seg_cache[seg_key] = seg_np
+        if cfg.eval_crf:
+            img_np = img.cpu().numpy()
         for i, path in enumerate(paths):
             fake = fakes[i:i + 1]
             imsave(fake, [1, 1], os.path.join(cfg.test_dir,
@@ -186,6 +188,15 @@ def test_during_train(tr, epoch: int,
             fake_img = merge(fake, [1, 1])
             fake_img = fake_img.reshape(1, *fake_img.shape)
             outputs.append(fake_img[0])
+            if cfg.eval_crf:
+                # the fake's channels as (C, H, W) scores in [0, 1],
+                # refined against the photo (the reference's dormant
+                # get_labels(crf=True), model.py:278-305)
+                q = dense_crf((img_np[i] * 255).astype(np.uint8),
+                              np.ascontiguousarray(fake_img[0].astype(
+                                  np.float32).transpose(2, 0, 1) / 255.0))
+                fake_img = (np.ascontiguousarray(q.transpose(1, 2, 0))[None]
+                            * 255).astype(np.uint8)
             lt, lp = scores_seg_fake(
                 seg_np[i:i + 1], fake_img,
                 compat_eval_overflow=cfg.compat_eval_overflow)

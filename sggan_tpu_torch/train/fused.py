@@ -12,7 +12,9 @@ and the EMA (``train/step.py``).  Its static inputs are the trainer's
 ``lr`` tensor and one int64 row a step, copied into place before each
 replay: each split's batch indices in the epoch's order, then the pool's
 output and buffer rows, which ``pool.plan_steps`` plans on the host for
-the chunk's K steps from K steps of the pool's host draws.  The trainer's
+the chunk's K steps from K steps of the pool's host draws (under
+``--compat_fake_history`` the fake history's valid entries and rows,
+which ``pool.plan_hist_steps`` plans from the count).  The trainer's
 device generator is registered with the graph, so replay k draws what
 the k-th eager step would.  Before the capture two steps warm the step up
 on the capture's stream, from a snapshot of every tensor they write and
@@ -59,8 +61,9 @@ from ..data.preprocess import (PreprocessDraws, draw_preprocess,
                                preprocess_train)
 from ..ops import cuda_in
 from ..utils import cuda_graph
-from .pool import PoolPlan, plan_steps, pool_draws
-from .step import dropout_masks, pools, state_tensors
+from .pool import (HistPlan, PoolPlan, plan_hist_steps, plan_steps,
+                   pool_draws)
+from .step import compat_hist, dropout_masks, pools, state_tensors
 
 B_SEED_OFFSET = 7919  # trainB's shuffle seed is data_seed + 7919
 
@@ -169,17 +172,25 @@ def run_epoch_fused(tr, epoch: int, dev_ds, make_batch, g_losses: list,
     orders = [torch.from_numpy(order).to(ds.img.device)
               for ds, order in zip(splits, epoch_orders(cfg, splits, epoch))]
     for done in range(min(len(ds) for ds in splits) // b):
-        draws, pdraws, masks = step_draws(
-            tr, *(ds.img.shape[1] for ds in splits))
-        batches = [make_batch(ds.img, ds.seg, ds.cls,
-                              order[done * b:(done + 1) * b], d)
-                   for ds, order, d in zip(
-                       splits, orders, draws if tr.cycle else (draws,))]
-        batch = two_domain(*batches) if tr.cycle else batches[0]
-        tr.state, m = tr.step_fn(tr.state, batch, tr.lr, pdraws, masks)
+        m = resident_step(tr, splits, make_batch,
+                          [o[done * b:(done + 1) * b] for o in orders])
         global_step = end_step(tr, epoch, done, m, effective_batch(cfg),
                                g_losses, d_losses, global_step, start_time)
     return global_step
+
+
+def resident_step(tr, splits, make_batch, idxs) -> dict:
+    """One eager step over the resident ``splits`` (one, or trainA and
+    trainB), the batch rows ``idxs`` (an int64 tensor of ``batch_size``
+    rows a split, on the device): draws, batch assembly, the step.
+    Updates ``tr.state``; returns the step's metrics."""
+    draws, pdraws, masks = step_draws(tr, *(ds.img.shape[1] for ds in splits))
+    batches = [make_batch(ds.img, ds.seg, ds.cls, ix, d)
+               for ds, ix, d in zip(splits, idxs,
+                                    draws if tr.cycle else (draws,))]
+    batch = two_domain(*batches) if tr.cycle else batches[0]
+    tr.state, m = tr.step_fn(tr.state, batch, tr.lr, pdraws, masks)
+    return m
 
 
 def epoch_orders(cfg, splits, epoch: int) -> list:
@@ -208,10 +219,12 @@ class StepGraph:
         slots = next(iter(tr.state.pool.buffer.values())).shape[0]
         b = cfg.batch_size
         # a step's row: each split's batch indices, the pool's output
-        # rows, then its buffer rows
+        # rows, then its buffer rows (the history's valid entries, then
+        # its rows)
+        self.hist = compat_hist(cfg)
+        out_w = slots if self.hist else effective_batch(cfg)
         self.cuts = [i * b for i in range(len(self.splits) + 1)]
-        self.cuts += [self.cuts[-1] + effective_batch(cfg),
-                      self.cuts[-1] + effective_batch(cfg) + slots]
+        self.cuts += [self.cuts[-1] + out_w, self.cuts[-1] + out_w + slots]
         self.rows = torch.zeros(self.cuts[-1], dtype=torch.int64,
                                 device=self.splits[0].img.device)
         self.graph = self.losses = self.k1_calls = None
@@ -228,8 +241,10 @@ class StepGraph:
                    for i, (ds, d) in enumerate(zip(
                        self.splits, draws if tr.cycle else (draws,)))]
         batch = two_domain(*batches) if tr.cycle else batches[0]
-        plan = PoolPlan(self.rows[c[-3]:c[-2]], self.rows[c[-2]:],
-                        tr.state.pool.count)
+        out, buf, count = (self.rows[c[-3]:c[-2]], self.rows[c[-2]:],
+                           tr.state.pool.count)
+        plan = (HistPlan(buf, out, count) if self.hist
+                else PoolPlan(out, buf, count))
         _, m = tr.step_fn(tr.state, batch, tr.lr, plan, masks)
         return torch.stack([m["gen_loss"], m["disc_loss"]])
 
@@ -293,6 +308,31 @@ def _k1_counts() -> tuple:
             dict(cuda_in.route_launches))
 
 
+def run_chunk(tr, graph: StepGraph, ix) -> torch.Tensor:
+    """The ``kc`` steps of one chunk through ``graph``, each split's batch
+    rows ``ix`` (kc, batch_size) int64 on the host: the pool's host draws
+    (drawn as an eager step draws them, whether the step pools or not) and
+    its rows or the history's, planned for the chunk.  Advances
+    ``tr.state``'s step and pool count; returns the losses (kc, 2) on the
+    device."""
+    cfg = tr.cfg
+    kc, b_eff = len(ix[0]), effective_batch(cfg)
+    slots = next(iter(tr.state.pool.buffer.values())).shape[0]
+    draws = [pool_draws(tr.pool_gen, b_eff, cfg.max_size) for _ in range(kc)]
+    count = tr.state.pool.count
+    if pools(cfg):
+        out_rows, buf_rows, count = plan_steps(slots, count, draws)
+    elif graph.hist:
+        out_rows, buf_rows, count = plan_hist_steps(slots, count, b_eff, kc)
+    else:  # rows the step does not read
+        out_rows = np.zeros((kc, b_eff), np.int64)
+        buf_rows = np.zeros((kc, slots), np.int64)
+    m = graph.run(np.concatenate([*ix, out_rows, buf_rows], axis=1))
+    tr.state = tr.state._replace(step=tr.state.step + kc,
+                                 pool=tr.state.pool._replace(count=count))
+    return m
+
+
 def run_epoch_chunked(tr, epoch: int, graph: StepGraph, g_losses: list,
                       d_losses: list, global_step: int,
                       start_time: float) -> int:
@@ -302,25 +342,12 @@ def run_epoch_chunked(tr, epoch: int, graph: StepGraph, g_losses: list,
     cfg = tr.cfg
     b, b_eff, pf = cfg.batch_size, effective_batch(cfg), cfg.print_freq
     orders = epoch_orders(cfg, graph.splits, epoch)
-    slots = next(iter(tr.state.pool.buffer.values())).shape[0]
     nb = min(len(ds) for ds in graph.splits) // b
     done = 0
     while done < nb:
         kc = min(cfg.scan_steps, nb - done)
-        # drawn as an eager step draws them, whether the step pools or not
-        draws = [pool_draws(tr.pool_gen, b_eff, cfg.max_size)
-                 for _ in range(kc)]
-        count = tr.state.pool.count
-        if pools(cfg):
-            out_rows, buf_rows, count = plan_steps(slots, count, draws)
-        else:  # rows the step does not read
-            out_rows = np.zeros((kc, b_eff), np.int64)
-            buf_rows = np.zeros((kc, slots), np.int64)
-        ix = [o[done * b:(done + kc) * b].reshape(kc, b) for o in orders]
-        m = graph.run(np.concatenate([*ix, out_rows, buf_rows], axis=1))
-        tr.state = tr.state._replace(
-            step=tr.state.step + kc,
-            pool=tr.state.pool._replace(count=count))
+        m = run_chunk(tr, graph, [o[done * b:(done + kc) * b].reshape(kc, b)
+                                  for o in orders])
         g_losses.extend(m[:, 0].unbind())
         d_losses.extend(m[:, 1].unbind())
         tr._timer.mark(kc * b_eff)

@@ -17,6 +17,13 @@ CUDA graph of the step cannot copy a new index to the device at each
 replay, so ``plan_steps`` plans K updates at once from K steps' draws
 (the count follows from them) and the step reads each update's rows from
 a buffer on the device (``PoolPlan``).
+
+The fake history of ``--compat_fake_history`` (the reference's
+concat-to-10-then-reset, model.py:175-179; ``sggan_tpu/train/step.py``'s
+``compat_hist`` branch) is planned the same way: its offset, valid
+prefix and count follow from the count alone, so ``hist_plan`` and
+``plan_hist_steps`` give the rows of [history; fakes] that form the new
+history and its valid entries (``HistPlan``), and the step gathers them.
 """
 
 from __future__ import annotations
@@ -44,6 +51,56 @@ class PoolPlan(NamedTuple):
     out: torch.Tensor  # (B,) the output's rows
     buf: torch.Tensor  # (slots,) the new buffer's rows
     count: int
+
+
+class HistPlan(NamedTuple):
+    """One update of the fake history planned ahead: the rows of the
+    table [history; fakes] that form the new history and 1 where its
+    entry is valid, int64 tensors of one row a slot on the buffer's
+    device, and the count after it."""
+    rows: torch.Tensor   # (slots,)
+    valid: torch.Tensor  # (slots,)
+    count: int
+
+
+HIST_RESET = 10  # the history starts again once it holds this many
+
+
+def _hist(slots: int, count: int, b: int
+          ) -> Tuple[List[int], List[int], int]:
+    """The JAX step's history update as rows: the ``b`` fakes written at
+    ``offset`` (0 once ``count`` reached ``HIST_RESET``, else ``count``),
+    the entries below ``offset + b`` valid, ``offset + b`` the new
+    count."""
+    offset = 0 if count >= HIST_RESET else count
+    if offset + b > slots:
+        raise ValueError(f"a history of {slots} slots at count {count} "
+                         f"cannot take {b} more fakes")
+    rows = [slots + j - offset if offset <= j < offset + b else j
+            for j in range(slots)]
+    return rows, [int(j < offset + b) for j in range(slots)], offset + b
+
+
+def hist_plan(slots: int, count: int, b: int, device) -> HistPlan:
+    """The next history update of ``b`` fakes at ``count``, on
+    ``device``."""
+    rows, valid, count = _hist(slots, count, b)
+    device = torch.device(device)
+    return HistPlan(_index(rows, device), _index(valid, device), count)
+
+
+def plan_hist_steps(slots: int, count: int, b: int, k: int
+                    ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """``k`` history updates of ``b`` fakes in order from ``count``: the
+    valid entries (k, slots), the rows (k, slots) and the count after the
+    last."""
+    rows, valid = [], []
+    for _ in range(k):
+        r, v, count = _hist(slots, count, b)
+        rows.append(r)
+        valid.append(v)
+    return (np.array(valid, np.int64).reshape(k, slots),
+            np.array(rows, np.int64).reshape(k, slots), count)
 
 
 def pool_init(max_size: int, item_shapes: Mapping[str, Tuple[int, ...]],

@@ -21,10 +21,20 @@ call runs in inference mode on the pre-step state (``_gen_fwd`` and
 ``_disc_fwd`` of the JAX step); the pix2pix pool holds fakes only.  The
 generator runs with ``--remat`` (the ResNet's resblocks or the U-Net's
 stages recomputed in the backward) and the ResNet head that
-``pad_free_head`` picks, as the JAX step's ``_gen_fwd``.  Not ported yet,
-each raising ``NotImplementedError`` that names its ROADMAP item:
-``--compat_fake_history`` and data parallelism (``axis_name``), in every
-loss mode.
+``pad_free_head`` picks, as the JAX step's ``_gen_fwd``.
+
+``--compat_fake_history`` (p2p, the semantic nets: ``compat_hist``) is
+the reference's own dynamics (model.py:175-179): an f32 history of
+9 + b_eff fakes whose count grows by the batch until it reaches 10, then
+starts again; the generator loss judges the whole history, with this
+step's fakes written into it (the gradient reaches only those rows), and
+the discriminator loss the detached history, each entry against the
+current batch's mask and seg tiled to the history's length (the
+reference's quirk).  The update's rows are planned on the host
+(``pool.hist_plan``), so a CUDA graph of the step reads them from a
+buffer.  Under the pix2pix nets the flag is ignored, as in JAX.  Not
+ported yet, raising ``NotImplementedError`` that names its ROADMAP item:
+data parallelism (``axis_name``, the meshes), in every loss mode.
 
 Adam is optax's ``scale_by_adam`` (betas (beta1, 0.999), eps 1e-7, the
 Keras default, not optax's 1e-8) with the learning rate applied outside the
@@ -67,7 +77,8 @@ import torch
 from .. import losses
 from ..models import build
 from ..ops import dropout_masks as _draw_masks
-from .pool import PoolDraws, PoolPlan, PoolState, pool_init, pool_update
+from .pool import (HistPlan, PoolDraws, PoolPlan, PoolState, hist_plan,
+                   pool_init, pool_update)
 
 ADAM_EPS = 1e-7
 ADAM_B2 = 0.999
@@ -108,16 +119,25 @@ def _dtype(cfg) -> torch.dtype:
 
 
 def _require_ported(cfg, axis_name=None) -> None:
-    todo = None
-    if cfg.loss_mode == "p2p" and cfg.compat_fake_history:
-        todo = ("--compat_fake_history (ROADMAP Queue 1: "
-                "--compat_fake_history and --dropout_mode)")
-    elif axis_name is not None or cfg.mesh_data > 1 or cfg.mesh_space > 1:
-        todo = "data and spatial parallelism (ROADMAP Queue 1: parallel)"
-    if todo:
-        raise NotImplementedError(f"{todo} is not ported yet; pass one "
-                                  "of --loss_mode sggan/p2p/simple/cycle "
-                                  "on one device, without that flag")
+    if axis_name is not None or cfg.mesh_data > 1 or cfg.mesh_space > 1:
+        raise NotImplementedError(
+            "data and spatial parallelism (ROADMAP Queue 1: parallel) is "
+            "not ported yet; train on one device (--mesh_data 1 "
+            "--mesh_space 1)")
+
+
+def compat_hist(cfg) -> bool:
+    """Whether the step keeps the reference's fake history: p2p mode,
+    ``--compat_fake_history``, the semantic nets (the JAX step's
+    ``_compat_hist``)."""
+    return (cfg.loss_mode == "p2p" and cfg.compat_fake_history
+            and not cfg.use_pix2pix)
+
+
+def hist_slots(cfg) -> int:
+    """The history's slots: 9 + the effective batch, the longest prefix
+    it reaches before it starts again."""
+    return 9 + cfg.batch_size * (2 if cfg.use_augmentation else 1)
 
 
 def adam_init(net: torch.nn.Module) -> AdamState:
@@ -186,7 +206,11 @@ def init_state(cfg, generator: torch.Generator,
     disc = new_discriminator(cfg, generator).to(device)
     # pooled entries only feed discriminator forwards, which cast to the
     # compute dtype: a buffer in that dtype loses nothing
-    if cfg.loss_mode == "sggan":
+    if compat_hist(cfg):
+        # f32 whatever the compute dtype: the L1 loss reads it directly
+        pool = pool_init(hist_slots(cfg), {"fake": (h, w, cfg.output_nc)},
+                         torch.float32, device)
+    elif cfg.loss_mode == "sggan":
         shapes = {"fake": (h, w, cfg.output_nc)}
         if not cfg.use_pix2pix:  # the semantic D judges a fake by its mask
             shapes["mask"] = (*cfg.mask_hw, cfg.segment_class)
@@ -292,7 +316,11 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
     Returns ``(metrics, gen grads, disc grads, new pool, (new gen BN
     state, new disc BN state))``; the grads are keyed by parameter name.
     ``draws``: the pool's draws, or its update planned ahead
-    (``pool.plan_steps``).  ``state`` is not changed."""
+    (``pool.plan_steps``); under ``compat_hist`` the history's update
+    planned ahead (``pool.HistPlan``), else planned here from the count.
+    ``state`` is not changed."""
+    if compat_hist(cfg):
+        return _hist_losses_and_grads(cfg, state, batch, draws, drop_masks)
     cd = _dtype(cfg)
     bn_train = not deterministic(cfg)
     gen, disc = state.gen_params, state.disc_params
@@ -352,6 +380,48 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
         d_grads = _grads(d_loss, disc)
     metrics = {"gen_loss": g_loss.detach(), "disc_loss": d_loss.detach()}
     return metrics, g_grads, d_grads, new_pool, (new_gbn, new_dbn)
+
+
+def _hist_losses_and_grads(cfg, state: TrainState, batch,
+                           plan: Optional[HistPlan], drop_masks):
+    """``losses_and_grads`` with the fake history (the JAX step's
+    ``compat_hist`` branch, step.py:189-229): this step's fakes written
+    into the history at the planned rows, the generator loss over the
+    whole history, the discriminator's over [seg; detached history] in
+    one call."""
+    cd = _dtype(cfg)
+    gen, disc = state.gen_params, state.disc_params
+    real_a = batch["real_a"].float()
+    seg_a = batch["seg_a"].float()
+    mask_a = batch["mask_a"]
+    buf = state.pool.buffer["fake"]
+    k, b = buf.shape[0], real_a.shape[0]
+    if not isinstance(plan, HistPlan):
+        plan = hist_plan(k, state.pool.count, b, buf.device)
+    valid = plan.valid.bool()
+    reps = -(-k // b)
+    # the current batch's mask and seg gate every entry (the reference's
+    # quirk, step.py:218-220)
+    mask_h = mask_a.repeat(reps, 1, 1, 1)[:k]
+    seg_h = seg_a.repeat(reps, 1, 1, 1)[:k]
+    with _conv_precision(cd):
+        fake, new_gbn = _gen_fwd(cfg, gen, state.gen_bn, real_a, drop_masks,
+                                 cd)
+        hist = torch.cat([buf, fake.to(buf.dtype)]).index_select(
+            0, plan.rows)
+        da_hist, _ = _disc_fwd(cfg, disc, state.disc_bn, hist, mask_h, cd,
+                               False)
+        g_loss = losses.gen_loss_p2p_hist(da_hist, hist, seg_h, valid)
+        g_grads = _grads(g_loss, gen)
+        hist = hist.detach()
+        both, new_dbn = _disc_fwd(cfg, disc, state.disc_bn,
+                                  torch.cat([seg_a, hist]),
+                                  torch.cat([mask_a, mask_h]), cd, False)
+        d_loss = losses.disc_loss_p2p_hist(both[:b], both[b:], valid)
+        d_grads = _grads(d_loss, disc)
+    metrics = {"gen_loss": g_loss.detach(), "disc_loss": d_loss.detach()}
+    return (metrics, g_grads, d_grads,
+            PoolState({"fake": hist}, plan.count), (new_gbn, new_dbn))
 
 
 def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
@@ -424,7 +494,9 @@ def build_step_fn(cfg, axis_name: Optional[str] = None):
     ``lr`` a float or a 0-d f32 tensor on the state's device;
     ``pool_draws`` from ``pool.pool_draws(generator, B, cfg.max_size)``,
     or a ``pool.PoolPlan`` of this update (unused, may be None, outside
-    the sggan mode or with ``max_size`` 0); ``drop_masks`` from
+    the sggan mode or with ``max_size`` 0; under ``compat_hist`` a
+    ``pool.HistPlan`` or anything else, the update then planned from the
+    count); ``drop_masks`` from
     ``dropout_masks(cfg, state.gen_params, generator, B)`` (None for the
     ResNet or under ``--dropout_mode keras_quirk``).  Every tensor of the
     state is updated in place (``state_tensors``); the returned state

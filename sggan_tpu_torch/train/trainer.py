@@ -37,9 +37,11 @@ when both fit, else two host iterators zipped, trainB's shuffled from
 ``data_seed + 7919`` (trainer.py:152-197, :322-351).
 ``--remat`` and ``--pad_free_head`` reach the step and the eval
 (``step.pad_free_head``); under ``--scan_steps`` the step's graph holds
-the backward's recompute.  Not ported, each raising
-``NotImplementedError`` that names its ROADMAP item: meshes and
-multi-host training, ``--eval_crf``.
+the backward's recompute.  ``--compat_fake_history`` trains the
+reference's fake history (``train/step.py``), in the step's graph too;
+``--eval_crf`` refines the eval's fakes with the dense CRF
+(``train/evaluate.py``).  Not ported, raising ``NotImplementedError``
+that names its ROADMAP item: meshes and multi-host training.
 """
 
 from __future__ import annotations
@@ -75,8 +77,6 @@ class Trainer:
         self.cfg = cfg.validate()
         self.cycle = cfg.loss_mode == "cycle"
         _require_ported(cfg)
-        if cfg.eval_crf:
-            raise NotImplementedError(evaluate.CRF_TODO)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "

@@ -16,7 +16,10 @@ as numpy arrays (``jax.tree.map(np.asarray, state)``) becomes the port's
 the nets the config selects), their batch norms' moving stats (the same
 nested dicts, ``{"down1_bn": {"moving_mean": ..., "moving_var": ...}}``),
 optax's ``ScaleByAdamState`` (count, mu, nu) of both optimizers in the same
-torch layouts, the pool's buffers and count, the step and the EMA.
+torch layouts, the pool's buffers and count (under
+``--compat_fake_history`` the JAX ``PoolState(buffer (k, h, w, c) f32,
+count)`` of the fake history, as ``{"fake": buffer}``), the step and the
+EMA.
 ``train_state_to_jax`` is the way back for the parameters, the moving
 stats and the Adam state.  Under ``--loss_mode cycle`` the JAX state
 (``sggan_tpu/train/cycle.py::init_cycle_state``) nests the nets as

@@ -6,7 +6,9 @@ public layout ``<checkpoint_dir>/<dataset name>/{gen,disc,train}/
 cp-NNNN.pt`` (model.py:450-503): the generator's parameters, its batch
 norms' moving stats (``bn``, {} for a net without batch norm), its Adam
 state and the EMA shadow; the discriminator's parameters, moving stats
-and Adam state; the pool's buffers and count and the step.
+and Adam state; the pool's buffers and count and the step (under
+``--compat_fake_history`` the fake history and its count, so a resumed
+run continues the count's sequence).
 ``MAX_TO_KEEP = 3`` as the JAX package keeps.  Tensors are saved as they are (device and dtype) and
 loaded onto the template's device, so a round trip is exact.
 

@@ -134,10 +134,21 @@ def _jax_step(kw, masks: bool):
     return fn
 
 
+_STATES = {}
+
+
 def _jax_state(kw):
     """A JAX cycle TrainState whose nets are the port's seeded init (JAX's
     own RNG init costs seconds of XLA compile here), with optax's state and
-    the JAX pair pool."""
+    the JAX pair pool; made once for each config (its arrays are
+    immutable)."""
+    key = tuple(sorted(kw.items()))
+    if key not in _STATES:
+        _STATES[key] = _new_jax_state(kw)
+    return _STATES[key]
+
+
+def _new_jax_state(kw):
     cfg = Config(**kw)
     tree = bridge.train_state_to_jax(
         tstep.init_state(cfg, torch.Generator().manual_seed(0), "cpu"))

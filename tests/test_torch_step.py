@@ -103,15 +103,21 @@ def _jax_state(cfg):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def start():
+    """The JAX state the steps start from and the pool draws of RNGS,
+    made once for the module."""
+    return _jax_state(JConfig(**KW)), _draws(RNGS)
+
+
+@pytest.fixture(scope="module")
+def runs(start):
     """Three steps of each package from the same state."""
     cfg = Config(**KW)
-    js = _jax_state(JConfig(**KW))
+    js, draws = start
     np_state = lambda s: jax.tree.map(np.asarray, s)  # noqa: E731
     ts = bridge.train_state_from_jax(cfg, np_state(js))
     batch = _batch()
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    draws = _draws(RNGS)
     first_grads = tstep.losses_and_grads(cfg, ts, tbatch, draws[0])
     jfn = jax.jit(jstep.build_step_fn(JConfig(**KW))).lower(
         js, batch, jnp.float32(LR), RNGS[0]).compile(FAST)
@@ -167,7 +173,7 @@ def test_one_step_matches_jax(runs):
     assert pool.count == int(jstate.pool.count) == POOL
 
 
-def test_one_step_under_remat_matches_jax_and_without(runs):
+def test_one_step_under_remat_matches_jax_and_without(runs, start):
     """--remat recomputes the resblocks in the backward: the same ops on the
     same inputs, so the same losses and gradients as the port's step
     without it (rtol 1e-6, as tests/test_models.py:194 holds the JAX
@@ -176,10 +182,10 @@ def test_one_step_under_remat_matches_jax_and_without(runs):
     port's recompute in tests/test_torch_remat.py)."""
     (metrics, g_grads, d_grads, _, _), jax_out, _, _ = runs
     cfg = Config(**KW, remat=True, pad_free_head=True)
-    js = _jax_state(JConfig(**KW))
+    js, draws = start
     ts = bridge.train_state_from_jax(cfg, jax.tree.map(np.asarray, js))
     tbatch = {k: torch.from_numpy(v) for k, v in _batch().items()}
-    m, g, d, *_ = tstep.losses_and_grads(cfg, ts, tbatch, _draws(RNGS)[0])
+    m, g, d, *_ = tstep.losses_and_grads(cfg, ts, tbatch, draws[0])
     for k in m:
         assert m[k].item() == pytest.approx(metrics[k].item(), rel=1e-6)
     for got, ref in ((g, g_grads), (d, d_grads)):
@@ -372,7 +378,7 @@ def test_bf16_step_stores_the_pool_in_bf16_and_restores_tf32():
 
 
 @pytest.mark.parametrize("kw", [
-    {"loss_mode": "p2p", "compat_fake_history": True}, {"mesh_data": 2}])
+    {"mesh_space": 2}, {"mesh_data": 2}])
 def test_unported_modes_raise_naming_the_roadmap(kw):
     cfg = Config(**{**KW, **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -241,7 +241,7 @@ def test_main_without_a_gpu_is_an_error(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("cfg_kw,what", [
     (dict(mesh_data=2), "parallel"),
-    (dict(eval_crf=True), "CRF")])
+    (dict(mesh_space=2), "parallel")])
 def test_trainer_refuses_what_is_not_ported(dataset, tmp_path, cfg_kw,
                                             what):
     with pytest.raises(NotImplementedError, match=what):

@@ -26,6 +26,7 @@ ndf 4, 32x32, 8 classes.
 The JAX sides are compiled as one program each without XLA's LLVM passes,
 as tests/test_torch_step.py compiles its step."""
 
+import functools
 import io
 import os
 
@@ -310,9 +311,11 @@ def unet_step():
                                              tm.items()}, ts))
 
 
+@functools.cache
 def _step_masks():
     """The d1-d3 masks the JAX step draws: the generator's half of the
-    step key, split three ways."""
+    step key, split three ways (drawn once for the module; the tensors
+    are only read)."""
     return _unet_masks(jax.random.split(RNG)[0], (B, H, W, 32))
 
 
