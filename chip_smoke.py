@@ -224,7 +224,9 @@ Phases, each of which raises on failure:
      the backward's stay 37, 27 and 166) on the planned routes; peak
      memory and ms each way; then the largest batch that fits for the
      ResNet sggan step at 2048x1024 and the cycle step at 512x1024, with
-     and without it (doubling, then bisecting, at most 8 probes);
+     and without it (probes at b=4 and 8, then at the batch a straight
+     line through their peaks puts at 95% of the card's memory, walked a
+     batch at a time, then bisected; at most 8 probes);
   33. ``--compat_fake_history`` (main path), in a fresh process: both K1
      kernels against their plain versions at the discriminator's new
      sites (N = 11 and 13 at 128x128, 17 and 25 at 256x512), f32 and
@@ -249,14 +251,38 @@ Phases, each of which raises on failure:
      sggan step at 2048x1024 under ``--remat`` at b=12 doubled to 24
      fits, and at b=64 doubled to 128 without it runs out of memory, its
      bytes parsed; ``python -m sggan_tpu_torch.cycle_recon_eval`` on
-     phase 25's checkpoint: finite scores and both PNG strips.
+     phase 25's checkpoint: finite scores and both PNG strips;
+  36. data parallelism (``--mesh_data 2``), as two ranks in processes of
+     their own, each with torchrun's environment and ``LOCAL_RANK=0``, so
+     that both share the one card, joined to gloo explicitly (NCCL refuses
+     two ranks on one card; the phase tries it once and prints what it
+     says).  Part 2's training runs alone after phase 25 (its steps are
+     timed); part 1, part 2's resume and test, and the NCCL attempt run
+     beside phase 28, which checks values only.  Part 1: every loss mode
+     (ResNet sggan with the pool and the EMA, the p2p U-Net with dropout,
+     pix2pix with batch norm, the ResNet cycle step) at 32x64 f32, a
+     shard of 2, 3 steps, held against one process that computes both
+     shards' losses and gradients from the same state and draws and
+     averages them (phase 8's limits), K1's calls a step per rank those
+     of one shard's step, the ranks' replicas bitwise equal.  Part 2
+     (main path): ``python -m sggan_tpu_torch.main --mesh_data 2``
+     (ResNet sggan, 256x512 bf16, 8 files a step doubled to 16, 8 a rank,
+     one epoch of 4 steps) with equal finite losses on both ranks, 37 +
+     37 K1 calls a step per rank, only rank 0 printing and writing the
+     checkpoint (both ranks' pool rows), the eval's PNGs and the
+     tfevents; each rank's step ms, busy, idle share, the all-reduce's ms
+     from a profiler window and the bytes reduced a step, beside phase
+     16's one-process loop step (two ranks sharing one card, not a
+     scaling number); a one-process ``--phase test`` of that checkpoint;
+     a two-rank ``--continue_train``.  The ranks import no JAX module.
+     Alone: ``python -c "import chip_smoke; chip_smoke.dp_alone()"``.
 
 Prints a JSON line of the trainer's and the preprocess's rates, one of
 the default nets' numbers, one of the cycle mode's, one of the inference
 cell's, one of the CUDA graphs', one of phases 30-32, one of phases
-33-35, a JSON line of the kernels, then as the
-last line ``{"ok":
-true, "device": {...}}``.  Exits non-zero, printing neither,
+33-35, one of phase 36, a JSON line of the kernels (K1's entries with
+``launches_dp``), then as the last line ``{"ok": true, "device":
+{...}}``.  Exits non-zero, printing neither,
 when no CUDA device is visible or any phase fails.
 """
 
@@ -3424,6 +3450,7 @@ HEAD_BATCHES = (8, 16)
 HEAD_ITERS = 10
 # phase 32's largest-batch search: at most this many probes a search
 MAX_PROBES = 8
+LB_FIRST, LB_FILL = (4, 8), 0.95  # largest_batch's first probes, its aim
 
 
 def held_to(name: str, got, ref, dtype) -> dict:
@@ -3917,11 +3944,16 @@ def remat_step_cells(card: str, dev) -> dict:
 
 
 def largest_batch(card: str, label: str, cfg, dev) -> tuple:
-    """The largest batch of ``cfg``'s step that fits on the card: batches
-    doubled from 1 until one does not fit, then bisected, at most
-    MAX_PROBES probes; a probe builds the state and runs two steps, a
+    """The largest batch of ``cfg``'s step that fits on the card: probes at
+    b=4 and 8, then at the batch where a straight line through their peaks
+    reaches LB_FILL of the card's memory, walked up one batch at a time
+    while it fits, or one down after it does not, then bisected, at most
+    MAX_PROBES probes (the peak grows with the batch in a straight line,
+    so the guess is within a batch or two, and the costly probes near
+    the limit are few); a probe builds the state and runs two steps, a
     warm-up and the probe's own.  Only ``torch.cuda.OutOfMemoryError`` is
-    caught, and only here.  Returns (largest, [(batch, fits, peak GiB)])."""
+    caught, and only here.  Returns (largest, [(batch, fits, peak
+    GiB)])."""
     from sggan_tpu_torch.train import pool as tpool
     from sggan_tpu_torch.train import step as tstep
     probes = []
@@ -3953,12 +3985,27 @@ def largest_batch(card: str, label: str, cfg, dev) -> tuple:
         return ok
 
     lo, hi = 0, None
-    b = 1
-    while len(probes) < MAX_PROBES and hi is None:
-        if fits(b):
-            lo, b = b, 2 * b
-        else:
+    for b in LB_FIRST:
+        if not fits(b):
             hi = b
+            break
+        lo = b
+    if hi is None:
+        (b0, _, p0), (b1, _, p1) = probes[-2:]
+        slope = (p1 - p0) / (b1 - b0)
+        total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+        b = max(b1 + 1, int((LB_FILL * total - (p0 - slope * b0)) / slope)
+                if slope > 0 else 2 * b1)
+        while len(probes) < MAX_PROBES and hi is None:
+            if fits(b):
+                lo, b = b, b + 1
+            else:
+                hi = b
+        if hi is not None and hi - 1 > lo and len(probes) < MAX_PROBES:
+            if fits(hi - 1):
+                lo = hi - 1
+            else:
+                hi -= 1
     while hi is not None and hi - lo > 1 and len(probes) < MAX_PROBES:
         mid = (lo + hi) // 2
         if fits(mid):
@@ -4372,6 +4419,493 @@ def probe_recon_phase(card: str, work: str, root: str) -> dict:
          and all(os.path.isfile(p) for p in strips),
          "cycle_recon_eval gave no finite scores or no strips")
     return {"probe": probes, "recon": rec, "recon_s": dt}
+
+
+# ----------------------------------------------------------------------
+# Data parallelism, --mesh_data 2 (phase 36)
+# ----------------------------------------------------------------------
+
+DP_N, DP_STEPS, DP_SHARD_B, DP_LR = 2, 3, 2, 1e-3
+# part 1: phase 8's small size, f32, a shard of 2 (the global batch 4)
+DP_SMALL = dict(image_height=32, image_width=64, ngf=4, ndf=4,
+                segment_class=8, batch_size=DP_SHARD_B, max_size=2,
+                compute_dtype="float32", mesh_data=DP_N)
+DP_MODES = {
+    "sggan_resnet": dict(loss_mode="sggan", use_resnet=True, gen_ema=0.999),
+    "p2p_unet": dict(loss_mode="p2p", use_resnet=False,
+                     dropout_mode="intended"),
+    "pix2pix": dict(loss_mode="p2p", use_pix2pix=True,
+                    dropout_mode="intended"),
+    "cycle_resnet": dict(loss_mode="cycle", use_resnet=True, use_lsgan=True,
+                         identity_lambda=5.0, Lg_lambda=5.0),
+}
+# part 2: the ResNet sggan CLI at full width, 8 files a step doubled to 16
+# (8 a rank), on phase 16's PNG set
+DP_CLI_B, DP_CLI_TRAIN = 8, 32
+DP_CLI_ARGS = ["--batch_size", str(DP_CLI_B), "--use_augmentation",
+               "--img_height", str(H), "--img_width", str(W),
+               "--loss_mode", "sggan", "--use_resnet", "--segment_class",
+               str(N_CLASS), "--compute_dtype", "bfloat16", "--max_size",
+               "50", "--data_seed", "19", "--save_freq", "0",
+               "--print_freq", "1", "--host_downscale", "2",
+               "--train_size", str(DP_CLI_TRAIN), "--epoch", "1"]
+DP_CHILD = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.dp_rank(*sys.argv[1:]))")
+NCCL_CHILD = ("import sys, chip_smoke; "
+              "sys.exit(chip_smoke.nccl_try())")
+
+
+def dp_start(job: str, *args: str, child: str = DP_CHILD,
+             env_extra=None) -> list:
+    """``job`` as DP_N ranks in processes of their own, each with the
+    environment torchrun gives a rank and ``LOCAL_RANK=0``: the ranks
+    share the one card.  Returns the processes."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    procs = []
+    for r in range(DP_N):
+        env = dict(repo_env(), RANK=str(r), WORLD_SIZE=str(DP_N),
+                   LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=port, **(env_extra or {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", child, job, *args], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def dp_wait(procs: list, label: str, timeout: int,
+            check: bool = True) -> list:
+    """The ranks' (exit code, stdout, stderr), each rank's output shown
+    (its last lines); raises if one failed, with ``check``."""
+    t0 = time.perf_counter()
+    outs = []
+    for p in procs:
+        left = max(1.0, timeout - (time.perf_counter() - t0))
+        try:
+            out, err = p.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+            err += f"\n(killed after {timeout} s)"
+        outs.append((p.returncode, out, err))
+    print(f"  {label}: {len(procs)} process{'es' * (len(procs) > 1)}, "
+          f"exit {[o[0] for o in outs]} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for r, (rc, out, err) in enumerate(outs):
+        for ln in out.strip().splitlines()[-6:]:
+            print(f"    rank {r} | {ln[:200]}")
+        if rc and check:
+            print(err[-4000:], file=sys.stderr)
+    if check and any(o[0] for o in outs):
+        raise AssertionError(f"{label}: a rank failed")
+    return outs
+
+
+def dp_rank(job: str, work: str, *args: str) -> int:
+    """One rank of phase 36: joins the gloo group on ``cuda:0`` (NCCL
+    refuses two ranks on one card) before ``main``, whose own call is
+    then a no-op, runs ``job`` and prints its numbers as the last line,
+    after a line naming any JAX module it imported."""
+    import torch.distributed as dist
+
+    from sggan_tpu_torch.parallel import distributed
+    distributed.initialize(backend="gloo")
+    dev = distributed.device("cuda")
+    try:
+        res = {"parity": dp_parity_rank, "cli": dp_cli_rank}[job](
+            work, dev, *args)
+    finally:
+        dist.barrier()
+        distributed.shutdown()
+    banned = sorted(m for m in sys.modules if m in ("jax", "sggan_tpu")
+                    or m.startswith(("jax.", "sggan_tpu.")))
+    print(f"imported JAX modules: {banned}")
+    print(json.dumps(res), flush=True)
+    return 1 if banned else 0
+
+
+def dp_batches(cfg) -> list:
+    """The global batches of part 1 (both shards), on the host."""
+    make = cycle_batch if cfg.loss_mode == "cycle" else train_batch
+    return [make(cfg, DP_N * DP_SHARD_B, "cpu", seed=40 + t)
+            for t in range(DP_STEPS)]
+
+
+def dp_cpu_state(st) -> dict:
+    from sggan_tpu_torch.train.step import state_tensors
+    out = {k: v.detach().cpu().clone() for k, v in state_tensors(st).items()}
+    out["pool.count"] = torch.tensor(st.pool.count)
+    return out
+
+
+def dp_parity_rank(work: str, dev) -> dict:
+    """Part 1 in one rank: every mode's DP_STEPS data-parallel steps on
+    this rank's shard, with the draws of ``parallel.dp.own_shard`` from
+    generators the ranks share; saves the state before and after each
+    step, the losses and K1's calls a step."""
+    import torch.distributed as dist
+
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.parallel import dp
+    from sggan_tpu_torch.train import pool as tpool
+    from sggan_tpu_torch.train import step as tstep
+    group, r, b = dist.group.WORLD, dist.get_rank(), DP_SHARD_B
+    out = {}
+    for mode, kw in DP_MODES.items():
+        cfg = Config(**DP_SMALL, **kw)
+        st = tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)
+        dp.broadcast_state(st, group)
+        step_fn = tstep.build_step_fn(cfg)
+        pool_gen = torch.Generator().manual_seed(11)
+        mask_gen = torch.Generator().manual_seed(12)
+        rec = {"states": [dp_cpu_state(st)], "losses": [], "k1": []}
+        for batch in dp_batches(cfg):
+            shard = to_dev({k: v[r * b:(r + 1) * b]
+                            for k, v in batch.items()}, dev)
+            draws = dp.own_shard(lambda: tpool.pool_draws(
+                pool_gen, b, cfg.max_size), group)
+            masks = to_dev(dp.own_shard(lambda: tstep.dropout_masks(
+                cfg, st.gen_params, mask_gen, b), group), dev)
+            reset_k1()
+            st, m = step_fn(st, shard, DP_LR, draws, masks)
+            counts, _ = read_k1()
+            rec["k1"].append([counts["fwd"], counts["bwd"]])
+            rec["losses"].append({k: v.item() for k, v in m.items()})
+            rec["states"].append(dp_cpu_state(st))
+        torch.save(rec, os.path.join(work, f"dp_{mode}_rank{r}.pt"))
+        out[mode] = {"losses": rec["losses"], "k1_per_step": rec["k1"]}
+    return out
+
+
+def dp_parity_check(card: str, dev, work: str) -> dict:
+    """Part 1 held: for each mode and step, one process on the card
+    computes both shards' losses and gradients from the state rank 0
+    started the step from (each shard with its rank's pool rows) and the
+    same draws, and averages them; the ranks' losses at rel 1e-4, their
+    gradients (from Adam's first moments: g = (mu_t - b1 mu_(t-1)) / (1 -
+    b1)) within 1e-3 of each tensor's largest (phase 8's limits at this
+    size), K1's calls a step those of one shard's step, and the two ranks'
+    parameters, Adam moments and counts, EMA and BN stats bitwise equal
+    after every step."""
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.train import cycle as tcycle
+    from sggan_tpu_torch.train import pool as tpool
+    from sggan_tpu_torch.train import step as tstep
+    b = DP_SHARD_B
+    res = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for mode, kw in DP_MODES.items():
+            cfg = Config(**{**DP_SMALL, **kw, "mesh_data": 1})
+            cycle = cfg.loss_mode == "cycle"
+            mod = tcycle if cycle else tstep
+            ranks = [torch.load(os.path.join(work, f"dp_{mode}_rank{r}.pt"))
+                     for r in range(DP_N)]
+            st = tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)
+            names = tstep.state_tensors(st)
+            pool_gen = torch.Generator().manual_seed(11)
+            mask_gen = torch.Generator().manual_seed(12)
+            worst_loss = worst_grad = 0.0
+            k1_ref = []
+            for t, batch in enumerate(dp_batches(cfg)):
+                before = [rk["states"][t] for rk in ranks]
+                with torch.no_grad():  # the step's start: rank 0's state
+                    for k, v in names.items():
+                        if not k.startswith("pool."):
+                            v.copy_(before[0][k])
+                draws = [tpool.pool_draws(pool_gen, b, cfg.max_size)
+                         for _ in range(DP_N)]
+                masks = [tstep.dropout_masks(cfg, st.gen_params, mask_gen, b)
+                         for _ in range(DP_N)]
+                outs = []
+                for s in range(DP_N):
+                    pool = tpool.PoolState(
+                        {k[5:]: v.to(dev) for k, v in before[s].items()
+                         if k.startswith("pool.") and k != "pool.count"},
+                        int(before[s]["pool.count"]))
+                    shard = to_dev({k: v[s * b:(s + 1) * b]
+                                    for k, v in batch.items()}, dev)
+                    reset_k1()
+                    outs.append(mod.losses_and_grads(
+                        cfg, st._replace(pool=pool), shard, draws[s],
+                        to_dev(masks[s], dev)))
+                    if s == 0:
+                        counts, _ = read_k1()
+                        k1_ref.append([counts["fwd"], counts["bwd"]])
+                for k in outs[0][0]:
+                    want = sum(o[0][k].item() for o in outs) / DP_N
+                    got = ranks[0]["losses"][t][k]
+                    worst_loss = max(worst_loss, abs(got - want) / abs(want))
+                for i, o in ((1, "g"), (2, "d")):
+                    for k in outs[0][i]:
+                        want = sum(x[i][k] for x in outs).cpu() / DP_N
+                        mu = ranks[0]["states"][t + 1][f"{o}_opt.mu.{k}"]
+                        mu0 = before[0][f"{o}_opt.mu.{k}"]
+                        got = (mu - cfg.beta1 * mu0) / (1 - cfg.beta1)
+                        if want.any():
+                            worst_grad = max(worst_grad, (
+                                (got - want).abs().max()
+                                / want.abs().max()).item())
+                after = [rk["states"][t + 1] for rk in ranks]
+                for k, v in after[0].items():
+                    if not k.startswith("pool.") and \
+                            not torch.equal(v, after[1][k]):
+                        raise AssertionError(
+                            f"dp {mode} step {t}: the ranks' {k} differ")
+            k1_ranks = [rk["k1"] for rk in ranks]
+            print(f"  [{card}] dp {mode}: losses max rel diff "
+                  f"{worst_loss:.3g} (limit 1e-4), gradients max |diff| / "
+                  f"max |g| {worst_grad:.3g} (limit 1e-3) against one "
+                  f"process averaging both shards; K1 calls a step per "
+                  f"rank {k1_ranks[0]} (one shard's step {k1_ref}); "
+                  "replicas bitwise equal")
+            need(worst_loss <= 1e-4 and worst_grad <= 1e-3,
+                 f"dp {mode}: the ranks disagree with both shards' mean")
+            need(all(k == k1_ref for k in k1_ranks),
+                 f"dp {mode}: K1's calls a step per rank {k1_ranks}, one "
+                 f"shard's {k1_ref}")
+            res[mode] = {"loss_max_rel": worst_loss,
+                         "grad_max_rel": worst_grad,
+                         "k1_per_rank_per_step": k1_ref[0],
+                         "losses": ranks[0]["losses"]}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return res
+
+
+def dp_cli_rank(work: str, dev, resume: str = "0") -> dict:
+    """Part 2 in one rank: ``sggan_tpu_torch.main`` trains (or resumes)
+    the full-width ResNet sggan run over the ranks, with a profiler
+    window of 2 steps; returns this rank's losses, K1's calls, the step
+    and the window's numbers."""
+    from sggan_tpu_torch import main as tmain
+    from sggan_tpu_torch.parallel import dp
+    from sggan_tpu_torch.train.trainer import Trainer
+
+    r = torch.distributed.get_rank()
+    run = os.path.join(work, "dp_cli")
+    argv = ["--phase", "train", "--mesh_data", str(DP_N), *DP_CLI_ARGS,
+            "--dataset_dir", os.path.join(work, "datasets", "city"),
+            "--checkpoint_dir", os.path.join(run, "checkpoint"),
+            *(x for d in ("test", "sample", "log", "profile")
+              for x in (f"--{d}_dir", os.path.join(run, f"{d}{r}")))]
+    if resume == "1":
+        argv.append("--continue_train")
+    runs = []
+    train = Trainer.train
+
+    def kept(self):
+        runs.append((self, train(self)))
+        return runs[-1][1]
+    Trainer.train = kept
+    reset_k1()
+    before = dp.bytes_reduced, dp.reductions
+    t0 = time.perf_counter()
+    tmain.main(argv)
+    wall = time.perf_counter() - t0
+    counts, routes = read_k1()
+    tr, last = runs[-1]
+    steps = DP_CLI_TRAIN // DP_CLI_B
+    win = tr._prof
+    out = {"rank": r, "step": tr.state.step, "gen_loss": last["gen_loss"],
+           "k1": counts, "k1_routes": routes, "seconds": wall,
+           "bytes_reduced_per_step": (dp.bytes_reduced - before[0]) // steps,
+           "all_reduces_per_step": (dp.reductions - before[1]) / steps}
+    if win is not None and win.steps:
+        wall_ms = 1e3 * win.seconds / win.steps
+        busy = sum(k[0] for k in kernel_times(win.prof, win.steps))
+        # the range's host-side entry (a CUDA run also lists it as a
+        # device annotation, with no CPU time)
+        comm = [e.cpu_time_total / win.steps / 1e3
+                for e in win.prof.key_averages() if e.key == "dp.all_reduce"]
+        out.update(step_ms=wall_ms, busy_ms=busy,
+                   idle_share=1 - busy / wall_ms,
+                   all_reduce_ms=max(comm) if comm else None,
+                   window_steps=win.steps)
+    out["all_reduce_alone"] = dp_all_reduce_alone(tr, dev)
+    return out
+
+
+def dp_all_reduce_alone(tr, dev) -> dict:
+    """Each net's bucket (its gradients, BN stats and loss, f32) all-reduced
+    by itself over the ranks with the card idle before it: the median ms of
+    5 after a warm-up, by host clock around a device synchronisation."""
+    import torch.distributed as dist
+
+    from sggan_tpu_torch.parallel.dp import bn_leaves
+    st, out = tr.state, {}
+    for name, net, bn in (("gen", st.gen_params, st.gen_bn),
+                          ("disc", st.disc_params, st.disc_bn)):
+        n = sum(p.numel() for p in net.parameters()) + sum(
+            t.numel() for t in bn_leaves(bn)) + 1
+        x = torch.zeros(n, device=dev)
+        ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out[name] = {"bytes": 4 * n, "ms": float(np.median(ms[1:]))}
+    return out
+
+
+def nccl_try() -> int:
+    """One rank of the NCCL attempt: two ranks on one card, one
+    all-reduce; prints the outcome either way."""
+    from sggan_tpu_torch.parallel import distributed
+    try:
+        distributed.initialize(backend="nccl", timeout_s=60)
+        x = torch.ones(4, device=distributed.device("cuda"))
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        print(f"NCCL all_reduce gave {x.tolist()}", flush=True)
+    except Exception as e:  # the outcome is the finding
+        print(f"NCCL refused: {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:300]}", flush=True)
+    finally:
+        try:
+            distributed.shutdown()
+        except Exception as e:
+            print(f"NCCL shutdown: {type(e).__name__}", flush=True)
+    return 0
+
+
+def dp_train(card: str, dev, work: str, e2e: dict) -> dict:
+    """Phase 36, part 2 (main path): the full-width ResNet sggan CLI over
+    two gloo ranks sharing the card, alone on it (each rank's step is
+    timed): equal finite losses, K1's calls a step per rank, only rank 0
+    printing and writing, the checkpoint with both ranks' pool rows."""
+    from sggan_tpu_torch.utils.summary import read_scalars
+
+    run = os.path.join(work, "dp_cli")
+    steps = DP_CLI_TRAIN // DP_CLI_B
+    outs = dp_wait(dp_start("cli", work, "0"), "train 1 epoch over 2 gloo "
+                   "ranks (python -m sggan_tpu_torch.main --mesh_data 2)",
+                   600)
+    res = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+    for o in outs:
+        need("imported JAX modules: []" in o[1], "a dp rank imported JAX")
+    losses = [x["gen_loss"] for x in res]
+    need(math.isfinite(losses[0]) and losses[0] == losses[1],
+         f"the ranks' epoch losses {losses}")
+    need(all(x["step"] == steps for x in res), "the ranks' steps")
+    need(" [*] data parallel over 2 ranks (gloo)" in outs[0][1]
+         and "Epoch: [ 0]" in outs[0][1] and "Epoch:" not in outs[1][1],
+         "only the coordinator prints the run's lines")
+    ck = os.path.join(run, "checkpoint", "city")
+    saved = torch.load(os.path.join(ck, "train", "cp-0000.pt"),
+                       weights_only=True)
+    need(saved["step"] == steps and saved["pool_buffer"]["fake"].shape[0]
+         == 50 * DP_N, "the checkpoint's step or pool rows")
+    need(all(os.path.isfile(os.path.join(run, "test0", f"s{i:04d}.png"))
+             for i in range(E2E_TEST)), "rank 0 wrote no eval PNGs")
+    events = glob.glob(os.path.join(run, "log0", "*", "train",
+                                    "events.out.tfevents.*"))
+    need(len(events) == 1 and "Mean IoU" in read_scalars(events[0]),
+         "rank 0 wrote no tfevents")
+    need(not any(os.path.exists(os.path.join(run, f"{d}1"))
+                 for d in ("test", "sample", "log")),
+         "rank 1 wrote eval PNGs, samples or tfevents")
+    k1 = [x["k1"] for x in res]
+    eval_fwd = 23 * FWD_GRAPH_CALLS
+    need(k1[1] == {"fwd": steps * LAUNCHES_PER_STEP,
+                   "bwd": steps * LAUNCHES_PER_STEP}
+         and k1[0] == {"fwd": steps * LAUNCHES_PER_STEP + eval_fwd,
+                       "bwd": steps * LAUNCHES_PER_STEP},
+         f"K1's calls per rank {k1}: {LAUNCHES_PER_STEP} + "
+         f"{LAUNCHES_PER_STEP} a step, and the coordinator's eval capture")
+    for x in res:
+        need("step_ms" in x and x["all_reduce_ms"],
+             f"rank {x['rank']}: no profiler window with the all-reduce")
+        print(f"  [{card}] rank {x['rank']}, two ranks sharing one card, "
+              f"not a scaling number: step {x['step_ms']:.3f} ms "
+              f"(b={DP_CLI_B} doubled to {2 * DP_CLI_B}, "
+              f"{DP_CLI_B} a rank), device busy {x['busy_ms']:.3f} ms, "
+              f"idle {100 * x['idle_share']:.1f}% (profiler, "
+              f"{x['window_steps']} steps); dp.all_reduce "
+              f"{x['all_reduce_ms']:.3f} ms a step (the profiler's range: "
+              f"the gloo collective through host memory and its wait for "
+              f"the backward's kernels); {x['bytes_reduced_per_step']} "
+              f"bytes in {x['all_reduces_per_step']:g} all-reduces a step; "
+              f"each bucket alone, card idle: {x['all_reduce_alone']}; "
+              f"K1 {x['k1']}")
+    print(f"  [{card}] beside phase 16's one-process loop step: "
+          f"{e2e.get('loop_step_ms')} ms at b={2 * E2E_B} (busy "
+          f"{e2e.get('loop_busy_ms')} ms, idle "
+          f"{e2e.get('loop_idle_share')})")
+    return {"ranks": res,
+            "launches_dp": {d: k1[1][d] // steps for d in ("fwd", "bwd")}}
+
+
+def dp_follow_start(work: str) -> dict:
+    """The rest of phase 36, started together beside phase 28 (which
+    checks values only; none of these is timed): part 1's parity ranks,
+    the two-rank ``--continue_train`` of part 2's checkpoint, one
+    process's ``--phase test`` of it, and the NCCL attempt."""
+    run = os.path.join(work, "dp_cli")
+    args = [*DP_CLI_ARGS, "--dataset_dir",
+            os.path.join(work, "datasets", "city"), "--checkpoint_dir",
+            os.path.join(run, "checkpoint"), "--test_dir",
+            os.path.join(run, "test_one")]
+    return {"parity": dp_start("parity", work),
+            "resume": dp_start("cli", work, "1"),
+            "test": [subprocess.Popen(
+                [sys.executable, "-m", "sggan_tpu_torch.main", "--phase",
+                 "test", *args], cwd=run, env=repo_env(),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)],
+            "nccl": dp_start("", child=NCCL_CHILD,
+                             env_extra={"NCCL_DEBUG": "WARN"})}
+
+
+def dp_follow_check(card: str, dev, work: str, procs: dict) -> dict:
+    """Waits for ``dp_follow_start``'s processes and holds them: the
+    parity (``dp_parity_check``), the resume at the saved step, the test
+    phase's load; prints NCCL's outcome."""
+    run = os.path.join(work, "dp_cli")
+    steps = DP_CLI_TRAIN // DP_CLI_B
+    dp_wait(procs["parity"], "part 1, the parity ranks", 600)
+    outs = dp_wait(procs["resume"], "--continue_train 1 epoch over 2 gloo "
+                   "ranks", 600)
+    test = dp_wait(procs["test"], "one process, --phase test of the dp "
+                   "checkpoint", 600)
+    n_outs = dp_wait(procs["nccl"], "NCCL at world 2 on one card", 120,
+                     check=False)
+    nccl_said = sorted({ln.strip()[:300] for o in n_outs
+                        for ln in (o[1] + o[2]).splitlines()
+                        if ln.startswith("NCCL") or "Duplicate GPU" in ln})
+    print(f"  NCCL's outcome: {nccl_said}")
+    need(" [*] Load SUCCESS" in test[0][1], "--phase test did not load")
+    again = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+    ck = os.path.join(run, "checkpoint", "city", "train", "cp-0001.pt")
+    need(" [*] Load SUCCESS" in outs[0][1]
+         and all(x["step"] == 2 * steps for x in again)
+         and torch.load(ck, weights_only=True)["step"] == 2 * steps,
+         "--continue_train did not resume at the saved step")
+    return {"parity": dp_parity_check(card, dev, work),
+            "resume": again, "nccl": nccl_said}
+
+
+def dp_alone() -> int:
+    """Phase 36 by itself (``python -c "import chip_smoke;
+    chip_smoke.dp_alone()"``): the build, a PNG set, part 1 and part 2."""
+    from sggan_tpu_torch.ops import _build
+    card, dev = card_line(), torch.device("cuda")
+    print(card)
+    _build.build("instance_norm")
+    work = os.path.join(REPO, "_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    build_dataset(os.path.join(work, "datasets", "city"), DP_CLI_TRAIN)
+    phase("36 data parallelism: two gloo ranks on the card")
+    res = dp_train(card, dev, work, {})
+    res.update(dp_follow_check(card, dev, work, dp_follow_start(work)))
+    shutil.rmtree(work)
+    print(json.dumps({"dp": res}))
+    return 0
 
 
 def main() -> int:
@@ -4896,6 +5430,11 @@ def main() -> int:
     cyc_cli = cycle_cli_phase(card, dev, work,
                               os.path.join(work, "datasets", "city"))
 
+    phase("36 data parallelism, part 2 (main path): python -m "
+          "sggan_tpu_torch.main --mesh_data 2 at full width over two gloo "
+          "ranks sharing the card")
+    dp_res = dp_train(card, dev, work, e2e)
+
     selftest = selftest_start(work)  # CPU only: runs beside 26 and 27
     try:
         phase("26 the exported artifact on the card (main path): python -m "
@@ -4907,13 +5446,27 @@ def main() -> int:
               "the eager forward")
         cell = inference_cell_phase(card, dev, work, art)
 
+        # the rest of phase 36 (part 1's parity ranks at 32x64, part 2's
+        # resume, test and the NCCL attempt; none timed) beside phase 28,
+        # which checks values only
+        dp_procs = dp_follow_start(work)
         phase("28 the reference-TF2 import at full width: python -m "
               "sggan_tpu_torch.utils.import_tf, then the service")
         tf_imp = tf_import_phase(card, dev, work, selftest)
+        phase("36 data parallelism, part 1 against one process averaging "
+              "both shards, every loss mode at 32x64; part 2's resume and "
+              "--phase test; NCCL at world 2")
+        dp_res.update(dp_follow_check(card, dev, work, dp_procs))
     finally:
         if selftest.poll() is None:
             selftest.kill()
             selftest.communicate()
+        for p in (x for v in (dp_procs if "dp_procs" in locals() else {})
+                  .values() for x in v):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    dp_par = dp_res["parity"]
 
     # the native CRF at 512x1024x34 on the host, beside phases 29-33
     crf_big = crf_timer_start(CRF_BIG)
@@ -5079,6 +5632,17 @@ def main() -> int:
             "each step cell of phase 32 (without it: "
             + ", ".join(f"{k} {v['k1_plain'][d]}" for k, v in
                         forms["remat"]["steps"].items()) + ")")
+        # --mesh_data 2 (phase 36): per rank, per step
+        i = 0 if d == "fwd" else 1
+        ent["launches_dp"] = {
+            "sggan_resnet_256x512_cli": dp_res["launches_dp"][d],
+            **{k: v["k1_per_rank_per_step"][i] for k, v in dp_par.items()}}
+        ent["launches_dp_is"] = (
+            "K1 calls per rank per step of the data-parallel step over two "
+            "gloo ranks sharing the card (phase 36): the full-width ResNet "
+            f"sggan CLI (b={DP_CLI_B} doubled to {2 * DP_CLI_B}, "
+            f"{DP_CLI_B} a rank; the non-coordinator rank's calls over "
+            "the epoch's steps) and part 1's modes at 32x64")
     print(card)
     print(json.dumps({"e2e": {
         "config": "perf_epoch_e2e fused-aug: 96 PNG triplets 512x1024, "
@@ -5154,6 +5718,17 @@ def main() -> int:
                   "phase 35: utils.hbm's sggan ResNet step at 2048x1024, "
                   "cycle_recon_eval on phase 25's checkpoint",
         **hist, **tools}}))
+    print(card)
+    print(json.dumps({"dp": {
+        "config": "phase 36: two gloo ranks sharing one card (LOCAL_RANK "
+                  "0), not a scaling number; part 1 every loss mode at "
+                  "32x64, ngf and ndf 4, f32, a shard of 2, 3 steps, "
+                  "against one process averaging both shards; part 2 "
+                  "python -m sggan_tpu_torch.main --mesh_data 2, ResNet "
+                  f"sggan 256x512 bf16, b={DP_CLI_B} doubled to "
+                  f"{2 * DP_CLI_B}, --train_size {DP_CLI_TRAIN}, 1 epoch, "
+                  "then --phase test and --continue_train",
+        **dp_res}}))
     from sggan_tpu_torch.perf_in import EVENT_TIMED
     print(f"  profiler: {len(EVENT_TIMED)} device_ms calls found no kernel "
           f"in any trace and were timed by CUDA events: {EVENT_TIMED}")

@@ -11,7 +11,9 @@ net and loss mode's train step (``--compat_fake_history`` too), the
 trainer behind ``python -m sggan_tpu_torch.main`` (``--eval_crf`` too),
 the service with its deployment path (``torch.export`` artifacts, the
 reference-TF2 import), the memory probe, the FLOP model, the data tools
-and ``cycle_recon_eval``.  Not yet: the meshes (``parallel``).
+and ``cycle_recon_eval``; data parallelism (``--mesh_data``, one rank per
+card over ``torch.distributed``).  Not yet: spatial sharding
+(``--mesh_space``).
 
     config    — the reference CLI and ``Config``: the port's own copy,
                 held to the JAX one by a test
@@ -42,6 +44,11 @@ and ``cycle_recon_eval``.  Not yet: the meshes (``parallel``).
                 artifacts), ``tf_bundle``, ``tf_weights`` and ``import_tf``
                 (the reference-TF2 import), ``flops`` (the analytic FLOP
                 model), ``hbm`` (the memory probe)
+    parallel  — ``distributed`` (the process group from torchrun's
+                environment, the ``data`` DeviceMesh), ``mesh`` (the axis
+                name, the spatial refusal), ``dp`` (the step's mean over
+                ranks, the pool's rows per rank, per-shard draws, rank 0's
+                state broadcast)
     main      — the CLI: ``python -m sggan_tpu_torch.main``
     serve     — the HTTP translate service, on a checkpoint or an
                 artifact (``--export``, ``--artifact``)

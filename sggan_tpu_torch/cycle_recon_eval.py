@@ -130,7 +130,8 @@ def main(argv=None, device="cuda") -> dict:
                  image_width=128, compute_dtype="bfloat16",
                  decode_cache_mb=8192).replace(**overrides).validate()
     tr = Trainer(cfg, device=device)
-    restored = ckpt.load(tr.state, cfg.checkpoint_dir, cfg.dataset_dir)
+    restored = ckpt.load(tr.state, cfg.checkpoint_dir, cfg.dataset_dir,
+                         pool=False)
     if restored is None:
         raise SystemExit(f"no checkpoint under {cfg.checkpoint_dir}")
     tr.state = restored

@@ -36,10 +36,6 @@ from .augment import (AffineParams, PhotometricDraws, affine_warp,
                       conjugate_affine, draw_affine, draw_photometric,
                       photometric_augment, take_rows)
 
-_PARALLEL_TODO = ("multi-host sample rows (global_b, sample_rows) are not "
-                  "ported yet (ROADMAP Queue 1: parallel)")
-
-
 class PreprocessDraws(NamedTuple):
     """The draws of one ``preprocess_train`` call, one row per sample:
     the affine parameters in the square source frame of
@@ -48,6 +44,14 @@ class PreprocessDraws(NamedTuple):
     affine: AffineParams
     photometric: Optional[PhotometricDraws]
     flip: torch.Tensor  # (B,) bool
+
+
+def draw_rows(draws: PreprocessDraws, rows) -> PreprocessDraws:
+    """The rows ``rows`` (a slice or an index tensor) of every draw."""
+    return PreprocessDraws(
+        take_rows(draws.affine, rows),
+        None if draws.photometric is None
+        else take_rows(draws.photometric, rows), draws.flip[rows])
 
 
 def draw_preprocess(generator: torch.Generator, b: int, src_h: int,
@@ -180,12 +184,23 @@ def preprocess_train(img_u8, seg_u8, cls_u8, draws: PreprocessDraws,
     every iterator emits: only the second half warps, with draw rows
     B/2..B-1) or "dynamic" (per-row select).
 
-    ``global_b`` and ``sample_rows`` (multi-host) must stay at their
-    defaults.  Returns {"real_a", "seg_a", "mask_a"} f32 on the input's
-    device, images in [0, 1]."""
-    if global_b or sample_rows is not None:
-        raise NotImplementedError(_PARALLEL_TODO)
+    ``global_b`` and ``sample_rows`` (data parallelism, a process a shard;
+    preprocess.py:105-113): ``draws`` are the draws of the global batch of
+    ``global_b`` rows, and this call takes the rows ``sample_rows`` of
+    them (the batch's positions in the global batch, the loader's
+    ``rows``; ``range(B)`` by default), so each sample is augmented as one
+    process preprocessing the whole global batch augments it.  Returns
+    {"real_a", "seg_a", "mask_a"} f32 on the input's device, images in
+    [0, 1]."""
     b, sh = img_u8.shape[:2]
+    if global_b or sample_rows is not None:
+        gb = global_b or b
+        if draws.flip.shape[0] != gb:
+            raise ValueError(f"draws of {draws.flip.shape[0]} rows for a "
+                             f"global batch of {gb}")
+        rows = torch.arange(b) if sample_rows is None else sample_rows
+        draws = draw_rows(draws, torch.as_tensor(
+            rows, dtype=torch.int64, device=draws.flip.device))
     flags = torch.as_tensor(aug_flags, dtype=torch.bool, device=img_u8.device)
     img = _resize(_to_unit(img_u8), out_hw)
     seg = _resize(_to_unit(seg_u8), out_hw)
@@ -197,11 +212,8 @@ def preprocess_train(img_u8, seg_u8, cls_u8, draws: PreprocessDraws,
         if b % 2:
             raise ValueError("aug_layout='half' needs an even batch")
         hb = b // 2
-        half = PreprocessDraws(
-            take_rows(draws.affine, slice(hb, None)),
-            take_rows(draws.photometric, slice(hb, None))
-            if photometric else None, draws.flip[hb:])
-        im2, sg2 = aug(img[hb:], seg[hb:], half, flags[hb:])
+        im2, sg2 = aug(img[hb:], seg[hb:], draw_rows(draws, slice(hb, None)),
+                       flags[hb:])
         img = torch.cat([img[:hb], im2])
         seg = torch.cat([seg[:hb], sg2])
     elif aug_layout == "dynamic":

@@ -6,6 +6,18 @@ directory bootstrapping (reference main.py:47-60).
     python -m sggan_tpu_torch.main --phase train --dataset_dir city \\
         --use_resnet --loss_mode sggan --img_height 256 --img_width 512
 
+Data parallelism runs one process per card, as ``torchrun`` starts them:
+
+    torchrun --nproc_per_node 4 -m sggan_tpu_torch.main --phase train \\
+        --mesh_data 4 --dataset_dir city --use_resnet --loss_mode sggan
+
+Under ``torchrun`` (``WORLD_SIZE`` set) or ``--mesh_data`` > 1, ``main``
+joins the process group (``parallel.distributed.initialize``: NCCL on
+the cards, gloo on the CPU, a no-op where the caller joined one already)
+before it builds the trainer, and leaves the group it joined at the
+end.  Each rank runs
+on ``cuda:LOCAL_RANK``.
+
 It runs on the CUDA device; without one it stops with an error and never
 carries on on the CPU.  ``main(argv, device="cpu")`` is for tests.
 """
@@ -18,6 +30,7 @@ import sys
 import torch
 
 from .config import parse_args
+from .parallel import distributed
 from .train.trainer import Trainer
 
 
@@ -26,13 +39,23 @@ def main(argv=None, device="cuda"):
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("sggan_tpu_torch.main: no CUDA device is visible; "
                          "the port trains and tests on an NVIDIA GPU")
-    for d in (cfg.checkpoint_dir, cfg.sample_dir, cfg.test_dir):
-        os.makedirs(d, exist_ok=True)
-    trainer = Trainer(cfg, device=device)
-    if cfg.phase == "train":
-        trainer.train()
-    else:
-        trainer.test()
+    joined = False  # whether main joined the group, and so leaves it
+    if "WORLD_SIZE" in os.environ or cfg.mesh_data > 1:
+        joined = not torch.distributed.is_initialized()
+        distributed.initialize(device_kind=device)
+        device = distributed.device(device)
+    try:
+        if distributed.is_coordinator():
+            for d in (cfg.checkpoint_dir, cfg.sample_dir, cfg.test_dir):
+                os.makedirs(d, exist_ok=True)
+        trainer = Trainer(cfg, device=device)
+        if cfg.phase == "train":
+            trainer.train()
+        else:
+            trainer.test()
+    finally:
+        if joined:
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

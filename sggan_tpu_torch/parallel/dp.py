@@ -1,0 +1,158 @@
+"""Data parallelism, port of ``sggan_tpu/parallel/dp.py``: one rank per
+card over ``torch.distributed``.
+
+The JAX package shard_maps its step over the mesh's ``data`` axis: the
+batch sharded on its leading dimension, the parameters, optimizer states,
+EMA and step count replicated, the gradients, losses and batch-norm
+moving stats ``pmean``'d inside the step, the image pool kept per shard
+(its buffer sharded on the slot dimension, its count replicated) and the
+randomness decorrelated per shard (``fold_in(rng, axis_index)``).  The
+port keeps those semantics with one process per card:
+
+* ``data_group`` is the group the step averages over: ``--mesh_data``
+  must equal its size (JAX may put several devices in one process, the
+  port never does);
+* ``mean_`` replaces tensors by their mean over the ranks, through one
+  flat f32 bucket (one all-reduce of the sum, then a division: gloo has
+  no average), so the step makes two collectives, one per net, each
+  holding that net's gradients, its batch norms' moving stats and its
+  loss;
+* each rank keeps ``max_size`` pool slots, rows ``[r * max_size, (r + 1)
+  * max_size)`` of the JAX package's global buffer (``gather_pool`` puts
+  them back together for a checkpoint);
+* ``own_shard`` draws every shard's draws from the generator the ranks
+  share and keeps this rank's, so the generators stay in step and one
+  process can rebuild any shard's draws;
+* ``broadcast_state`` copies rank 0's replicated state to every rank
+  after an init or a load, as DDP does;
+* ``wait_group`` and ``barrier``: while the coordinator evaluates, the
+  other ranks wait at a barrier of a gloo group with a timeout of its own
+  (``WAIT_TIMEOUT_S``), as the JAX processes wait out the coordinator's
+  eval: an eval (``--eval_crf`` over the test split on one host thread)
+  may outlast the collectives' timeout.
+
+An all-reduce of the sum gives every rank the same bits (the ring and
+tree algorithms of NCCL and gloo reduce each element once and send the
+result), so the replicas stay bitwise equal step after step.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Callable, Dict, List, Optional, TypeVar
+
+import torch
+import torch.distributed as dist
+
+from .distributed import rank, world_size
+from .mesh import check_space
+
+T = TypeVar("T")
+
+# how long the other ranks wait for the coordinator's eval
+WAIT_TIMEOUT_S = 24 * 3600
+
+# bytes and calls of the all-reduces ``mean_`` makes, for a reader who
+# measures them (chip_smoke.py, beside its profiler range
+# "dp.all_reduce"); never read by the program
+bytes_reduced = 0
+reductions = 0
+
+
+def data_group(cfg, group=None):
+    """The process group over which ``cfg``'s steps average: None for
+    one process; else ``group`` (the default group when None), whose
+    size must be ``--mesh_data``.  Raises for a spatial mesh, which is
+    not ported."""
+    check_space(cfg.mesh_space, cfg.mesh_space_w)
+    n = world_size(group)
+    if n != cfg.mesh_data:
+        raise ValueError(
+            f"--mesh_data {cfg.mesh_data} must equal the world size, {n}: "
+            "the port runs one rank a card (torchrun --nproc_per_node "
+            f"{cfg.mesh_data} ... --mesh_data {cfg.mesh_data})")
+    if n == 1:
+        return None
+    return dist.group.WORLD if group is None else group
+
+
+@torch.no_grad()
+def mean_(tensors: List[torch.Tensor], group) -> None:
+    """Each tensor of ``tensors`` replaced, in place, by its mean over the
+    ranks of ``group``, through one flat f32 bucket."""
+    global bytes_reduced, reductions
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    # a profiler window's range for the collective and its wait
+    with torch.profiler.record_function("dp.all_reduce"):
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat.div_(dist.get_world_size(group))
+    bytes_reduced += flat.numel() * flat.element_size()
+    reductions += 1
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+
+
+def bn_leaves(bn: Dict[str, Dict[str, torch.Tensor]]) -> List[torch.Tensor]:
+    """The moving-stat tensors of a batch-norm state, in a fixed order."""
+    return [t for v in bn.values() for t in v.values()]
+
+
+def own_shard(draw: Callable[[], T], group) -> T:
+    """``draw()`` made once for each rank of ``group`` in rank order, from
+    the generator it reads; this rank's draw is kept (the only one for
+    one process)."""
+    draws = [draw() for _ in range(world_size(group))]
+    return draws[rank(group)]
+
+
+def _src(group) -> int:
+    return dist.get_global_rank(group, 0) if group is not dist.group.WORLD \
+        else 0
+
+
+@torch.no_grad()
+def broadcast_state(state, group) -> None:
+    """Rank 0's parameters, batch-norm stats, Adam states and EMA copied
+    into every rank's, in place; each rank's pool rows stay its own."""
+    from ..train.step import state_tensors
+    for name, t in state_tensors(state).items():
+        if not name.startswith("pool."):
+            dist.broadcast(t, _src(group), group=group)
+
+
+@torch.no_grad()
+def gather_pool(buffer: Dict[str, torch.Tensor],
+                group) -> Dict[str, torch.Tensor]:
+    """Every rank's pool rows in the JAX package's global layout, rank
+    after rank, on every rank (a collective): each buffer summed into
+    zeros in f32, which is exact for the rows of one rank."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    out = {}
+    for k, buf in buffer.items():
+        s = buf.shape[0]
+        full = torch.zeros((n * s, *buf.shape[1:]), dtype=torch.float32,
+                           device=buf.device)
+        full[r * s:(r + 1) * s] = buf
+        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
+        out[k] = full.to(buf.dtype)
+    return out
+
+
+def wait_group(group):
+    """A gloo group of ``group``'s ranks (None for one process) whose
+    barrier waits up to ``WAIT_TIMEOUT_S``: every rank of the default
+    group makes it, in the same order."""
+    if group is None:
+        return None
+    ranks = None if group is dist.group.WORLD else \
+        dist.get_process_group_ranks(group)
+    return dist.new_group(
+        ranks, timeout=datetime.timedelta(seconds=WAIT_TIMEOUT_S),
+        backend="gloo")
+
+
+def barrier(group: Optional[object]) -> None:
+    if group is not None:
+        dist.barrier(group=group)

@@ -50,7 +50,8 @@ def _trainer(cfg: Config, device):
     from .utils import checkpoint as ckpt
 
     trainer = Trainer(cfg.replace(phase="test"), device)
-    restored = ckpt.load(trainer.state, cfg.checkpoint_dir, cfg.dataset_dir)
+    restored = ckpt.load(trainer.state, cfg.checkpoint_dir, cfg.dataset_dir,
+                         pool=False)
     if restored is not None:
         trainer.state = restored
     return trainer, restored is not None

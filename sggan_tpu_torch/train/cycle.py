@@ -34,9 +34,11 @@ mask sets (``cycle_dropout_masks``) and feeds set 3 to F(G(a)) and G(b),
 set 4 to G(F(b)) and F(a).
 
 ``--remat`` and the ResNet head of ``pad_free_head`` reach both
-generators as in the sggan step (cycle.py:87-100).  Not ported, raising
-``NotImplementedError`` that names its ROADMAP item
-(``step._require_ported``): data or spatial parallelism.
+generators as in the sggan step (cycle.py:87-100).  ``--mesh_data N``
+runs the step on each of N ranks' shards, with the gradients and losses
+averaged over the ranks as the sggan step averages them (cycle.py:
+175-178), and each rank's pool keeps ``max(max_size, 1)`` pair slots
+(``parallel/dp.py``); spatial sharding is not ported.
 """
 
 from __future__ import annotations
@@ -49,10 +51,11 @@ from torch import nn
 from .. import losses
 from ..ops import dropout_masks as _draw_masks
 from ..ops.deriv import seg_boundary_weight
+from ..parallel import dp
 from .pool import PoolDraws, PoolPlan, pool_init, pool_update
 from .step import (TrainState, _conv_precision, _dtype, _ema_update, _grads,
-                   _keep_pool, _require_ported, adam_init, adam_update,
-                   deterministic, new_discriminator, new_generator,
+                   _keep_pool, adam_init, adam_update, deterministic,
+                   mean_over_ranks, new_discriminator, new_generator,
                    pad_free_head, pools)
 
 N_MASK_SETS = 4  # r1..r4 of the JAX step
@@ -70,13 +73,14 @@ def new_cycle_nets(cfg, generator: Optional[torch.Generator] = None
             nn.ModuleDict({"da": da, "db": db}))
 
 
-def init_cycle_state(cfg, generator: torch.Generator,
-                     device="cuda") -> TrainState:
+def init_cycle_state(cfg, generator: torch.Generator, device="cuda",
+                     group=None) -> TrainState:
     """Fresh nets (``new_cycle_nets``), zero Adam states over both
     generators and over both discriminators, and an empty pool of
     ``max(max_size, 1)`` (fake pair, mask pair) slots in the compute
-    dtype, on ``device``."""
-    _require_ported(cfg)
+    dtype, on ``device``: one rank's state under ``--mesh_data``, which
+    must be the size of ``group`` (``step.init_state``)."""
+    dp.data_group(cfg, group)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
@@ -181,7 +185,7 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
     return metrics, g_grads, d_grads, new_pool
 
 
-def build_cycle_step_fn(cfg, axis_name: Optional[str] = None):
+def build_cycle_step_fn(cfg, group=None):
     """The cycle step: ``(state, batch, lr, pool_draws, drop_masks=None)
     -> (state, metrics)``.
 
@@ -193,14 +197,17 @@ def build_cycle_step_fn(cfg, axis_name: Optional[str] = None):
     ``drop_masks`` from ``cycle_dropout_masks`` (None for the ResNet or
     under ``--dropout_mode keras_quirk``).  Every tensor of the state is
     updated in place, as the sggan step does it; metrics are device
-    scalars."""
-    _require_ported(cfg, axis_name)
+    scalars.  ``group``: the ranks of ``--mesh_data``, as the sggan
+    step's (``step.build_step_fn``)."""
+    group = dp.data_group(cfg, group)
 
     def step_fn(state: TrainState, batch, lr: Union[float, torch.Tensor],
                 pool_draws: Union[PoolDraws, PoolPlan, None],
                 drop_masks: Optional[Sequence] = None):
         metrics, g_grads, d_grads, pool = losses_and_grads(
             cfg, state, batch, pool_draws, drop_masks)
+        mean_over_ranks(group, g_grads, {}, metrics["gen_loss"])
+        mean_over_ranks(group, d_grads, {}, metrics["disc_loss"])
         adam_update(state.gen_params, state.g_opt, g_grads, lr, cfg.beta1)
         adam_update(state.disc_params, state.d_opt, d_grads, lr, cfg.beta1)
         _ema_update(cfg, state.ema, state.gen_params)

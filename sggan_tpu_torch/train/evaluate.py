@@ -12,6 +12,8 @@ ones do.  Under ``--loss_mode cycle`` they run the generator of
 trained parameters (``eval_generator``).  Every net runs in inference
 mode: the pix2pix generator's batch norms on the moving stats of the
 train state (``state.gen_bn``), under ``--gen_ema`` too, and no dropout.
+In a data-parallel job only the coordinator evaluates and samples
+(evaluate.py:120-124): the parameters are the same on every rank.
 Under ``--eval_crf`` the epoch-end eval refines each fake's three
 channels with the dense CRF against the input photo on the host
 (``metrics/crf.py``) before it scores them (evaluate.py:166-189).
@@ -154,10 +156,13 @@ def test_during_train(tr, epoch: int,
     scalars under the reference's tags.  The ground-truth labels are
     pulled once per run (cached by chunk paths and size).  Returns
     (fakes as (N, H, W, 3) uint8, score dict), or (None, None) without
-    test files.  Under ``--eval_crf`` the input photos come to the host
-    too, and each fake is refined with the dense CRF against its photo
-    before it is scored (its PNG is the generator's)."""
+    test files, or on a rank other than the coordinator.  Under
+    ``--eval_crf`` the input photos come to the host too, and each fake
+    is refined with the dense CRF against its photo before it is scored
+    (its PNG is the generator's)."""
     cfg = tr.cfg
+    if not tr.is_coord:
+        return None, None
     files = test_files(tr.root)
     if not files:
         return None, None
@@ -215,9 +220,13 @@ def test_during_train(tr, epoch: int,
 def run_test(tr) -> None:
     """Inference CLI, parity with model.py:535-567 (evaluate.py:202): load
     the latest checkpoint, translate every testA image, save the fake as
-    <name> and the input as real_<name> in --test_dir."""
+    <name> and the input as real_<name> in --test_dir; the coordinator's
+    work alone in a data-parallel job."""
     cfg = tr.cfg
-    restored = ckpt.load(tr.state, cfg.checkpoint_dir, cfg.dataset_dir)
+    if not tr.is_coord:
+        return
+    restored = ckpt.load(tr.state, cfg.checkpoint_dir, cfg.dataset_dir,
+                         pool=False)
     if restored is not None:
         tr.state = restored
         print(" [*] Load SUCCESS")
@@ -241,10 +250,10 @@ def run_test(tr) -> None:
 def sample_model(tr, epoch: int, idx: int) -> None:
     """Sample dump, parity with model.py:506-525 (evaluate.py:232): a
     batch of shuffled test images translated into one JPEG grid in
-    --sample_dir."""
+    --sample_dir (the coordinator's alone)."""
     cfg = tr.cfg
     files = test_files(tr.root)
-    if not files:
+    if not files or not tr.is_coord:
         return
     rng = np.random.default_rng(cfg.data_seed + epoch * 10000 + idx)
     rng.shuffle(files)

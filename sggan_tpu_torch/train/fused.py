@@ -60,6 +60,7 @@ from ..data.loader import epoch_order
 from ..data.preprocess import (PreprocessDraws, draw_preprocess,
                                preprocess_train)
 from ..ops import cuda_in
+from ..parallel import dp
 from ..utils import cuda_graph
 from .pool import (HistPlan, PoolPlan, plan_hist_steps, plan_steps,
                    pool_draws)
@@ -104,7 +105,13 @@ def device_draws(tr, src_h: int, src_h_b: Optional[int] = None):
     preprocess's, then the dropout masks (None for a net without
     dropout).  Under ``--loss_mode cycle`` the preprocess's are a pair,
     A's (sources ``src_h`` rows high) then B's (``src_h_b``), and the
-    masks the cycle step's four sets."""
+    masks the cycle step's four sets.
+
+    Under ``--mesh_data N`` every rank draws what one process would for
+    the global batch: the preprocess's draws for all of its rows (each
+    rank's preprocess takes its own, ``preprocess_train``'s
+    ``sample_rows``), then the masks of each shard in rank order, of
+    which it keeps its own (``parallel.dp.own_shard``)."""
     cfg = tr.cfg
     b_eff = effective_batch(cfg)
 
@@ -112,17 +119,20 @@ def device_draws(tr, src_h: int, src_h_b: Optional[int] = None):
         return draw_preprocess(tr.data_gen, b_eff, h, cfg.image_size,
                                cfg.use_photometric)
     draws = (pre(src_h), pre(src_h_b)) if tr.cycle else pre(src_h)
-    return draws, dropout_masks(cfg, tr.state.gen_params, tr.data_gen,
-                                b_eff)
+    return draws, dp.own_shard(lambda: dropout_masks(
+        cfg, tr.state.gen_params, tr.data_gen, b_eff // tr.world), tr.group)
 
 
 def step_draws(tr, src_h: int, src_h_b: Optional[int] = None):
     """One step's draws: the device ones (``device_draws``) and the
     pool's from the trainer's host generator, as (preprocess, pool,
-    masks)."""
+    masks); under ``--mesh_data N`` this rank's pool draws, drawn after
+    those of the ranks before it and before those of the ranks after."""
     draws, masks = device_draws(tr, src_h, src_h_b)
-    return (draws, pool_draws(tr.pool_gen, effective_batch(tr.cfg),
-                              tr.cfg.max_size), masks)
+    cfg = tr.cfg
+    return (draws, dp.own_shard(lambda: pool_draws(
+        tr.pool_gen, effective_batch(cfg) // tr.world, cfg.max_size),
+        tr.group), masks)
 
 
 def two_domain(batch_a: dict, batch_b: dict) -> dict:
@@ -138,7 +148,8 @@ def end_step(tr, epoch: int, idx: int, m: dict, n_images: int,
     """The bookkeeping after step ``idx`` of an epoch, as the JAX trainer
     does it (trainer.py:373-386): keep the losses on the device, count the
     images, tick the profiler window, print at the first step and every
-    ``--print_freq`` steps (the reference's line, model.py:260-261), save
+    ``--print_freq`` steps (the reference's line, model.py:260-261; the
+    coordinator alone under ``--mesh_data``), save
     when the step count reaches a multiple of ``--save_freq``.  Returns
     the new global step."""
     cfg = tr.cfg
@@ -147,7 +158,7 @@ def end_step(tr, epoch: int, idx: int, m: dict, n_images: int,
     tr._timer.mark(n_images)
     if tr._prof is not None:
         tr._prof.tick()
-    if idx % cfg.print_freq == 0:
+    if idx % cfg.print_freq == 0 and tr.is_coord:
         print("Epoch: [%2d] [%4d] time: %4.4f "
               "Gen_Loss: %f Disc_Loss: %f" % (
                   epoch, idx, time.time() - start_time,

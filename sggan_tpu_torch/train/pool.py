@@ -24,6 +24,13 @@ concat-to-10-then-reset, model.py:175-179; ``sggan_tpu/train/step.py``'s
 prefix and count follow from the count alone, so ``hist_plan`` and
 ``plan_hist_steps`` give the rows of [history; fakes] that form the new
 history and its valid entries (``HistPlan``), and the step gathers them.
+
+Under data parallelism (``--mesh_data N``, ``parallel/dp.py``) each rank
+keeps a pool of ``max_size`` slots and updates it with its own shard's
+items and draws; every rank adds as many items a step, so the counts stay
+equal.  The JAX package holds the same pools as one buffer of
+``max_size * N`` slots sharded on the slot axis: rank r's are rows
+``[r * max_size, (r + 1) * max_size)`` (``rank_rows``).
 """
 
 from __future__ import annotations
@@ -110,6 +117,13 @@ def pool_init(max_size: int, item_shapes: Mapping[str, Tuple[int, ...]],
     buf = {k: torch.zeros((n, *s), dtype=dtype, device=device)
            for k, s in item_shapes.items()}
     return PoolState(buf, 0)
+
+
+def rank_rows(buffer: Mapping[str, torch.Tensor], rank: int,
+              slots: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s ``slots`` rows of a pool buffer in the JAX
+    package's global layout (one rank's slots after another's)."""
+    return {k: v[rank * slots:(rank + 1) * slots] for k, v in buffer.items()}
 
 
 def pool_draws(generator: torch.Generator, b: int,

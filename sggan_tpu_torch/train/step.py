@@ -32,9 +32,16 @@ the discriminator loss the detached history, each entry against the
 current batch's mask and seg tiled to the history's length (the
 reference's quirk).  The update's rows are planned on the host
 (``pool.hist_plan``), so a CUDA graph of the step reads them from a
-buffer.  Under the pix2pix nets the flag is ignored, as in JAX.  Not
-ported yet, raising ``NotImplementedError`` that names its ROADMAP item:
-data parallelism (``axis_name``, the meshes), in every loss mode.
+buffer.  Under the pix2pix nets the flag is ignored, as in JAX.
+
+Data parallelism (``--mesh_data N``, the JAX step's ``axis_name``): the
+step is built with the process group of N ranks, one a card
+(``parallel/dp.py``), and runs on each rank's shard of the batch, with
+that shard's pool draws and dropout masks; after the backward it averages
+each net's gradients, its batch norms' moving stats and its loss over the
+ranks (the JAX step's ``pmean``), so every rank makes the same update.
+Each rank's pool keeps ``max_size`` slots.  ``--mesh_space > 1`` (spatial
+sharding) is not ported and raises, naming "parallel: spatial".
 
 Adam is optax's ``scale_by_adam`` (betas (beta1, 0.999), eps 1e-7, the
 Keras default, not optax's 1e-8) with the learning rate applied outside the
@@ -77,6 +84,7 @@ import torch
 from .. import losses
 from ..models import build
 from ..ops import dropout_masks as _draw_masks
+from ..parallel import dp
 from .pool import (HistPlan, PoolDraws, PoolPlan, PoolState, hist_plan,
                    pool_init, pool_update)
 
@@ -116,14 +124,6 @@ def lr_schedule(cfg, epoch: int) -> float:
 
 def _dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-
-
-def _require_ported(cfg, axis_name=None) -> None:
-    if axis_name is not None or cfg.mesh_data > 1 or cfg.mesh_space > 1:
-        raise NotImplementedError(
-            "data and spatial parallelism (ROADMAP Queue 1: parallel) is "
-            "not ported yet; train on one device (--mesh_data 1 "
-            "--mesh_space 1)")
 
 
 def compat_hist(cfg) -> bool:
@@ -187,16 +187,19 @@ def new_discriminator(cfg, generator: Optional[torch.Generator] = None):
     return build(cfg)[1](**kw)
 
 
-def init_state(cfg, generator: torch.Generator,
-               device="cuda") -> TrainState:
+def init_state(cfg, generator: torch.Generator, device="cuda",
+               group=None) -> TrainState:
     """Fresh nets drawn on the CPU from ``generator`` (generator first,
     then discriminator), fresh BN moving stats, zero Adam state and an
     empty pool, on ``device``; the cycle mode's state under
-    ``--loss_mode cycle`` (``cycle.init_cycle_state``)."""
+    ``--loss_mode cycle`` (``cycle.init_cycle_state``).  Under
+    ``--mesh_data N`` this is one rank's state, its pool of ``max_size``
+    slots: ``--mesh_data`` must be the size of ``group`` (the default
+    process group when None, one rank outside one)."""
     if cfg.loss_mode == "cycle":
         from .cycle import init_cycle_state
-        return init_cycle_state(cfg, generator, device)
-    _require_ported(cfg)
+        return init_cycle_state(cfg, generator, device, group)
+    dp.data_group(cfg, group)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
@@ -485,7 +488,16 @@ def _ema_update(cfg, ema, gen: torch.nn.Module):
     return ema
 
 
-def build_step_fn(cfg, axis_name: Optional[str] = None):
+def mean_over_ranks(group, grads: Dict[str, torch.Tensor], bn: dict,
+                    loss: torch.Tensor) -> None:
+    """One net's gradients, batch-norm moving stats and loss averaged over
+    the ranks of ``group`` in place (the JAX step's ``pmean``); nothing
+    for one process."""
+    if group is not None:
+        dp.mean_([*grads.values(), *dp.bn_leaves(bn), loss], group)
+
+
+def build_step_fn(cfg, group=None):
     """The step: ``(state, batch, lr, pool_draws, drop_masks=None) ->
     (state, metrics)``.
 
@@ -502,17 +514,25 @@ def build_step_fn(cfg, axis_name: Optional[str] = None):
     state is updated in place (``state_tensors``); the returned state
     holds them, with the new step and pool count.  Metrics are device
     scalars.  Under ``--loss_mode cycle``, the cycle step
-    (``cycle.build_cycle_step_fn``)."""
+    (``cycle.build_cycle_step_fn``).
+
+    ``group``: under ``--mesh_data N``, the process group of the N ranks
+    (the default group when None; ``parallel.dp.data_group``).  The step
+    then takes this rank's shard of the batch, its pool draws and its
+    masks, and every rank returns the same losses and makes the same
+    update."""
     if cfg.loss_mode == "cycle":
         from .cycle import build_cycle_step_fn
-        return build_cycle_step_fn(cfg, axis_name)
-    _require_ported(cfg, axis_name)
+        return build_cycle_step_fn(cfg, group)
+    group = dp.data_group(cfg, group)
 
     def step_fn(state: TrainState, batch, lr: Union[float, torch.Tensor],
                 pool_draws: Union[PoolDraws, PoolPlan, None],
                 drop_masks: Optional[Sequence[torch.Tensor]] = None):
         metrics, g_grads, d_grads, pool, (gen_bn, disc_bn) = \
             losses_and_grads(cfg, state, batch, pool_draws, drop_masks)
+        mean_over_ranks(group, g_grads, gen_bn, metrics["gen_loss"])
+        mean_over_ranks(group, d_grads, disc_bn, metrics["disc_loss"])
         adam_update(state.gen_params, state.g_opt, g_grads, lr, cfg.beta1)
         adam_update(state.disc_params, state.d_opt, d_grads, lr, cfg.beta1)
         _assign(state.gen_bn, gen_bn)

@@ -1,6 +1,6 @@
 """Training and eval orchestration, port of ``sggan_tpu/train/trainer.py``
-(parity with the reference's ``sggan`` class, model.py:39-567), for one
-process on one device.
+(parity with the reference's ``sggan`` class, model.py:39-567), on one
+device, or on one card in each rank of a data-parallel job.
 
 Per epoch (model.py:219-271): the learning rate of ``lr_schedule``; the
 steps, over the split resident on the device (``train/fused.py``) when it
@@ -40,8 +40,24 @@ when both fit, else two host iterators zipped, trainB's shuffled from
 the backward's recompute.  ``--compat_fake_history`` trains the
 reference's fake history (``train/step.py``), in the step's graph too;
 ``--eval_crf`` refines the eval's fakes with the dense CRF
-(``train/evaluate.py``).  Not ported, raising ``NotImplementedError``
-that names its ROADMAP item: meshes and multi-host training.
+(``train/evaluate.py``).
+
+``--mesh_data N`` trains on N ranks, one card each, in a process group
+that the caller has joined (``parallel/distributed.py``; ``main`` does it
+from ``torchrun``'s environment), as the JAX trainer trains with one
+device a process (trainer.py:49-77): each rank feeds ``batch_size / N``
+of each global batch from the host iterator (its rows of the shared
+shuffle, ``process_index``/``process_count``), preprocesses them with the
+draws of the global batch at its rows (``global_b``, ``sample_rows``), and
+runs the data-parallel step (``parallel/dp.py``).  The resident split and
+``--scan_steps`` are not used then (trainer.py:159), so no CUDA graph holds
+a collective.  Only the coordinator (rank 0) prints, evaluates, samples
+and writes TensorBoard, while the other ranks wait at a barrier with a
+timeout of its own (``dp.wait_group``: an eval may outlast the
+collectives' timeout); every rank takes part in a save, in which rank 0
+writes the checkpoint with every rank's pool rows in the JAX package's
+global layout; on ``--continue_train`` every rank reads it and takes its
+own rows.  Spatial sharding (``--mesh_space``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -58,12 +74,13 @@ from ..config import Config
 from ..data.loader import (Dataset, DeviceDataset, _load_triplet,
                            train_iterator)
 from ..data.preprocess import make_preprocess_train
+from ..parallel import distributed, dp
 from ..utils import checkpoint as ckpt
 from ..utils.cuda_graph import ForwardGraphs
 from ..utils.profiling import StepTimer, TraceWindow
 from ..utils.summary import SummaryWriter
 from . import evaluate, fused
-from .step import _require_ported, init_state, lr_schedule, make_train_step
+from .step import build_step_fn, init_state, lr_schedule
 
 
 def _dataset_root(cfg: Config) -> str:
@@ -76,15 +93,30 @@ class Trainer:
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg.validate()
         self.cycle = cfg.loss_mode == "cycle"
-        _require_ported(cfg)
+        # ---- data parallelism: one rank a card (trainer.py:49-77) ----
+        self.group = dp.data_group(cfg)
+        self.world = 1 if self.group is None else \
+            distributed.world_size(self.group)
+        self.rank = 0 if self.group is None else distributed.rank(self.group)
+        self.is_coord = self.rank == 0
+        if cfg.batch_size % self.world:
+            raise ValueError(
+                f"batch_size={cfg.batch_size} must divide by the "
+                f"{self.world} ranks (each feeds its slice of the batch)")
+        self.local_bs = cfg.batch_size // self.world
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is visible")
         self.root = _dataset_root(cfg)
         self.state = init_state(
-            cfg, torch.Generator().manual_seed(cfg.data_seed), self.device)
-        self.step_fn = make_train_step(cfg)
+            cfg, torch.Generator().manual_seed(cfg.data_seed), self.device,
+            self.group)
+        if self.group is not None:
+            dp.broadcast_state(self.state, self.group)
+        # the other ranks wait out the coordinator's eval here
+        self.eval_wait = dp.wait_group(self.group)
+        self.step_fn = build_step_fn(cfg, self.group)
         self.data_gen = torch.Generator(device=self.device).manual_seed(
             cfg.data_seed)
         self.pool_gen = torch.Generator().manual_seed(cfg.data_seed)
@@ -120,7 +152,9 @@ class Trainer:
         budget.  None keeps the host iterator, for an empty budget, a split
         smaller than a batch, or splits that do not fit."""
         cfg = self.cfg
-        if not cfg.device_dataset_mb:
+        if not cfg.device_dataset_mb or self.world > 1:
+            # each rank decodes its slice of the global batch on the host
+            # (trainer.py:159)
             return None
         splits = ("trainA", "trainB") if self.cycle else ("trainA",)
         est = 0
@@ -154,7 +188,7 @@ class Trainer:
 
     def _save(self, epoch: int):
         ckpt.save(self.state, self.cfg.checkpoint_dir, self.cfg.dataset_dir,
-                  self._ckpt_base + epoch)
+                  self._ckpt_base + epoch, self.group)
 
     def _upload(self, raw: dict) -> list:
         """A decoded batch's img, seg, cls and aug on the device (through
@@ -170,7 +204,9 @@ class Trainer:
         """One epoch over the host iterator: decoded uint8 batches,
         uploaded, preprocessed on the device, one step each; under
         ``--loss_mode cycle`` trainA's iterator zipped with trainB's, whose
-        shuffle seed is ``data_seed + 7919``."""
+        shuffle seed is ``data_seed + 7919``.  Under ``--mesh_data`` this
+        rank's ``local_bs`` rows of each global batch, preprocessed at
+        their rows of the global batch (trainer.py:239-270)."""
         cfg = self.cfg
         domains = ((0, "trainA"), (fused.B_SEED_OFFSET, "trainB")) \
             if self.cycle else ((0, "trainA"),)
@@ -182,25 +218,30 @@ class Trainer:
             size = min(size, *(len(Dataset(self.root, s).files())
                                for _, s in domains))
         its = [train_iterator(
-            self.root, cfg.batch_size, cfg.data_seed + off,
+            self.root, self.local_bs, cfg.data_seed + off,
             use_augmentation=cfg.use_augmentation, epoch=epoch,
             train_size=size, prefetch=cfg.prefetch, split=split,
-            cache_mb=cfg.decode_cache_mb, max_src_hw=self.max_src_hw)
+            cache_mb=cfg.decode_cache_mb, max_src_hw=self.max_src_hw,
+            process_index=self.rank, process_count=self.world)
             for off, split in domains]
         for idx, raws in enumerate(zip(*its)):
             up = [self._upload(raw) for raw in raws]
             draws, pdraws, masks = fused.step_draws(
                 self, *(u[0].shape[1] for u in up))
-            batches = [self.preprocess(img, seg, cls, d, aug)
-                       for (img, seg, cls, aug), d in zip(
-                           up, draws if self.cycle else (draws,))]
+            # the draws are the global batch's: each rank takes its rows
+            kws = [dict(global_b=fused.effective_batch(cfg),
+                        sample_rows=raw["rows"]) if self.world > 1 else {}
+                   for raw in raws]
+            batches = [self.preprocess(img, seg, cls, d, aug, **kw)
+                       for (img, seg, cls, aug), d, kw in zip(
+                           up, draws if self.cycle else (draws,), kws)]
             batch = fused.two_domain(*batches) if self.cycle \
                 else batches[0]
             self.state, m = self.step_fn(self.state, batch, self.lr,
                                          pdraws, masks)
             global_step = fused.end_step(
-                self, epoch, idx, m, up[0][0].shape[0], g_losses, d_losses,
-                global_step, start_time)
+                self, epoch, idx, m, up[0][0].shape[0] * self.world,
+                g_losses, d_losses, global_step, start_time)
         return global_step
 
     def train(self) -> dict:
@@ -208,21 +249,31 @@ class Trainer:
         logdir = os.path.join(
             cfg.log_dir,
             datetime.datetime.now().strftime("%Y%m%d-%H%M%S"), "train")
-        writer = SummaryWriter(logdir)
+        writer = SummaryWriter(logdir) if self.is_coord else None
         start_time = time.time()
 
         if cfg.continue_train:
             loaded = ckpt.latest_epoch(cfg.checkpoint_dir, cfg.dataset_dir)
             restored = ckpt.load(self.state, cfg.checkpoint_dir,
-                                 cfg.dataset_dir, loaded)
+                                 cfg.dataset_dir, loaded, self.group)
             if restored is not None:
                 self.state = restored
                 self._ckpt_base = loaded + 1
-                print(" [*] Load SUCCESS")
+                if self.group is not None:
+                    dp.broadcast_state(self.state, self.group)
+                if self.is_coord:
+                    print(" [*] Load SUCCESS")
             else:
                 print(" [!] Load failed...")
-        else:
+        elif self.is_coord:
             print(" [*] New training STARTED")
+        if self.world > 1 and self.is_coord:
+            print(f" [*] data parallel over {self.world} ranks "
+                  f"({torch.distributed.get_backend(self.group)}): "
+                  f"{self.local_bs} of each batch of {cfg.batch_size} a "
+                  "rank, from the host iterator; --device_dataset_mb and "
+                  "--scan_steps have no effect: the steps run eagerly, no "
+                  "CUDA graph holds a collective")
 
         epoch = 0
         last = {}
@@ -263,17 +314,20 @@ class Trainer:
                            or epoch == cfg.epoch - 1)
                 fake_concat, score = (self.test_during_train(epoch, writer)
                                       if do_eval else (None, None))
+                if do_eval:
+                    dp.barrier(self.eval_wait)
                 if fake_concat is not None:
                     writer.image(f"Segmentation Epoch {epoch}", fake_concat,
                                  step=epoch)
                 g_mean = None
                 if g_losses:
                     g_mean = torch.stack(g_losses).float().mean().item()
-                    writer.scalar("Generator Loss", g_mean, epoch)
-                    writer.scalar("Discriminator Loss", torch.stack(
-                        d_losses).float().mean().item(), epoch)
-                    writer.scalar("Images/sec", rate["images_per_sec"],
-                                  epoch)
+                    if writer is not None:
+                        writer.scalar("Generator Loss", g_mean, epoch)
+                        writer.scalar("Discriminator Loss", torch.stack(
+                            d_losses).float().mean().item(), epoch)
+                        writer.scalar("Images/sec", rate["images_per_sec"],
+                                      epoch)
                 last = {"epoch": epoch, "score": score, "gen_loss": g_mean}
         except KeyboardInterrupt:
             self._save(epoch)
@@ -282,11 +336,13 @@ class Trainer:
             if self._prof is not None:
                 self._prof.close()
             self._save(epoch)
-            writer.close()
+            if writer is not None:
+                writer.close()
         wall = time.time() - start_time
-        print(f" [*] Training finished: step {global_step}, {images} images "
-              f"in {wall:.2f} s ({images / wall:.2f} img/s with eval, "
-              "saves and set-up)")
+        if self.is_coord:
+            print(f" [*] Training finished: step {global_step}, {images} "
+                  f"images in {wall:.2f} s ({images / wall:.2f} img/s with "
+                  "eval, saves and set-up)")
         return last
 
     def test_during_train(self, epoch: int,

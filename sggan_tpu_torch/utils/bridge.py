@@ -21,7 +21,14 @@ torch layouts, the pool's buffers and count (under
 count)`` of the fake history, as ``{"fake": buffer}``), the step and the
 EMA.
 ``train_state_to_jax`` is the way back for the parameters, the moving
-stats and the Adam state.  Under ``--loss_mode cycle`` the JAX state
+stats, the Adam state, the pool, the step and the EMA.
+
+A data-parallel JAX state (``init_state(..., n_data=N)``) holds the N
+shards' pools as one buffer of N times the slots, sharded on the slot
+axis; one rank of the port holds its own rows
+(``train_state_from_jax(..., rank=r, n_data=N)``), and
+``train_state_to_jax(state, group)`` gathers every rank's back into that
+layout.  Under ``--loss_mode cycle`` the JAX state
 (``sggan_tpu/train/cycle.py::init_cycle_state``) nests the nets as
 {"a2b", "b2a"} and {"da", "db"} and pools (fake, mask) pairs; the port's
 ``nn.ModuleDict`` of the same keys flattens to the same names
@@ -37,8 +44,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..parallel import dp
 from ..train.cycle import new_cycle_nets
-from ..train.pool import PoolState
+from ..train.pool import PoolState, rank_rows
 from ..train.step import (AdamState, TrainState, new_discriminator,
                           new_generator)
 
@@ -96,11 +104,13 @@ def _bn_to_jax(state: Mapping) -> dict:
             for k, v in state.items()}
 
 
-def train_state_from_jax(cfg, state, device="cpu") -> TrainState:
+def train_state_from_jax(cfg, state, device="cpu", rank: int = 0,
+                         n_data: int = 1) -> TrainState:
     """The port's ``TrainState`` on ``device`` from a JAX ``TrainState``
     whose leaves are numpy arrays, for the config that made it (the nets
     it selects; the semantic discriminator with the "global" head; both
-    pairs under ``--loss_mode cycle``)."""
+    pairs under ``--loss_mode cycle``).  Of a data-parallel state of
+    ``n_data`` shards, rank ``rank``'s: its rows of the pool."""
     if cfg.loss_mode == "cycle":
         gen, disc = new_cycle_nets(cfg)
     else:
@@ -110,6 +120,12 @@ def train_state_from_jax(cfg, state, device="cpu") -> TrainState:
     buf = state.pool.buffer
     if not isinstance(buf, Mapping):  # the p2p/simple pool is one array
         buf = {"fake": buf}
+    rows = next(iter(buf.values())).shape[0]
+    if rows % n_data:
+        raise ValueError(f"a pool of {rows} rows does not split into "
+                         f"{n_data} shards")
+    buf = rank_rows({k: np.asarray(v) for k, v in buf.items()}, rank,
+                    rows // n_data)
     pool = PoolState({k: torch.from_numpy(np.array(v)).to(device)
                       for k, v in buf.items()},
                      int(np.asarray(state.pool.count)))
@@ -123,18 +139,30 @@ def train_state_from_jax(cfg, state, device="cpu") -> TrainState:
                       int(np.asarray(state.step)), ema)
 
 
-def train_state_to_jax(state: TrainState) -> dict:
-    """The parameters, moving stats and Adam states of a port
-    ``TrainState`` as nested dicts of numpy arrays in the JAX layouts:
-    ``gen_params``, ``gen_bn``, ``disc_params``, ``disc_bn``, and
-    ``g_opt``/``d_opt`` with ``count``, ``mu``, ``nu``."""
+def train_state_to_jax(state: TrainState, group=None) -> dict:
+    """A port ``TrainState`` as nested dicts of numpy arrays in the JAX
+    layouts: ``gen_params``, ``gen_bn``, ``disc_params``, ``disc_bn``,
+    ``g_opt``/``d_opt`` with ``count``, ``mu``, ``nu``, ``pool`` with its
+    ``buffer`` by name (a JAX pool of one array holds the "fake" one) and
+    ``count``, ``step`` and ``ema`` (None without one).  With the process
+    group of a data-parallel job, a collective: the pool holds every
+    rank's rows, rank after rank, as the JAX state of that many shards
+    does."""
     def adam(opt: AdamState) -> dict:
         return {"count": np.int32(int(opt.count)),
                 "mu": params_to_jax(opt.mu),
                 "nu": params_to_jax(opt.nu)}
 
+    buf = state.pool.buffer
+    if group is not None:
+        buf = dp.gather_pool(buf, group)
     return {"gen_params": params_to_jax(state.gen_params.state_dict()),
             "gen_bn": _bn_to_jax(state.gen_bn),
             "disc_params": params_to_jax(state.disc_params.state_dict()),
             "disc_bn": _bn_to_jax(state.disc_bn),
-            "g_opt": adam(state.g_opt), "d_opt": adam(state.d_opt)}
+            "g_opt": adam(state.g_opt), "d_opt": adam(state.d_opt),
+            "pool": {"buffer": {k: v.detach().float().cpu().numpy()
+                                for k, v in buf.items()},
+                     "count": np.int32(state.pool.count)},
+            "step": np.int32(state.step),
+            "ema": None if state.ema is None else params_to_jax(state.ema)}

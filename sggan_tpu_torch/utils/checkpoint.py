@@ -15,6 +15,13 @@ loaded onto the template's device, so a round trip is exact.
 The ``.pt`` suffix keeps these apart from the JAX package's Orbax
 directories ``cp-NNNN`` in the same tree: importing those is ROADMAP
 Queue 1, item 11.
+
+A data-parallel job (``--mesh_data N``, ``parallel/dp.py``) saves as the
+JAX package's multi-process save does (trainer.py:215-227): every rank
+takes part in gathering the pool rows into the global layout (N *
+max_size rows, rank after rank), rank 0 alone writes, and no rank goes on
+before the files are in place.  On a load every rank reads the same
+files and keeps its own pool rows (``pool.rank_rows``).
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ from typing import Optional
 
 import torch
 
-from ..train.pool import PoolState
+from ..parallel import dp
+from ..parallel.distributed import rank, world_size
+from ..train.pool import PoolState, rank_rows
 from ..train.step import AdamState, TrainState
 
 _CP_RE = re.compile(r"cp-(\d+)\.pt$")
@@ -62,11 +71,22 @@ def _adam_state(d: dict, device) -> AdamState:
 
 
 def save(state: TrainState, checkpoint_dir: str, dataset_dir: str,
-         epoch: int) -> None:
+         epoch: int, group=None) -> None:
     """Write the three parts of ``state`` under cp-``epoch`` (replacing a
     checkpoint of that number), then drop those older than the last
-    ``MAX_TO_KEEP`` numbers."""
-    root = _ckpt_root(checkpoint_dir, dataset_dir)
+    ``MAX_TO_KEEP`` numbers.  With the process group of a data-parallel
+    job, a collective: rank 0 writes, with every rank's pool rows."""
+    buffer = state.pool.buffer
+    if group is not None:
+        buffer = dp.gather_pool(buffer, group)
+        if rank(group) != 0:
+            dp.barrier(group)
+            return
+    _write(state, buffer, _ckpt_root(checkpoint_dir, dataset_dir), epoch)
+    dp.barrier(group)
+
+
+def _write(state: TrainState, buffer: dict, root: str, epoch: int) -> None:
     gen = {"params": state.gen_params.state_dict(), "bn": state.gen_bn,
            "opt": _adam(state.g_opt)}
     if state.ema is not None:
@@ -74,7 +94,7 @@ def save(state: TrainState, checkpoint_dir: str, dataset_dir: str,
     parts = {"gen": gen,
              "disc": {"params": state.disc_params.state_dict(),
                       "bn": state.disc_bn, "opt": _adam(state.d_opt)},
-             "train": {"pool_buffer": state.pool.buffer,
+             "train": {"pool_buffer": buffer,
                        "pool_count": state.pool.count,
                        "step": state.step}}
     for name, tree in parts.items():
@@ -97,11 +117,16 @@ def latest_epoch(checkpoint_dir: str, dataset_dir: str) -> Optional[int]:
 
 
 def load(template: TrainState, checkpoint_dir: str, dataset_dir: str,
-         epoch: Optional[int] = None) -> Optional[TrainState]:
+         epoch: Optional[int] = None, group=None,
+         pool: bool = True) -> Optional[TrainState]:
     """The latest (or the given) checkpoint loaded into ``template``'s
     nets (in place) and returned as a new ``TrainState`` on their device;
     None when there is none (the reference's load() -> False,
-    model.py:498-503)."""
+    model.py:498-503).  The pool is this rank's rows of the saved one
+    (``group``: the data-parallel job's, whose ranks must be those that
+    wrote it); ``pool=False`` keeps the template's, for a process that
+    does not train (the test phase, the service), whatever job wrote
+    it."""
     root = _ckpt_root(checkpoint_dir, dataset_dir)
     if epoch is None:
         epoch = latest_epoch(checkpoint_dir, dataset_dir)
@@ -121,10 +146,30 @@ def load(template: TrainState, checkpoint_dir: str, dataset_dir: str,
         raise ValueError(f"checkpoint cp-{epoch:04d} "
                          f"{'has no' if ema is None else 'has an'} EMA "
                          "shadow; pass the --gen_ema it was trained with")
+    new_pool = template.pool
+    if pool:
+        new_pool = PoolState(_rank_pool(tr["pool_buffer"], template, group,
+                                        epoch), tr["pool_count"])
     # checkpoints of the IN nets written before "bn" was saved have none
     return template._replace(
         gen_bn=gen.get("bn", {}), disc_bn=disc.get("bn", {}),
         g_opt=_adam_state(gen["opt"], dev),
-        d_opt=_adam_state(disc["opt"], dev),
-        pool=PoolState(tr["pool_buffer"], tr["pool_count"]),
+        d_opt=_adam_state(disc["opt"], dev), pool=new_pool,
         step=tr["step"], ema=ema)
+
+
+def _rank_pool(buffer: dict, template: TrainState, group,
+               epoch: int) -> dict:
+    """This rank's rows of a saved pool buffer of one or more ranks'."""
+    slots = next(iter(template.pool.buffer.values())).shape[0]
+    saved = next(iter(buffer.values())).shape[0]
+    n = 1 if group is None else world_size(group)
+    if saved != slots * n:
+        raise ValueError(
+            f"checkpoint cp-{epoch:04d} holds a pool of {saved} rows, "
+            f"{saved // slots} ranks of {slots} slots; this run has {n} "
+            "ranks (--mesh_data)")
+    if n == 1:
+        return buffer
+    return {k: v.clone() for k, v in rank_rows(
+        buffer, rank(group), slots).items()}

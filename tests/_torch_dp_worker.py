@@ -1,0 +1,215 @@
+"""One rank of the port's data-parallel test jobs (``tests/_torch_dist.py``
+starts it): joins the gloo process group from the environment, runs one
+job and writes what the parent test checks.  Imports torch and the port,
+never JAX.
+
+    python tests/_torch_dp_worker.py steps <cases.pkl> <out_dir>
+        each case: for each step, the JAX dp state it starts from bridged
+        at this rank's pool rows (where the case has one, else the state
+        the last step left) and rank 0's state broadcast, then the
+        data-parallel step on this rank's shard of the global batch with
+        its draws and masks; after each step the losses and the whole
+        state with every rank's pool rows
+        (``bridge.train_state_to_jax(state, group)``)
+    python tests/_torch_dp_worker.py trainer <dataset> <work_dir>
+        ``main.main`` trains over 2 ranks (the p2p ResNet), then resumes;
+        the global-row preprocess of a host batch; the world-size checks
+    python tests/_torch_dp_worker.py slow_eval <dataset> <work_dir>
+            <timeout_s> <eval_s>
+        the process group joined with a collectives' timeout of
+        ``timeout_s``, then ``main.main`` trains one epoch over 2 ranks
+        while the coordinator's eval takes ``eval_s`` longer
+"""
+
+import os
+import pickle
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+
+def steps(cases_path: str, out_dir: str) -> None:
+    import torch.distributed as dist
+
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.parallel import dp
+    from sggan_tpu_torch.train import pool as tpool
+    from sggan_tpu_torch.train import step as tstep
+    from sggan_tpu_torch.utils import bridge
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for name, case in cases.items():
+        cfg = Config(**case["kw"])
+        step_fn = tstep.build_step_fn(cfg)
+        got = {"steps": []}
+        before = dp.reductions, dp.bytes_reduced
+        for t, batch in enumerate(case["batches"]):
+            if t < len(case["states"]):  # else the last step's state
+                state = bridge.train_state_from_jax(
+                    cfg, case["states"][t], "cpu", rank, world)
+                if t == 0:
+                    got["pool_rows_at_init"] = {
+                        k: v.clone().numpy()
+                        for k, v in state.pool.buffer.items()}
+                dp.broadcast_state(state, dist.group.WORLD)
+            b = next(iter(batch.values())).shape[0] // world
+            shard = {k: torch.from_numpy(v[rank * b:(rank + 1) * b])
+                     for k, v in batch.items()}
+            draws = case["draws"][t][rank]
+            if draws is not None:
+                draws = tpool.PoolDraws(torch.from_numpy(draws[0]),
+                                        torch.from_numpy(draws[1]).long())
+            masks = case["masks"][t][rank]
+            if masks is not None:
+                masks = tuple(
+                    tuple(torch.from_numpy(m) for m in s)
+                    if isinstance(s, (list, tuple)) else torch.from_numpy(s)
+                    for s in masks)
+            state, m = step_fn(state, shard, case["lr"], draws, masks)
+            got["steps"].append((
+                {k: v.item() for k, v in m.items()},
+                bridge.train_state_to_jax(state, dist.group.WORLD)))
+        got["reductions"] = (dp.reductions - before[0],
+                             dp.bytes_reduced - before[1])
+        out[name] = got
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    print(f"OK steps rank {rank}", flush=True)
+
+
+def _argv(dataset: str, work: str, rank: int) -> list:
+    """The CLI of the 2-rank p2p ResNet run, one epoch."""
+    return ["--dataset_dir", dataset, "--img_height", "32", "--img_width",
+            "32", "--ngf", "4", "--ndf", "4", "--segment_class", "8",
+            "--batch_size", "4", "--compute_dtype", "float32",
+            "--use_resnet", "--loss_mode", "p2p", "--epoch", "1",
+            "--print_freq", "1", "--mesh_data", "2",
+            "--checkpoint_dir", os.path.join(work, "ckpt"),
+            "--sample_dir", os.path.join(work, f"sample{rank}"),
+            "--test_dir", os.path.join(work, f"test{rank}"),
+            "--log_dir", os.path.join(work, f"logs{rank}")]
+
+
+def trainer(dataset: str, work: str) -> None:
+    import hashlib
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from sggan_tpu_torch import main as tmain
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.data.loader import train_iterator
+    from sggan_tpu_torch.data.preprocess import (draw_preprocess,
+                                                 make_preprocess_train)
+    from sggan_tpu_torch.parallel import distributed
+    from sggan_tpu_torch.train.step import state_tensors
+    from sggan_tpu_torch.train.trainer import Trainer
+
+    distributed.initialize(device_kind="cpu")
+    rank = dist.get_rank()
+    runs = []  # each Trainer.train's trainer and result
+    train = Trainer.train
+
+    def kept(self):
+        runs.append((self, train(self)))
+        return runs[-1][1]
+    Trainer.train = kept
+
+    def report(what: str) -> None:
+        tr, last = runs[-1]
+        digest = hashlib.sha256(b"".join(
+            t.detach().numpy().tobytes() for k, t in sorted(
+                state_tensors(tr.state).items())
+            if not k.startswith("pool."))).hexdigest()
+        print(f"OK {what} rank {rank} step {tr.state.step} gen_loss "
+              f"{last['gen_loss']!r} digest {digest}", flush=True)
+
+    argv = _argv(dataset, work, rank)
+    tmain.main(["--phase", "train", *argv], device="cpu")
+    report("trainer")
+    print(f"OK group still joined {dist.is_initialized()}", flush=True)
+    tmain.main(["--phase", "train", "--continue_train", *argv],
+               device="cpu")
+    report("resume")
+
+    # this rank's rows of the first global batch, preprocessed with the
+    # draws of the whole batch
+    cfg = Config(dataset_dir=dataset, image_height=32, image_width=32,
+                 segment_class=8, batch_size=4)
+    raw = next(iter(train_iterator(dataset, 2, cfg.data_seed, epoch=0,
+                                   process_index=rank, process_count=2)))
+    draws = draw_preprocess(torch.Generator().manual_seed(5), 8,
+                            raw["img"].shape[1], cfg.image_size)
+    got = make_preprocess_train(cfg)(
+        *(torch.from_numpy(raw[k]) for k in ("img", "seg", "cls")), draws,
+        torch.from_numpy(raw["aug"]), global_b=8, sample_rows=raw["rows"])
+    with open(os.path.join(work, f"pre{rank}.pkl"), "wb") as f:
+        pickle.dump({"rows": raw["rows"],
+                     **{k: v.numpy() for k, v in got.items()}}, f)
+
+    # --mesh_data must be the world size; spatial sharding is refused
+    for kw, err in ((dict(mesh_data=4), ValueError),
+                    (dict(mesh_data=1), ValueError),
+                    (dict(mesh_data=2, mesh_space=2), NotImplementedError)):
+        try:
+            Trainer(cfg.replace(**kw), device="cpu")
+        except err as e:
+            print(f"OK refused {sorted(kw.items())}: {e}", flush=True)
+    mesh = distributed.global_mesh(device_kind="cpu")
+    print(f"OK mesh {mesh.mesh_dim_names} {mesh.size()} coordinator "
+          f"{distributed.is_coordinator()}", flush=True)
+    np.save(os.path.join(work, f"done{rank}.npy"), np.int32(rank))
+    distributed.shutdown()
+
+
+def slow_eval(dataset: str, work: str, timeout_s: str, eval_s: str) -> None:
+    import time
+
+    import torch.distributed as dist
+
+    from sggan_tpu_torch import main as tmain
+    from sggan_tpu_torch.parallel import distributed
+    from sggan_tpu_torch.train import evaluate
+
+    distributed.initialize(device_kind="cpu", timeout_s=float(timeout_s))
+    rank = dist.get_rank()
+    test_during_train = evaluate.test_during_train
+
+    def slow(tr, epoch, writer=None):
+        if tr.is_coord:
+            time.sleep(float(eval_s))
+        return test_during_train(tr, epoch, writer)
+    evaluate.test_during_train = slow
+    t0 = time.perf_counter()
+    tmain.main(["--phase", "train", *_argv(dataset, work, rank)],
+               device="cpu")
+    print(f"OK slow eval rank {rank} trained in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    distributed.shutdown()
+
+
+def main() -> None:
+    job, *args = sys.argv[1:]
+    if job == "steps":
+        import torch.distributed as dist
+        dist.init_process_group("gloo")
+        try:
+            steps(*args)
+        finally:
+            dist.destroy_process_group()
+    elif job == "trainer":
+        trainer(*args)
+    else:
+        slow_eval(*args)
+    banned = [m for m in sys.modules if m == "jax" or m.startswith(
+        ("jax.", "sggan_tpu.")) or m == "sggan_tpu"]
+    print(f"OK imported no JAX module: {not banned} {banned[:3]}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -209,14 +209,31 @@ def test_preprocess_train_matches_jax(case, layout, photometric):
 
 
 def test_preprocess_train_refuses_what_it_cannot_do(case):
+    """An odd batch under "half"; draws that are not the global batch's.
+    The global-row call (a process's rows of a global batch, with the
+    whole batch's draws) is the one-process preprocess of the global
+    batch taken at those rows."""
     img, seg, cls, _, draws, _ = case
     args = (*map(torch.from_numpy, (img[:3], seg[:3], cls[:3])),
             draws, torch.ones(3, dtype=torch.bool))
     kw = dict(out_hw=OUT, mask_hw=MASK, n_class=N_CLASS)
     with pytest.raises(ValueError, match="even batch"):
         tpre.preprocess_train(*args, aug_layout="half", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: parallel"):
+    with pytest.raises(ValueError, match="draws of 4 rows for a global "
+                                         "batch of 8"):
         tpre.preprocess_train(*args, global_b=8, **kw)
+    flags = np.array([True, False, True, True])
+    whole = tpre.preprocess_train(
+        *map(torch.from_numpy, (img, seg, cls)), draws,
+        torch.from_numpy(flags), photometric=True, **kw)
+    rows = np.array([3, 0, 2], np.int32)
+    got = tpre.preprocess_train(
+        *map(torch.from_numpy, (img[rows], seg[rows], cls[rows])), draws,
+        torch.from_numpy(flags[rows]), photometric=True, global_b=B,
+        sample_rows=rows, **kw)
+    for k, v in whole.items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy()[rows],
+                                      err_msg=k)
 
 
 def test_preprocess_test_matches_jax(case):

@@ -7,10 +7,9 @@ writer made from seeded weights is imported by the port into a
 tree that the JAX package's ``tf_weights.load_bundle_weights`` (or
 ``load_pix2pix_weights``) reads from it, and the service serves it.  The
 ``.npz`` route, the shape check, the cycle refusal and ``--selftest``
-follow the JAX module; the copy of ``tf_bundle`` passes
-``tests/test_tf_bundle.py``'s own cases and writes the same bytes."""
+follow the JAX module.  The copy of ``tf_bundle`` is held by
+``tests/test_torch_tf_bundle.py``."""
 
-import inspect
 import json
 import os
 import re
@@ -21,7 +20,6 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-import test_tf_bundle as bundle_cases  # noqa: E402
 from sggan_tpu.utils import tf_bundle as jbundle  # noqa: E402
 from sggan_tpu.utils import tf_weights as jweights  # noqa: E402
 from sggan_tpu_torch import serve as tsrv  # noqa: E402
@@ -30,7 +28,6 @@ from sggan_tpu_torch.train import evaluate  # noqa: E402
 from sggan_tpu_torch.train import step as tstep  # noqa: E402
 from sggan_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
 from sggan_tpu_torch.utils import import_tf  # noqa: E402
-from sggan_tpu_torch.utils import tf_bundle as tbundle  # noqa: E402
 from sggan_tpu_torch.utils.bridge import (_bn_to_jax,  # noqa: E402
                                           params_from_jax, params_to_jax)
 
@@ -215,30 +212,3 @@ def test_selftest_prints_the_jax_line(monkeypatch, capsys):
         "discriminator": len(jweights.discriminator_layout(3)),
         "pix2pix_gen": len(jweights.pix2pix_gen_layout()),
         "pix2pix_disc": len(jweights.pix2pix_disc_layout())}}
-
-
-BUNDLE_CASES = [name for name, fn in vars(bundle_cases).items()
-                if name.startswith("test_") and callable(fn)
-                and name != "test_import_selftest"]  # the JAX import's
-
-
-@pytest.mark.parametrize("case", BUNDLE_CASES)
-def test_tf_bundle_copy_passes_the_originals_case(case, tmp_path,
-                                                  monkeypatch):
-    monkeypatch.setattr(bundle_cases, "tf_bundle", tbundle)
-    fn = getattr(bundle_cases, case)
-    fn(*([tmp_path] if inspect.signature(fn).parameters else []))
-
-
-def test_tf_bundle_copy_writes_the_originals_bytes(tmp_path):
-    tensors = bundle_cases._random_tensors(np.random.default_rng(11), 25)
-    for compress in (False, True):
-        files = []
-        for i, mod in enumerate((jbundle, tbundle)):
-            prefix = str(tmp_path / f"{compress}{i}" / "cp-0000.ckpt")
-            os.makedirs(os.path.dirname(prefix))
-            mod.write_bundle(prefix, tensors, compress=compress,
-                             block_size=200, restart_interval=2)
-            files.append([open(prefix + s, "rb").read() for s in
-                          (".index", ".data-00000-of-00001")])
-        assert files[0] == files[1]

@@ -239,12 +239,15 @@ def test_main_without_a_gpu_is_an_error(tmp_path, monkeypatch):
     assert not (tmp_path / "checkpoint").exists()
 
 
-@pytest.mark.parametrize("cfg_kw,what", [
-    (dict(mesh_data=2), "parallel"),
-    (dict(mesh_space=2), "parallel")])
-def test_trainer_refuses_what_is_not_ported(dataset, tmp_path, cfg_kw,
+@pytest.mark.parametrize("cfg_kw,err,what", [
+    (dict(mesh_data=2), ValueError,
+     "--mesh_data 2 must equal the world size, 1"),
+    (dict(mesh_space=2), NotImplementedError, "parallel")])
+def test_trainer_refuses_what_is_not_ported(dataset, tmp_path, cfg_kw, err,
                                             what):
-    with pytest.raises(NotImplementedError, match=what):
+    """Spatial sharding is not ported; ``--mesh_data 2`` needs a group of
+    2 ranks (tests/test_torch_dp_trainer.py runs one)."""
+    with pytest.raises(err, match=what):
         Trainer(_cfg(dataset, tmp_path, **cfg_kw), device="cpu")
 
 
