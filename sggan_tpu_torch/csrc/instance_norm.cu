@@ -46,6 +46,17 @@
 // Every sum is taken in a fixed order (warp butterfly, warps in order,
 // splits or cluster ranks in order), so two calls give the same bits.
 //
+// The spatial path (sggan_tpu/parallel/spatial.py::instance_norm_sp, a
+// plane split across ranks) reaches the two-pass routes' kernels through
+// entries of their own, one a pass, so that the caller can sum the
+// moments across ranks between them: pass 1 (in_stats, then in_combine)
+// gives the local block's per-(sample, channel) sums; pass 2 (in_apply,
+// fed the global sums as a single partial) divides by the plane's global
+// count.  The backward alike: in_bwd_stats and in_combine give the local
+// (S1, S2) and this rank's dgamma, dbeta from them; in_bwd_apply, fed
+// the global sums, gives dx.  Its relu passes half of dy where the
+// pre-activation is exactly 0 (kReluTie), as JAX's maximum does there.
+//
 // dgamma and dbeta: each (sample, channel tile)'s first block writes the
 // plane's (S1, S2) to a scratch (N, 2, C) and counts itself on an integer
 // counter; the last to arrive (__threadfence, atomicAdd) sums the scratch
@@ -65,7 +76,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // packets in flight per thread, stream routes
 
-enum Act { kNone = 0, kRelu = 1, kLeakyRelu = 2 };
+// kReluTie: relu whose gate passes half of dy where the pre-activation is
+// exactly 0, the subgradient JAX gives jnp.maximum(y, 0) at a tie; the
+// spatial path's act (sggan_tpu/parallel/spatial.py:186), never the
+// one-card path's.
+enum Act { kNone = 0, kRelu = 1, kLeakyRelu = 2, kReluTie = 3 };
 enum Route { kScalar = 0, kStream = 1, kCluster = 2 };
 
 // ---- packets: VEC channels of one row, raw (16 bytes, or one element) and
@@ -141,7 +156,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // ---- the math -----------------------------------------------------------
 
 __device__ __forceinline__ float act_fwd(float v, int act, float alpha) {
-  if (act == kRelu) return fmaxf(v, 0.f);
+  if (act == kRelu || act == kReluTie) return fmaxf(v, 0.f);
   if (act == kLeakyRelu) return v >= 0.f ? v : alpha * v;
   return v;
 }
@@ -165,6 +180,7 @@ __device__ __forceinline__ float gate(float g, float xhat, float gamma,
   if (act == kNone) return g;
   const float pre = __fadd_rn(__fmul_rn(xhat, gamma), beta);
   if (act == kRelu) return pre > 0.f ? g : 0.f;
+  if (act == kReluTie) return pre > 0.f ? g : (pre == 0.f ? 0.5f * g : 0.f);
   return pre >= 0.f ? g : alpha * g;
 }
 
@@ -334,15 +350,15 @@ in_apply(const T* __restrict__ x, const float* __restrict__ part,
          const float* __restrict__ gamma, const float* __restrict__ beta,
          T* __restrict__ y, float* __restrict__ mean_out,
          float* __restrict__ rstd_out, int s, int c, int rows_per_split,
-         int act, float eps, float alpha) {
+         int act, float eps, float alpha, int n_part, float count) {
   using L = Lane<VEC>;
   const int split = blockIdx.x, n = blockIdx.z;
   __shared__ float ws[2][kWarps][kLanes], tot[2][kLanes];
-  combine_parts(part, c, gridDim.x, ws, tot);
+  combine_parts(part, c, n_part, ws, tot);
   __shared__ float sh_mean[kLanes], sh_rstd[kLanes];
   if (threadIdx.x < kLanes) {
-    const float mean = tot[0][threadIdx.x] / (float)s;
-    const float var = moments_var(tot[1][threadIdx.x] / (float)s, mean);
+    const float mean = tot[0][threadIdx.x] / count;
+    const float var = moments_var(tot[1][threadIdx.x] / count, mean);
     const float rstd = 1.f / sqrtf(var + eps);
     sh_mean[threadIdx.x] = mean;
     sh_rstd[threadIdx.x] = rstd;
@@ -454,12 +470,15 @@ in_bwd_apply(const T* __restrict__ x, const T* __restrict__ dy,
              const float* __restrict__ part, T* __restrict__ dx,
              float* __restrict__ sums, float* __restrict__ dgamma,
              float* __restrict__ dbeta, unsigned* __restrict__ counter, int s,
-             int c, int rows_per_split, int act, float alpha) {
+             int c, int rows_per_split, int act, float alpha, int n_part,
+             float count) {
   using L = Lane<VEC>;
   const int split = blockIdx.x, n = blockIdx.z;
   __shared__ float ws[2][kWarps][kLanes], tot[2][kLanes];
-  combine_parts(part, c, gridDim.x, ws, tot);
-  if (split == 0) {
+  combine_parts(part, c, n_part, ws, tot);
+  // sums null: the spatial path's second pass, fed the sums of every
+  // shard, writes dx alone (its dgamma and dbeta came from the first)
+  if (split == 0 && sums != nullptr) {
     const int ch = blockIdx.y * kLanes + threadIdx.x;
     if (threadIdx.x < kLanes && ch < c) {
       sums[(size_t)n * 2 * c + ch] = tot[0][threadIdx.x];
@@ -475,8 +494,8 @@ in_bwd_apply(const T* __restrict__ x, const T* __restrict__ dy,
       r[j] = rstd[(size_t)n * c + ln.ch0 + j];
       g[j] = gamma[ln.ch0 + j];
       b[j] = beta[ln.ch0 + j];
-      mdy[j] = tot[0][ln.v * VEC + j] / (float)s;
-      mdyx[j] = tot[1][ln.v * VEC + j] / (float)s;
+      mdy[j] = tot[0][ln.v * VEC + j] / count;
+      mdyx[j] = tot[1][ln.v * VEC + j] / count;
     }
     const size_t base = (size_t)n * s * c + ln.ch0;
     const int r_end = min((split + 1) * rows_per_split, s);
@@ -506,7 +525,27 @@ in_bwd_apply(const T* __restrict__ x, const T* __restrict__ dy,
         }
     }
   }
-  if (split == 0) finish_dgamma(sums, dgamma, dbeta, counter, c);
+  if (split == 0 && sums != nullptr)
+    finish_dgamma(sums, dgamma, dbeta, counter, c);
+}
+
+// The spatial path's end of a first pass: the n_split partials (n, n_split,
+// 2, c) of each (sample, channel) summed in combine_parts' fixed order into
+// sums (n, 2, c); with dgamma non-null (the backward's), the last block
+// also sums them over the samples into dgamma and dbeta (finish_dgamma).
+// Grid (1, tiles, n).
+__global__ void __launch_bounds__(kThreads)
+in_combine(const float* __restrict__ part, float* __restrict__ sums,
+           float* __restrict__ dgamma, float* __restrict__ dbeta,
+           unsigned* __restrict__ counter, int c, int n_split) {
+  __shared__ float ws[2][kWarps][kLanes], tot[2][kLanes];
+  combine_parts(part, c, n_split, ws, tot);
+  const int ch = blockIdx.y * kLanes + threadIdx.x;
+  if (threadIdx.x < kLanes && ch < c) {
+    sums[(size_t)blockIdx.z * 2 * c + ch] = tot[0][threadIdx.x];
+    sums[(size_t)blockIdx.z * 2 * c + c + ch] = tot[1][threadIdx.x];
+  }
+  if (dgamma != nullptr) finish_dgamma(sums, dgamma, dbeta, counter, c);
 }
 
 // ---- cluster route: grid (k, tiles, n), cluster (k, 1, 1) ---------------
@@ -733,7 +772,7 @@ int fwd_two_pass(const T* x, const float* gamma, const float* beta, T* y,
   if (err != cudaSuccess) return (int)err;
   in_apply<T, VEC><<<grid, kThreads, 0, st>>>(x, part, gamma, beta, y, mean,
                                               rstd, s, c, rows, act, eps,
-                                              alpha);
+                                              alpha, n_split, (float)s);
   return (int)cudaGetLastError();
 }
 
@@ -774,7 +813,7 @@ int bwd_two_pass(const T* x, const T* dy, const float* g, const float* b,
   if (err != cudaSuccess) return (int)err;
   in_bwd_apply<T, VEC><<<grid, kThreads, 0, st>>>(
       x, dy, g, b, mean, rstd, part, dx, sums, dgamma, dbeta, counter, s, c,
-      rows, act, alpha);
+      rows, act, alpha, n_split, (float)s);
   return (int)cudaGetLastError();
 }
 
@@ -832,6 +871,69 @@ int max_clusters(Kern kern, int k, size_t smem) {
   int count = 0;
   cudaError_t err = cudaOccupancyMaxActiveClusters(&count, kern, &cfg);
   return err == cudaSuccess ? count : -(int)err;
+}
+
+// ---- the spatial path: K1's two passes with the moments summed across
+// ranks between them (sggan_tpu/parallel/spatial.py::instance_norm_sp).
+// Pass 1 sums the local block to (n, 2, c); the caller all-reduces those
+// sums over the ranks that hold one plane; pass 2 normalizes from the
+// global sums and `count`, the global H * W.  Stream (VEC packets) or
+// scalar route only: the cluster route holds a whole plane and has no
+// point between its passes for the sum across ranks.
+
+template <typename T, int VEC>
+int sp_stats(const T* x, float* part, float* sums, int n, int s, int c,
+             int rows, int n_split, cudaStream_t st) {
+  const dim3 grid(n_split, (c + kLanes - 1) / kLanes, n);
+  in_stats<T, VEC><<<grid, kThreads, 0, st>>>(x, part, s, c, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  in_combine<<<dim3(1, grid.y, n), kThreads, 0, st>>>(part, sums, nullptr,
+                                                      nullptr, nullptr, c,
+                                                      n_split);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int sp_apply(const T* x, const float* sums, const float* g, const float* b,
+             T* y, float* mean, float* rstd, int n, int s, int c, int rows,
+             int n_split, int act, float eps, float alpha, float count,
+             cudaStream_t st) {
+  const dim3 grid(n_split, (c + kLanes - 1) / kLanes, n);
+  in_apply<T, VEC><<<grid, kThreads, 0, st>>>(x, sums, g, b, y, mean, rstd,
+                                              s, c, rows, act, eps, alpha, 1,
+                                              count);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int sp_bwd_stats(const T* x, const T* dy, const float* g, const float* b,
+                 const float* mean, const float* rstd, float* part,
+                 float* sums, float* dgamma, float* dbeta, unsigned* counter,
+                 int n, int s, int c, int rows, int n_split, int act,
+                 float alpha, cudaStream_t st) {
+  const dim3 grid(n_split, (c + kLanes - 1) / kLanes, n);
+  in_bwd_stats<T, VEC><<<grid, kThreads, 0, st>>>(x, dy, g, b, mean, rstd,
+                                                  part, s, c, rows, act,
+                                                  alpha);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  in_combine<<<dim3(1, grid.y, n), kThreads, 0, st>>>(part, sums, dgamma,
+                                                      dbeta, counter, c,
+                                                      n_split);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int sp_bwd_apply(const T* x, const T* dy, const float* g, const float* b,
+                 const float* mean, const float* rstd, const float* sums,
+                 T* dx, int n, int s, int c, int rows, int n_split, int act,
+                 float alpha, float count, cudaStream_t st) {
+  const dim3 grid(n_split, (c + kLanes - 1) / kLanes, n);
+  in_bwd_apply<T, VEC><<<grid, kThreads, 0, st>>>(
+      x, dy, g, b, mean, rstd, sums, dx, nullptr, nullptr, nullptr, nullptr,
+      s, c, rows, act, alpha, 1, count);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -903,4 +1005,129 @@ extern "C" int sggan_instance_norm_bwd(const void* x, const void* dy,
                               st);
   return bwd<float>(x, dy, gamma, beta, mean, rstd, dx, ws, counter, n, s, c,
                     route, k, rows, n_split, act, alpha, st);
+}
+
+// The spatial path's entries.  x, dy, y, dx: the local block (n, s, c),
+// f32 (is_bf16 = 0) or bf16; gamma, beta: (c,) f32; mean, rstd: (n, c)
+// f32; sums: (n, 2, c) f32, rows of c floats [S1 | S2] per sample; part:
+// f32 scratch (n, n_split, 2, c); count: the plane's global H * W.  route
+// 1 (stream: c % packet == 0, 16-byte aligned tensors) or 0 (scalar), rows
+// per split as the one-card entries'.  Each launches on `stream` without
+// synchronising and returns the launch's CUDA error code.
+
+// Pass 1 forward: the local block's (sum x, sum x^2) into sums.
+extern "C" int sggan_instance_norm_sp_stats(const void* x, float* part,
+                                            float* sums, int n, int s, int c,
+                                            int route, int rows, int n_split,
+                                            int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route != kStream && route != kScalar) return (int)cudaErrorInvalidValue;
+  return is_bf16
+             ? (route == kStream
+                    ? sp_stats<__nv_bfloat16, 8>(
+                          static_cast<const __nv_bfloat16*>(x), part, sums, n,
+                          s, c, rows, n_split, st)
+                    : sp_stats<__nv_bfloat16, 1>(
+                          static_cast<const __nv_bfloat16*>(x), part, sums, n,
+                          s, c, rows, n_split, st))
+             : (route == kStream
+                    ? sp_stats<float, 4>(static_cast<const float*>(x), part,
+                                         sums, n, s, c, rows, n_split, st)
+                    : sp_stats<float, 1>(static_cast<const float*>(x), part,
+                                         sums, n, s, c, rows, n_split, st));
+}
+
+// Pass 2 forward: y, mean and rstd from the global sums and count.
+extern "C" int sggan_instance_norm_sp_apply(
+    const void* x, const float* sums, const float* gamma, const float* beta,
+    void* y, float* mean, float* rstd, int n, int s, int c, int route,
+    int rows, int n_split, int is_bf16, int act, float eps, float alpha,
+    float count, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route != kStream && route != kScalar) return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    auto* yb = static_cast<__nv_bfloat16*>(y);
+    return route == kStream
+               ? sp_apply<__nv_bfloat16, 8>(xb, sums, gamma, beta, yb, mean,
+                                            rstd, n, s, c, rows, n_split, act,
+                                            eps, alpha, count, st)
+               : sp_apply<__nv_bfloat16, 1>(xb, sums, gamma, beta, yb, mean,
+                                            rstd, n, s, c, rows, n_split, act,
+                                            eps, alpha, count, st);
+  }
+  const auto* xf = static_cast<const float*>(x);
+  auto* yf = static_cast<float*>(y);
+  return route == kStream
+             ? sp_apply<float, 4>(xf, sums, gamma, beta, yf, mean, rstd, n, s,
+                                  c, rows, n_split, act, eps, alpha, count, st)
+             : sp_apply<float, 1>(xf, sums, gamma, beta, yf, mean, rstd, n, s,
+                                  c, rows, n_split, act, eps, alpha, count,
+                                  st);
+}
+
+// Pass 1 backward: the local block's gated (S1, S2) into sums, and dgamma,
+// dbeta (c,) their sums over the samples: this shard's own, before any sum
+// across ranks.  counter: as sggan_instance_norm_bwd's.
+extern "C" int sggan_instance_norm_sp_bwd_stats(
+    const void* x, const void* dy, const float* gamma, const float* beta,
+    const float* mean, const float* rstd, float* part, float* sums,
+    float* dgamma, float* dbeta, unsigned* counter, int n, int s, int c,
+    int route, int rows, int n_split, int is_bf16, int act, float alpha,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route != kStream && route != kScalar) return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* db = static_cast<const __nv_bfloat16*>(dy);
+    return route == kStream
+               ? sp_bwd_stats<__nv_bfloat16, 8>(
+                     xb, db, gamma, beta, mean, rstd, part, sums, dgamma,
+                     dbeta, counter, n, s, c, rows, n_split, act, alpha, st)
+               : sp_bwd_stats<__nv_bfloat16, 1>(
+                     xb, db, gamma, beta, mean, rstd, part, sums, dgamma,
+                     dbeta, counter, n, s, c, rows, n_split, act, alpha, st);
+  }
+  const auto* xf = static_cast<const float*>(x);
+  const auto* df = static_cast<const float*>(dy);
+  return route == kStream
+             ? sp_bwd_stats<float, 4>(xf, df, gamma, beta, mean, rstd, part,
+                                      sums, dgamma, dbeta, counter, n, s, c,
+                                      rows, n_split, act, alpha, st)
+             : sp_bwd_stats<float, 1>(xf, df, gamma, beta, mean, rstd, part,
+                                      sums, dgamma, dbeta, counter, n, s, c,
+                                      rows, n_split, act, alpha, st);
+}
+
+// Pass 2 backward: dx from the global (S1, S2) sums and count.
+extern "C" int sggan_instance_norm_sp_bwd_apply(
+    const void* x, const void* dy, const float* gamma, const float* beta,
+    const float* mean, const float* rstd, const float* sums, void* dx, int n,
+    int s, int c, int route, int rows, int n_split, int is_bf16, int act,
+    float alpha, float count, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route != kStream && route != kScalar) return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* db = static_cast<const __nv_bfloat16*>(dy);
+    auto* ob = static_cast<__nv_bfloat16*>(dx);
+    return route == kStream
+               ? sp_bwd_apply<__nv_bfloat16, 8>(xb, db, gamma, beta, mean,
+                                                rstd, sums, ob, n, s, c, rows,
+                                                n_split, act, alpha, count, st)
+               : sp_bwd_apply<__nv_bfloat16, 1>(xb, db, gamma, beta, mean,
+                                                rstd, sums, ob, n, s, c, rows,
+                                                n_split, act, alpha, count,
+                                                st);
+  }
+  const auto* xf = static_cast<const float*>(x);
+  const auto* df = static_cast<const float*>(dy);
+  auto* of = static_cast<float*>(dx);
+  return route == kStream
+             ? sp_bwd_apply<float, 4>(xf, df, gamma, beta, mean, rstd, sums,
+                                      of, n, s, c, rows, n_split, act, alpha,
+                                      count, st)
+             : sp_bwd_apply<float, 1>(xf, df, gamma, beta, mean, rstd, sums,
+                                      of, n, s, c, rows, n_split, act, alpha,
+                                      count, st);
 }

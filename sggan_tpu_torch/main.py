@@ -11,7 +11,14 @@ Data parallelism runs one process per card, as ``torchrun`` starts them:
     torchrun --nproc_per_node 4 -m sggan_tpu_torch.main --phase train \\
         --mesh_data 4 --dataset_dir city --use_resnet --loss_mode sggan
 
-Under ``torchrun`` (``WORLD_SIZE`` set) or ``--mesh_data`` > 1, ``main``
+Spatial sharding runs ``--mesh_data x --mesh_space x --mesh_space_w``
+processes the same way:
+
+    torchrun --nproc_per_node 2 -m sggan_tpu_torch.main --phase train \\
+        --mesh_space 2 --dataset_dir city --use_resnet --loss_mode sggan
+
+Under ``torchrun`` (``WORLD_SIZE`` set), ``--mesh_data`` > 1 or a spatial
+train run, ``main``
 joins the process group (``parallel.distributed.initialize``: NCCL on
 the cards, gloo on the CPU, a no-op where the caller joined one already)
 before it builds the trainer, and leaves the group it joined at the
@@ -31,6 +38,7 @@ import torch
 
 from .config import parse_args
 from .parallel import distributed
+from .parallel.mesh import is_spatial
 from .train.trainer import Trainer
 
 
@@ -40,7 +48,8 @@ def main(argv=None, device="cuda"):
         raise SystemExit("sggan_tpu_torch.main: no CUDA device is visible; "
                          "the port trains and tests on an NVIDIA GPU")
     joined = False  # whether main joined the group, and so leaves it
-    if "WORLD_SIZE" in os.environ or cfg.mesh_data > 1:
+    if "WORLD_SIZE" in os.environ or cfg.mesh_data > 1 or (
+            is_spatial(cfg) and cfg.phase == "train"):
         joined = not torch.distributed.is_initialized()
         distributed.initialize(device_kind=device)
         device = distributed.device(device)

@@ -22,6 +22,17 @@ that its path went through them; ``route_launches`` counts them by
 and its replays launch it again without the wrapper: the counters count
 the capture, not the replays.  The kernels are built by nvcc at the
 first call (``_build``), never at import.
+
+The spatial path (``--mesh_space``, ``parallel/spatial.py``) reaches the
+two-pass routes through entries of their own, one per pass, so that the
+caller can sum the moments across ranks between the passes:
+``sp_stats`` (the local block's per-(n, c) sum and sum of squares),
+``sp_apply`` (y, mean and rstd from the global sums and the plane's
+global count), ``sp_bwd_stats`` (the local gated (S1, S2) and this
+shard's dgamma and dbeta from them) and ``sp_bwd_apply`` (dx from the
+global sums).  ``sp_plan`` picks the stream or scalar route, never the
+cluster route, whose one launch has no point between its passes.  Each
+counts its calls in ``sp_launches`` by pass.
 """
 
 from __future__ import annotations
@@ -40,6 +51,9 @@ route_launches = {(d, r): 0 for d in ("fwd", "bwd")
                   for r in ("cluster", "stream", "scalar")}
 
 _ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
+# the spatial path's relu gates half of dy at an exact 0 (kReluTie)
+_SP_ACTS = {None: 0, "relu": 3, "leaky_relu": 2}
+sp_launches = {"stats": 0, "apply": 0, "bwd_stats": 0, "bwd_apply": 0}
 _ROUTES = {"scalar": 0, "stream": 1, "cluster": 2}
 _LANES = 32             # channels per block (kLanes in the source)
 _THREADS = 256          # threads per block (kThreads)
@@ -161,8 +175,15 @@ def _kernels():
     bwd.argtypes = [p] * 9 + [i] * 9 + [f, p]
     lib.sggan_instance_norm_init.argtypes = []
     lib.sggan_instance_norm_max_clusters.argtypes = [i] * 4
+    sp = (lib.sggan_instance_norm_sp_stats, lib.sggan_instance_norm_sp_apply,
+          lib.sggan_instance_norm_sp_bwd_stats,
+          lib.sggan_instance_norm_sp_bwd_apply)
+    sp[0].argtypes = [p] * 3 + [i] * 7 + [p]
+    sp[1].argtypes = [p] * 7 + [i] * 8 + [f, f, f, p]
+    sp[2].argtypes = [p] * 11 + [i] * 8 + [f, p]
+    sp[3].argtypes = [p] * 8 + [i] * 8 + [f, f, p]
     for fn in (fwd, bwd, lib.sggan_instance_norm_init,
-               lib.sggan_instance_norm_max_clusters):
+               lib.sggan_instance_norm_max_clusters, *sp):
         fn.restype = ctypes.c_int
     return lib
 
@@ -350,3 +371,129 @@ def instance_norm_bwd_cuda(x: torch.Tensor, dy: torch.Tensor,
     bwd_launches += 1
     route_launches["bwd", p.route] += 1
     return grads
+
+
+# ----------------------------------------------------------------------
+# the spatial path: one entry per pass
+# ----------------------------------------------------------------------
+
+def sp_plan(x: torch.Tensor, direction: str, *others: torch.Tensor) -> Plan:
+    """The two-pass route of a local block: stream where C is a multiple
+    of a packet and every tensor is 16-byte aligned, else scalar; never
+    the cluster route (asserted)."""
+    vec = 16 // x.element_size()
+    aligned = _aligned(x, *others) and x.shape[-1] % vec == 0
+    p = plan(*x.shape, x.dtype, direction, aligned,
+             route="stream" if aligned else "scalar")
+    assert p.route != "cluster", p
+    return p
+
+
+def _check_sums(x: torch.Tensor, sums: torch.Tensor) -> None:
+    n, c = x.shape[0], x.shape[-1]
+    if (sums.device != x.device or sums.dtype != torch.float32
+            or tuple(sums.shape) != (n, 2, c) or not sums.is_contiguous()):
+        raise ValueError(f"sums must be a contiguous float32 {(n, 2, c)} "
+                         f"tensor on {x.device}, got {sums.dtype} "
+                         f"{tuple(sums.shape)} on {sums.device}")
+
+
+def _check_dy(x: torch.Tensor, dy: torch.Tensor) -> None:
+    _check_x("dy", dy)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy must match x: got {dy.dtype} "
+                         f"{tuple(dy.shape)} for x {x.dtype} "
+                         f"{tuple(x.shape)}")
+
+
+def _bf16(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.bfloat16)
+
+
+def sp_stats(x: torch.Tensor) -> torch.Tensor:
+    """Pass 1 of the forward: (n, 2, c) f32, the local block's sum and
+    sum of squares over its rows, [S | Q] per sample."""
+    _check_x("x", x)
+    n, h, w, c = x.shape
+    p = sp_plan(x, "fwd")
+    sums = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+    part = torch.empty((n, p.splits, 2, c), dtype=torch.float32,
+                       device=x.device)
+    _launch(_kernels().sggan_instance_norm_sp_stats, x, x.data_ptr(),
+            part.data_ptr(), sums.data_ptr(), n, h * w, c, _ROUTES[p.route],
+            p.rows, p.splits, _bf16(x))
+    sp_launches["stats"] += 1
+    return sums
+
+
+def sp_apply(x: torch.Tensor, sums: torch.Tensor, gamma: torch.Tensor,
+             beta: torch.Tensor, count: int, eps: float = 1e-3,
+             act: Optional[str] = None, alpha: float = 0.3):
+    """Pass 2 of the forward: (y, mean, rstd) of the local block from the
+    global ``sums`` (``sp_stats`` summed over the ranks of the plane) and
+    ``count``, the plane's global H * W; mean and rstd (n, c) f32."""
+    check_act(act)
+    _check_x("x", x)
+    _check_f32(x, gamma=gamma, beta=beta)
+    _check_sums(x, sums)
+    n, h, w, c = x.shape
+    p = sp_plan(x, "fwd")
+    y = torch.empty_like(x)
+    ms = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    _launch(_kernels().sggan_instance_norm_sp_apply, x, x.data_ptr(),
+            sums.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            ms[0].data_ptr(), ms[1].data_ptr(), n, h * w, c,
+            _ROUTES[p.route], p.rows, p.splits, _bf16(x), _SP_ACTS[act], eps,
+            alpha, float(count))
+    sp_launches["apply"] += 1
+    return y, ms[0], ms[1]
+
+
+def sp_bwd_stats(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                 act: Optional[str] = None, alpha: float = 0.3):
+    """Pass 1 of the backward: (sums, dgamma, dbeta), the local block's
+    gated (S1, S2) as (n, 2, c) f32 and this shard's own dgamma and dbeta,
+    (c,) f32, from them (the sums over n of S2 and of S1)."""
+    check_act(act)
+    _check_x("x", x)
+    _check_dy(x, dy)
+    _check_f32(x, gamma=gamma, beta=beta, mean=mean, rstd=rstd)
+    n, h, w, c = x.shape
+    p = sp_plan(x, "bwd", dy)
+    sums = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+    dgb = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    part = torch.empty((n, p.splits, 2, c), dtype=torch.float32,
+                       device=x.device)
+    _launch(_kernels().sggan_instance_norm_sp_bwd_stats, x, x.data_ptr(),
+            dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), part.data_ptr(),
+            sums.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
+            _counter(x.device.index).data_ptr(), n, h * w, c,
+            _ROUTES[p.route], p.rows, p.splits, _bf16(x), _SP_ACTS[act],
+            alpha)
+    sp_launches["bwd_stats"] += 1
+    return sums, dgb[0], dgb[1]
+
+
+def sp_bwd_apply(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                 sums: torch.Tensor, count: int, act: Optional[str] = None,
+                 alpha: float = 0.3) -> torch.Tensor:
+    """Pass 2 of the backward: dx of the local block, in x's dtype, from
+    the global (S1, S2) ``sums`` and ``count``."""
+    check_act(act)
+    _check_x("x", x)
+    _check_dy(x, dy)
+    _check_f32(x, gamma=gamma, beta=beta, mean=mean, rstd=rstd)
+    _check_sums(x, sums)
+    n, h, w, c = x.shape
+    p = sp_plan(x, "bwd", dy)
+    dx = torch.empty_like(x)
+    _launch(_kernels().sggan_instance_norm_sp_bwd_apply, x, x.data_ptr(),
+            dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), sums.data_ptr(), dx.data_ptr(),
+            n, h * w, c, _ROUTES[p.route], p.rows, p.splits, _bf16(x),
+            _SP_ACTS[act], alpha, float(count))
+    sp_launches["bwd_apply"] += 1
+    return dx

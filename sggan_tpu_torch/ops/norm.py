@@ -17,6 +17,17 @@ versions ``instance_norm_ref`` and ``instance_norm_bwd_ref``.  The op has
 no implementation for any other device, and there is no fallback from
 one to the other.
 
+``instance_norm_sp`` is the spatial path's (``parallel/spatial.py``,
+port of ``sggan_tpu/parallel/spatial.py::instance_norm_sp``): the plane is
+split across ranks, so the moments are the local block's sums
+all-reduced over the plane's ranks, divided by the global H * W.  On a
+CUDA tensor it runs K1's two passes (``cuda_in.sp_stats`` /
+``sp_apply``, backward ``sp_bwd_stats`` / ``sp_bwd_apply``) with the
+all-reduce between them; on a CPU tensor its plain twin
+(``instance_norm_sp_ref``, ``instance_norm_sp_bwd_ref``).  Each rank's
+dgamma and dbeta are its own block's, as JAX's per-shard gradient is;
+the step averages them.
+
 ``batch_norm`` (the pix2pix nets') is plain torch ops in f32, as the JAX
 package's is XLA code: no kernel of its own.
 """
@@ -26,6 +37,7 @@ from __future__ import annotations
 from typing import Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from . import cuda_in
 
@@ -126,6 +138,130 @@ class _InstanceNorm(torch.autograd.Function):
                 x, dy.contiguous(), gamma, beta, mean, rstd, ctx.act,
                 ctx.alpha)
         return (*grads, None, None, None)
+
+
+# ----------------------------------------------------------------------
+# the spatial path: moments summed across the ranks of one plane
+# ----------------------------------------------------------------------
+
+# bytes and calls of the moments' all-reduces, for a reader who measures
+# them (chip_smoke.py, beside its profiler range "sp.moments"); never read
+# by the program
+moments_bytes = 0
+moments_calls = 0
+
+
+def moments_all_reduce(sums: torch.Tensor, group) -> torch.Tensor:
+    """``sums`` summed in place over the ranks of ``group`` (the plane's;
+    nothing for None), returned."""
+    global moments_bytes, moments_calls
+    if group is not None:
+        with torch.profiler.record_function("sp.moments"):
+            dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+        moments_bytes += sums.numel() * sums.element_size()
+        moments_calls += 1
+    return sums
+
+
+def _sp_gate(dyf, pre, act, alpha):
+    # instance_norm_sp's acts are jnp.maximum and jnp.where: JAX's
+    # gradient of maximum(y, 0) at y == 0 exactly is half of dy (the
+    # one-card path's norm._in_fused_bwd passes none there: pre > 0)
+    if act == "relu":
+        return torch.where(pre > 0, dyf, torch.where(pre == 0, 0.5 * dyf,
+                                                     0.0))
+    if act == "leaky_relu":
+        return torch.where(pre >= 0, dyf, alpha * dyf)
+    return dyf
+
+
+def instance_norm_sp_ref(x: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, count: int, group=None,
+                         eps: float = IN_EPS, act: Optional[str] = None,
+                         alpha: float = 0.3):
+    """Plain twin of the spatial forward: the local block's f32 sum and
+    sum of squares (n, 2, c), all-reduced over ``group``, then mean =
+    S / count, var = max(Q / count - mean^2, 0), normalize, affine, act.
+    Returns (y in x's dtype, mean, rstd), the moments (n, c) f32."""
+    cuda_in.check_act(act)
+    xf = x.float()
+    sums = torch.stack([xf.sum((1, 2)), (xf * xf).sum((1, 2))], 1)
+    sums = moments_all_reduce(sums.contiguous(), group)
+    mean = sums[:, 0] / count
+    var = torch.clamp_min(sums[:, 1] / count - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mean[:, None, None]) * rstd[:, None, None]
+    y = _act(y * gamma.float() + beta.float(), act, alpha)
+    return y.to(x.dtype), mean, rstd
+
+
+def instance_norm_sp_bwd_ref(x, dy, gamma, beta, mean, rstd, count: int,
+                             group=None, act: Optional[str] = None,
+                             alpha: float = 0.3):
+    """Plain twin of the spatial backward: the gated dy (relu's tie gated
+    by half), the local (S1, S2) = (sum dy, sum dy * xhat), this shard's
+    dgamma and dbeta from them, then the sums all-reduced over ``group``
+    and dx from the global ones and ``count``."""
+    cuda_in.check_act(act)
+    m, r = mean[:, None, None, :], rstd[:, None, None, :]
+    xf, gf = x.float(), gamma.float()
+    xhat = (xf - m) * r
+    dyf = _sp_gate(dy.float(), xhat * gf + beta.float(), act, alpha)
+    sums = torch.stack([dyf.sum((1, 2)), (dyf * xhat).sum((1, 2))], 1)
+    dgamma = sums[:, 1].sum(0).to(gamma.dtype)
+    dbeta = sums[:, 0].sum(0).to(beta.dtype)
+    sums = moments_all_reduce(sums.contiguous(), group)
+    m_dy = (sums[:, 0] / count)[:, None, None, :]
+    m_dyx = (sums[:, 1] / count)[:, None, None, :]
+    dx = (r * gf) * (dyf - m_dy - xhat * m_dyx)
+    return dx.to(x.dtype), dgamma, dbeta
+
+
+class _InstanceNormSp(torch.autograd.Function):
+    """The spatial instance norm: K1's split passes on a CUDA tensor (never
+    its cluster route), the plain twin on a CPU one; the moments'
+    all-reduce between the passes, both ways."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, count, group, eps, act, alpha):
+        if x.device.type == "cpu":
+            y, mean, rstd = instance_norm_sp_ref(x, gamma, beta, count, group,
+                                                 eps, act, alpha)
+        else:
+            sums = moments_all_reduce(cuda_in.sp_stats(x), group)
+            y, mean, rstd = cuda_in.sp_apply(x, sums, gamma, beta, count,
+                                             eps, act, alpha)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.args = (count, group, act, alpha)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        count, group, act, alpha = ctx.args
+        if x.device.type == "cpu":
+            dx, dgamma, dbeta = instance_norm_sp_bwd_ref(
+                x, dy, gamma, beta, mean, rstd, count, group, act, alpha)
+        else:
+            dy = dy.contiguous()
+            sums, dgamma, dbeta = cuda_in.sp_bwd_stats(
+                x, dy, gamma, beta, mean, rstd, act, alpha)
+            moments_all_reduce(sums, group)
+            dx = cuda_in.sp_bwd_apply(x, dy, gamma, beta, mean, rstd, sums,
+                                      count, act, alpha)
+        return dx, dgamma, dbeta, None, None, None, None, None
+
+
+def instance_norm_sp(params: Mapping, x: torch.Tensor, count: int, group,
+                     act: Optional[str] = None, alpha: float = 0.3,
+                     eps: float = IN_EPS) -> torch.Tensor:
+    """Instance norm of a local block of a plane of ``count`` = H * W
+    elements split over the ranks of ``group`` (None: one rank holds it),
+    x NHWC; ``act`` as ``instance_norm``'s, relu's gradient at an exact 0
+    that of ``jnp.maximum``."""
+    return _InstanceNormSp.apply(x.contiguous(), params["gamma"],
+                                 params["beta"], count, group, eps, act,
+                                 alpha)
 
 
 # K1's forward as a registered op, for calls that need no gradient: the

@@ -1,6 +1,6 @@
-"""Data parallelism over ``torch.distributed``, one rank per card: port of
-``sggan_tpu/parallel`` without its spatial sharding (ROADMAP Queue 1,
-item 10)."""
+"""Data parallelism and spatial sharding over ``torch.distributed``, one
+rank per card: port of ``sggan_tpu/parallel`` (its pix2pix spatial step
+and multi-host spatial sharding excepted, ROADMAP Queue 1, item 10)."""
 
 from .mesh import DATA_AXIS
 

@@ -19,7 +19,8 @@ port keeps those semantics with one process per card:
   loss;
 * each rank keeps ``max_size`` pool slots, rows ``[r * max_size, (r + 1)
   * max_size)`` of the JAX package's global buffer (``gather_pool`` puts
-  them back together for a checkpoint);
+  them back together for a checkpoint; ``gather_blocks`` any layout of
+  blocks, the spatial step's too);
 * ``own_shard`` draws every shard's draws from the generator the ranks
   share and keeps this rank's, so the generators stay in step and one
   process can rebuild any shard's draws;
@@ -45,7 +46,6 @@ import torch
 import torch.distributed as dist
 
 from .distributed import rank, world_size
-from .mesh import check_space
 
 T = TypeVar("T")
 
@@ -62,9 +62,8 @@ reductions = 0
 def data_group(cfg, group=None):
     """The process group over which ``cfg``'s steps average: None for
     one process; else ``group`` (the default group when None), whose
-    size must be ``--mesh_data``.  Raises for a spatial mesh, which is
-    not ported."""
-    check_space(cfg.mesh_space, cfg.mesh_space_w)
+    size must be ``--mesh_data`` (a spatial job's groups are
+    ``mesh.grid``'s)."""
     n = world_size(group)
     if n != cfg.mesh_data:
         raise ValueError(
@@ -123,21 +122,32 @@ def broadcast_state(state, group) -> None:
 
 
 @torch.no_grad()
-def gather_pool(buffer: Dict[str, torch.Tensor],
-                group) -> Dict[str, torch.Tensor]:
-    """Every rank's pool rows in the JAX package's global layout, rank
-    after rank, on every rank (a collective): each buffer summed into
-    zeros in f32, which is exact for the rows of one rank."""
-    n, r = dist.get_world_size(group), dist.get_rank(group)
+def gather_blocks(buffer: Dict[str, torch.Tensor], group,
+                  block: Callable) -> Dict[str, torch.Tensor]:
+    """Every rank's blocks of global buffers, on every rank (a collective
+    over ``group``): ``block(t)`` gives a buffer's global shape and the
+    index of this rank's tensor ``t`` in it; each is summed into zeros in
+    f32, exact where every element has one rank's value."""
     out = {}
     for k, buf in buffer.items():
-        s = buf.shape[0]
-        full = torch.zeros((n * s, *buf.shape[1:]), dtype=torch.float32,
-                           device=buf.device)
-        full[r * s:(r + 1) * s] = buf
+        shape, index = block(buf)
+        full = torch.zeros(shape, dtype=torch.float32, device=buf.device)
+        full[index] = buf
         dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
         out[k] = full.to(buf.dtype)
     return out
+
+
+def gather_pool(buffer: Dict[str, torch.Tensor],
+                group) -> Dict[str, torch.Tensor]:
+    """Every rank's pool rows in the JAX package's global layout, rank
+    after rank, on every rank (a collective)."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+
+    def block(t):
+        s = t.shape[0]
+        return (n * s, *t.shape[1:]), slice(r * s, (r + 1) * s)
+    return gather_blocks(buffer, group, block)
 
 
 def wait_group(group):

@@ -38,7 +38,8 @@ generators as in the sggan step (cycle.py:87-100).  ``--mesh_data N``
 runs the step on each of N ranks' shards, with the gradients and losses
 averaged over the ranks as the sggan step averages them (cycle.py:
 175-178), and each rank's pool keeps ``max(max_size, 1)`` pair slots
-(``parallel/dp.py``); spatial sharding is not ported.
+(``parallel/dp.py``); spatial sharding has its own cycle step
+(``parallel/spatial_step.py``).
 """
 
 from __future__ import annotations
@@ -61,14 +62,16 @@ from .step import (TrainState, _conv_precision, _dtype, _ema_update, _grads,
 N_MASK_SETS = 4  # r1..r4 of the JAX step
 
 
-def new_cycle_nets(cfg, generator: Optional[torch.Generator] = None
+def new_cycle_nets(cfg, generator: Optional[torch.Generator] = None,
+                   head: Optional[str] = None
                    ) -> Tuple[nn.ModuleDict, nn.ModuleDict]:
     """The two generators and two discriminators, drawn on the CPU from
-    ``generator`` in the JAX package's order: a2b, b2a, da, db."""
+    ``generator`` in the JAX package's order: a2b, b2a, da, db (their
+    ``head`` as ``step.new_discriminator``'s)."""
     a2b = new_generator(cfg, generator)
     b2a = new_generator(cfg, generator)
-    da = new_discriminator(cfg, generator)
-    db = new_discriminator(cfg, generator)
+    da = new_discriminator(cfg, generator, head)
+    db = new_discriminator(cfg, generator, head)
     return (nn.ModuleDict({"a2b": a2b, "b2a": b2a}),
             nn.ModuleDict({"da": da, "db": db}))
 

@@ -111,7 +111,9 @@ def device_draws(tr, src_h: int, src_h_b: Optional[int] = None):
     the global batch: the preprocess's draws for all of its rows (each
     rank's preprocess takes its own, ``preprocess_train``'s
     ``sample_rows``), then the masks of each shard in rank order, of
-    which it keeps its own (``parallel.dp.own_shard``)."""
+    which it keeps its own (``parallel.dp.own_shard``); under
+    ``--mesh_space`` each shard's masks at its block's shapes
+    (``spatial_step.sp_dropout_masks``)."""
     cfg = tr.cfg
     b_eff = effective_batch(cfg)
 
@@ -119,6 +121,11 @@ def device_draws(tr, src_h: int, src_h_b: Optional[int] = None):
         return draw_preprocess(tr.data_gen, b_eff, h, cfg.image_size,
                                cfg.use_photometric)
     draws = (pre(src_h), pre(src_h_b)) if tr.cycle else pre(src_h)
+    grid = getattr(tr, "grid", None)
+    if grid is not None:
+        from ..parallel.spatial_step import sp_dropout_masks
+        return draws, sp_dropout_masks(cfg, grid, tr.state.gen_params,
+                                       tr.data_gen, b_eff // grid.data)
     return draws, dp.own_shard(lambda: dropout_masks(
         cfg, tr.state.gen_params, tr.data_gen, b_eff // tr.world), tr.group)
 
@@ -127,9 +134,15 @@ def step_draws(tr, src_h: int, src_h_b: Optional[int] = None):
     """One step's draws: the device ones (``device_draws``) and the
     pool's from the trainer's host generator, as (preprocess, pool,
     masks); under ``--mesh_data N`` this rank's pool draws, drawn after
-    those of the ranks before it and before those of the ranks after."""
+    those of the ranks before it and before those of the ranks after;
+    under ``--mesh_space`` its data row's (``mesh.Grid.own_row``)."""
     draws, masks = device_draws(tr, src_h, src_h_b)
     cfg = tr.cfg
+    grid = getattr(tr, "grid", None)
+    if grid is not None:
+        return (draws, grid.own_row(lambda: pool_draws(
+            tr.pool_gen, effective_batch(cfg) // grid.data, cfg.max_size)),
+            masks)
     return (draws, dp.own_shard(lambda: pool_draws(
         tr.pool_gen, effective_batch(cfg) // tr.world, cfg.max_size),
         tr.group), masks)

@@ -40,8 +40,10 @@ step is built with the process group of N ranks, one a card
 that shard's pool draws and dropout masks; after the backward it averages
 each net's gradients, its batch norms' moving stats and its loss over the
 ranks (the JAX step's ``pmean``), so every rank makes the same update.
-Each rank's pool keeps ``max_size`` slots.  ``--mesh_space > 1`` (spatial
-sharding) is not ported and raises, naming "parallel: spatial".
+Each rank's pool keeps ``max_size`` slots.  Spatial sharding
+(``--mesh_space``, ``--mesh_space_w``) has a step of its own
+(``parallel/spatial_step.py``): ``init_state`` and ``build_step_fn`` hand
+such a config to it, with the rank's ``mesh.grid``.
 
 Adam is optax's ``scale_by_adam`` (betas (beta1, 0.999), eps 1e-7, the
 Keras default, not optax's 1e-8) with the learning rate applied outside the
@@ -84,7 +86,7 @@ import torch
 from .. import losses
 from ..models import build
 from ..ops import dropout_masks as _draw_masks
-from ..parallel import dp
+from ..parallel import dp, mesh
 from .pool import (HistPlan, PoolDraws, PoolPlan, PoolState, hist_plan,
                    pool_init, pool_update)
 
@@ -178,12 +180,18 @@ def new_generator(cfg, generator: Optional[torch.Generator] = None):
     return build(cfg)[0](**kw)
 
 
-def new_discriminator(cfg, generator: Optional[torch.Generator] = None):
+def new_discriminator(cfg, generator: Optional[torch.Generator] = None,
+                      head: Optional[str] = None):
     """The discriminator that ``cfg`` selects, drawn on the CPU from
-    ``generator``."""
+    ``generator``; the semantic one's ``head`` by default the "patch" head
+    under ``--mesh_space``, else the "global" one."""
     kw = dict(ndf=cfg.ndf, input_nc=cfg.input_nc, generator=generator)
     if not cfg.use_pix2pix:
-        kw.update(n_class=cfg.segment_class, image_size=cfg.image_size)
+        # a spatial job's has the patch head: its VALID chain does not
+        # split (spatial_step.py:76-79)
+        kw.update(n_class=cfg.segment_class, image_size=cfg.image_size,
+                  head=head or ("patch" if mesh.is_spatial(cfg)
+                                else "global"))
     return build(cfg)[1](**kw)
 
 
@@ -195,7 +203,14 @@ def init_state(cfg, generator: torch.Generator, device="cuda",
     ``--loss_mode cycle`` (``cycle.init_cycle_state``).  Under
     ``--mesh_data N`` this is one rank's state, its pool of ``max_size``
     slots: ``--mesh_data`` must be the size of ``group`` (the default
-    process group when None, one rank outside one)."""
+    process group when None, one rank outside one).  Under
+    ``--mesh_space`` one rank's spatial state
+    (``spatial_step.init_sp_state``, ``init_sp_cycle_state``)."""
+    if mesh.is_spatial(cfg):
+        from ..parallel import spatial_step
+        init = spatial_step.init_sp_cycle_state \
+            if cfg.loss_mode == "cycle" else spatial_step.init_sp_state
+        return init(cfg, generator, device, mesh.grid(cfg, group))
     if cfg.loss_mode == "cycle":
         from .cycle import init_cycle_state
         return init_cycle_state(cfg, generator, device, group)
@@ -520,7 +535,11 @@ def build_step_fn(cfg, group=None):
     (the default group when None; ``parallel.dp.data_group``).  The step
     then takes this rank's shard of the batch, its pool draws and its
     masks, and every rank returns the same losses and makes the same
-    update."""
+    update.  Under ``--mesh_space``, the spatial step
+    (``spatial_step.build_sp_step_fn``) on this rank's block."""
+    if mesh.is_spatial(cfg):
+        from ..parallel import spatial_step
+        return spatial_step.build_sp_step_fn(cfg, mesh.grid(cfg, group))
     if cfg.loss_mode == "cycle":
         from .cycle import build_cycle_step_fn
         return build_cycle_step_fn(cfg, group)

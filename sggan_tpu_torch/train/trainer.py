@@ -57,7 +57,23 @@ timeout of its own (``dp.wait_group``: an eval may outlast the
 collectives' timeout); every rank takes part in a save, in which rank 0
 writes the checkpoint with every rank's pool rows in the JAX package's
 global layout; on ``--continue_train`` every rank reads it and takes its
-own rows.  Spatial sharding (``--mesh_space``) is not ported and raises.
+own rows.
+
+``--mesh_space S`` (and ``--mesh_space_w W``) trains the semantic nets
+spatially sharded (``parallel/spatial_step.py``) on ``D x S x W`` ranks
+(``--mesh_data D``), laid out as ``mesh.grid`` says: each rank feeds its
+data row's ``batch_size / D`` of each global batch from the host
+iterator (as a rank of a data-parallel job of D ranks), preprocesses the
+full-resolution rows, then keeps its block of the plane
+(``spatial_step.shard_batch``), as the JAX trainer's
+``shard_sp_batch`` splits a host's rows (trainer.py:79-105).  The pool's
+draws are the data row's, the dropout masks the shard's.  As under
+``--mesh_data``, the steps run eagerly from the host iterator; the
+coordinator evaluates with the replicated generator on the whole plane
+while the others wait; a checkpoint holds the pool in the JAX package's
+global layout (slots over data, H over space, W over wspace).
+``--phase test`` of a spatial run's checkpoint runs in one process on
+the whole plane.
 """
 
 from __future__ import annotations
@@ -74,13 +90,24 @@ from ..config import Config
 from ..data.loader import (Dataset, DeviceDataset, _load_triplet,
                            train_iterator)
 from ..data.preprocess import make_preprocess_train
-from ..parallel import distributed, dp
+from ..parallel import distributed, dp, mesh
+from ..parallel.spatial_step import shard_batch
 from ..utils import checkpoint as ckpt
 from ..utils.cuda_graph import ForwardGraphs
 from ..utils.profiling import StepTimer, TraceWindow
 from ..utils.summary import SummaryWriter
 from . import evaluate, fused
-from .step import build_step_fn, init_state, lr_schedule
+from .cycle import new_cycle_nets
+from .step import (adam_init, build_step_fn, init_state, lr_schedule,
+                   new_discriminator)
+
+
+def _patch_discriminators(cfg, device):
+    """A spatial run's discriminator(s), with the patch head, for a
+    process that tests its checkpoint on the whole plane."""
+    if cfg.loss_mode == "cycle":
+        return new_cycle_nets(cfg, head="patch")[1].to(device)
+    return new_discriminator(cfg, head="patch").to(device)
 
 
 def _dataset_root(cfg: Config) -> str:
@@ -93,30 +120,48 @@ class Trainer:
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg.validate()
         self.cycle = cfg.loss_mode == "cycle"
-        # ---- data parallelism: one rank a card (trainer.py:49-77) ----
-        self.group = dp.data_group(cfg)
+        # ---- one rank a card: data parallelism (trainer.py:49-77), or a
+        # (data x space[ x wspace]) grid (trainer.py:79-105) ----
+        run_cfg = cfg
+        self.grid = None
+        if mesh.is_spatial(cfg) and cfg.phase != "train":
+            # a spatial run's checkpoint tested in one process, whole plane
+            run_cfg = cfg.replace(mesh_data=1, mesh_space=1, mesh_space_w=1)
+        elif mesh.is_spatial(cfg):
+            self.grid = mesh.grid(cfg)
+        self.group = self.grid.world if self.grid is not None \
+            else dp.data_group(run_cfg)
         self.world = 1 if self.group is None else \
             distributed.world_size(self.group)
         self.rank = 0 if self.group is None else distributed.rank(self.group)
         self.is_coord = self.rank == 0
-        if cfg.batch_size % self.world:
+        # the host iterator's shards: the data rows
+        self.n_rows, self.row = ((self.grid.data, self.grid.d)
+                                 if self.grid is not None
+                                 else (self.world, self.rank))
+        if cfg.batch_size % self.n_rows:
             raise ValueError(
                 f"batch_size={cfg.batch_size} must divide by the "
-                f"{self.world} ranks (each feeds its slice of the batch)")
-        self.local_bs = cfg.batch_size // self.world
+                f"{self.n_rows} data rows (each feeds its slice of the "
+                "batch)")
+        self.local_bs = cfg.batch_size // self.n_rows
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is visible")
         self.root = _dataset_root(cfg)
         self.state = init_state(
-            cfg, torch.Generator().manual_seed(cfg.data_seed), self.device,
-            self.group)
+            run_cfg, torch.Generator().manual_seed(cfg.data_seed),
+            self.device, self.group)
+        if run_cfg is not cfg:  # the spatial run's patch-head D
+            disc = _patch_discriminators(cfg, self.device)
+            self.state = self.state._replace(disc_params=disc,
+                                             d_opt=adam_init(disc))
         if self.group is not None:
             dp.broadcast_state(self.state, self.group)
         # the other ranks wait out the coordinator's eval here
         self.eval_wait = dp.wait_group(self.group)
-        self.step_fn = build_step_fn(cfg, self.group)
+        self.step_fn = build_step_fn(run_cfg, self.group)
         self.data_gen = torch.Generator(device=self.device).manual_seed(
             cfg.data_seed)
         self.pool_gen = torch.Generator().manual_seed(cfg.data_seed)
@@ -188,7 +233,7 @@ class Trainer:
 
     def _save(self, epoch: int):
         ckpt.save(self.state, self.cfg.checkpoint_dir, self.cfg.dataset_dir,
-                  self._ckpt_base + epoch, self.group)
+                  self._ckpt_base + epoch, self.group, self.grid)
 
     def _upload(self, raw: dict) -> list:
         """A decoded batch's img, seg, cls and aug on the device (through
@@ -222,7 +267,7 @@ class Trainer:
             use_augmentation=cfg.use_augmentation, epoch=epoch,
             train_size=size, prefetch=cfg.prefetch, split=split,
             cache_mb=cfg.decode_cache_mb, max_src_hw=self.max_src_hw,
-            process_index=self.rank, process_count=self.world)
+            process_index=self.row, process_count=self.n_rows)
             for off, split in domains]
         for idx, raws in enumerate(zip(*its)):
             up = [self._upload(raw) for raw in raws]
@@ -237,10 +282,12 @@ class Trainer:
                            up, draws if self.cycle else (draws,), kws)]
             batch = fused.two_domain(*batches) if self.cycle \
                 else batches[0]
+            if self.grid is not None:  # this rank's block of the plane
+                batch = shard_batch(batch, self.grid)
             self.state, m = self.step_fn(self.state, batch, self.lr,
                                          pdraws, masks)
             global_step = fused.end_step(
-                self, epoch, idx, m, up[0][0].shape[0] * self.world,
+                self, epoch, idx, m, up[0][0].shape[0] * self.n_rows,
                 g_losses, d_losses, global_step, start_time)
         return global_step
 
@@ -255,7 +302,8 @@ class Trainer:
         if cfg.continue_train:
             loaded = ckpt.latest_epoch(cfg.checkpoint_dir, cfg.dataset_dir)
             restored = ckpt.load(self.state, cfg.checkpoint_dir,
-                                 cfg.dataset_dir, loaded, self.group)
+                                 cfg.dataset_dir, loaded, self.group,
+                                 grid=self.grid)
             if restored is not None:
                 self.state = restored
                 self._ckpt_base = loaded + 1
@@ -267,7 +315,18 @@ class Trainer:
                 print(" [!] Load failed...")
         elif self.is_coord:
             print(" [*] New training STARTED")
-        if self.world > 1 and self.is_coord:
+        if self.grid is not None and self.is_coord:
+            g = self.grid
+            print(f" [*] spatially sharded over {self.world} ranks "
+                  f"({torch.distributed.get_backend(self.group)}): data "
+                  f"{g.data} x space {g.space} x wspace {g.wspace}, a block "
+                  f"of {cfg.image_height // g.space} x "
+                  f"{cfg.image_width // g.wspace} a rank, {self.local_bs} of "
+                  f"each batch of {cfg.batch_size} a data row, from the "
+                  "host iterator; --device_dataset_mb and --scan_steps have "
+                  "no effect: the steps run eagerly, no CUDA graph holds a "
+                  "collective")
+        elif self.world > 1 and self.is_coord:
             print(f" [*] data parallel over {self.world} ranks "
                   f"({torch.distributed.get_backend(self.group)}): "
                   f"{self.local_bs} of each batch of {cfg.batch_size} a "

@@ -34,6 +34,14 @@ layout.  Under ``--loss_mode cycle`` the JAX state
 ``nn.ModuleDict`` of the same keys flattens to the same names
 (``a2b.c1.w``), so both directions take it as they take any state.
 
+A spatial JAX state (``sggan_tpu/parallel/spatial_step.py::
+init_sp_state`` or ``init_sp_cycle_state``, ``n_data=D``) has patch-head
+discriminators and a pool whose slots run over the data rows and whose
+rows and columns over the ``space`` and ``wspace`` shards; under a config
+with ``--mesh_space`` the rank ``(d * S + s) * W + w`` takes its block
+(``train_state_from_jax(..., rank, n_data=D)``), and
+``train_state_to_jax(state, grid=grid)`` puts every rank's back.
+
 Takes anything ``np.asarray`` reads, so it needs no JAX import.
 """
 
@@ -44,7 +52,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..parallel import dp
+from ..parallel import dp, mesh
+from ..parallel.spatial_step import global_pool, pool_block
 from ..train.cycle import new_cycle_nets
 from ..train.pool import PoolState, rank_rows
 from ..train.step import (AdamState, TrainState, new_discriminator,
@@ -105,16 +114,19 @@ def _bn_to_jax(state: Mapping) -> dict:
 
 
 def train_state_from_jax(cfg, state, device="cpu", rank: int = 0,
-                         n_data: int = 1) -> TrainState:
+                         n_data: int = 1, head=None) -> TrainState:
     """The port's ``TrainState`` on ``device`` from a JAX ``TrainState``
     whose leaves are numpy arrays, for the config that made it (the nets
-    it selects; the semantic discriminator with the "global" head; both
-    pairs under ``--loss_mode cycle``).  Of a data-parallel state of
-    ``n_data`` shards, rank ``rank``'s: its rows of the pool."""
+    it selects; the semantic discriminator with the "global" head, the
+    "patch" head under ``--mesh_space``; both pairs under ``--loss_mode
+    cycle``).  Of a data-parallel state of ``n_data`` shards, rank
+    ``rank``'s: its rows of the pool; of a spatial one, its block.
+    ``head`` overrides the discriminators' (a spatial state on one
+    process: "patch")."""
     if cfg.loss_mode == "cycle":
-        gen, disc = new_cycle_nets(cfg)
+        gen, disc = new_cycle_nets(cfg, head=head)
     else:
-        gen, disc = new_generator(cfg), new_discriminator(cfg)
+        gen, disc = new_generator(cfg), new_discriminator(cfg, head=head)
     gen.load_state_dict(params_from_jax(state.gen_params))
     disc.load_state_dict(params_from_jax(state.disc_params))
     buf = state.pool.buffer
@@ -124,8 +136,14 @@ def train_state_from_jax(cfg, state, device="cpu", rank: int = 0,
     if rows % n_data:
         raise ValueError(f"a pool of {rows} rows does not split into "
                          f"{n_data} shards")
-    buf = rank_rows({k: np.asarray(v) for k, v in buf.items()}, rank,
-                    rows // n_data)
+    if mesh.is_spatial(cfg):
+        S, W = cfg.mesh_space, cfg.mesh_space_w
+        at = mesh.coords(rank, S, W)
+        buf = {k: np.asarray(v)[pool_block(np.shape(v), (n_data, S, W), at)]
+               for k, v in buf.items()}
+    else:
+        buf = rank_rows({k: np.asarray(v) for k, v in buf.items()}, rank,
+                        rows // n_data)
     pool = PoolState({k: torch.from_numpy(np.array(v)).to(device)
                       for k, v in buf.items()},
                      int(np.asarray(state.pool.count)))
@@ -139,7 +157,7 @@ def train_state_from_jax(cfg, state, device="cpu", rank: int = 0,
                       int(np.asarray(state.step)), ema)
 
 
-def train_state_to_jax(state: TrainState, group=None) -> dict:
+def train_state_to_jax(state: TrainState, group=None, grid=None) -> dict:
     """A port ``TrainState`` as nested dicts of numpy arrays in the JAX
     layouts: ``gen_params``, ``gen_bn``, ``disc_params``, ``disc_bn``,
     ``g_opt``/``d_opt`` with ``count``, ``mu``, ``nu``, ``pool`` with its
@@ -147,14 +165,17 @@ def train_state_to_jax(state: TrainState, group=None) -> dict:
     ``count``, ``step`` and ``ema`` (None without one).  With the process
     group of a data-parallel job, a collective: the pool holds every
     rank's rows, rank after rank, as the JAX state of that many shards
-    does."""
+    does; with a spatial job's ``mesh.Grid``, every rank's block in the
+    JAX package's global layout."""
     def adam(opt: AdamState) -> dict:
         return {"count": np.int32(int(opt.count)),
                 "mu": params_to_jax(opt.mu),
                 "nu": params_to_jax(opt.nu)}
 
     buf = state.pool.buffer
-    if group is not None:
+    if grid is not None:
+        buf = global_pool(buf, grid)
+    elif group is not None:
         buf = dp.gather_pool(buf, group)
     return {"gen_params": params_to_jax(state.gen_params.state_dict()),
             "gen_bn": _bn_to_jax(state.gen_bn),

@@ -21,7 +21,11 @@ JAX package's multi-process save does (trainer.py:215-227): every rank
 takes part in gathering the pool rows into the global layout (N *
 max_size rows, rank after rank), rank 0 alone writes, and no rank goes on
 before the files are in place.  On a load every rank reads the same
-files and keeps its own pool rows (``pool.rank_rows``).
+files and keeps its own pool rows (``pool.rank_rows``).  A spatial job
+(``--mesh_space``, ``parallel/spatial_step.py``) saves the same way with
+its pool blocks put in the JAX package's global layout (slots over data,
+H over space, W over wspace; spatial_step.py:415-430), and on a load each
+rank takes its slots, rows and columns.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 
 from ..parallel import dp
 from ..parallel.distributed import rank, world_size
+from ..parallel.spatial_step import global_shape, global_pool, pool_block
 from ..train.pool import PoolState, rank_rows
 from ..train.step import AdamState, TrainState
 
@@ -71,17 +76,21 @@ def _adam_state(d: dict, device) -> AdamState:
 
 
 def save(state: TrainState, checkpoint_dir: str, dataset_dir: str,
-         epoch: int, group=None) -> None:
+         epoch: int, group=None, grid=None) -> None:
     """Write the three parts of ``state`` under cp-``epoch`` (replacing a
     checkpoint of that number), then drop those older than the last
     ``MAX_TO_KEEP`` numbers.  With the process group of a data-parallel
-    job, a collective: rank 0 writes, with every rank's pool rows."""
+    job, a collective: rank 0 writes, with every rank's pool rows; with a
+    spatial job's ``mesh.Grid``, every rank's pool blocks."""
     buffer = state.pool.buffer
-    if group is not None:
+    if grid is not None:
+        group = grid.world
+        buffer = global_pool(buffer, grid)
+    elif group is not None:
         buffer = dp.gather_pool(buffer, group)
-        if rank(group) != 0:
-            dp.barrier(group)
-            return
+    if group is not None and rank(group) != 0:
+        dp.barrier(group)
+        return
     _write(state, buffer, _ckpt_root(checkpoint_dir, dataset_dir), epoch)
     dp.barrier(group)
 
@@ -118,13 +127,14 @@ def latest_epoch(checkpoint_dir: str, dataset_dir: str) -> Optional[int]:
 
 def load(template: TrainState, checkpoint_dir: str, dataset_dir: str,
          epoch: Optional[int] = None, group=None,
-         pool: bool = True) -> Optional[TrainState]:
+         pool: bool = True, grid=None) -> Optional[TrainState]:
     """The latest (or the given) checkpoint loaded into ``template``'s
     nets (in place) and returned as a new ``TrainState`` on their device;
     None when there is none (the reference's load() -> False,
     model.py:498-503).  The pool is this rank's rows of the saved one
     (``group``: the data-parallel job's, whose ranks must be those that
-    wrote it); ``pool=False`` keeps the template's, for a process that
+    wrote it; ``grid``: a spatial job's, whose rank takes its block);
+    ``pool=False`` keeps the template's, for a process that
     does not train (the test phase, the service), whatever job wrote
     it."""
     root = _ckpt_root(checkpoint_dir, dataset_dir)
@@ -148,14 +158,34 @@ def load(template: TrainState, checkpoint_dir: str, dataset_dir: str,
                          "shadow; pass the --gen_ema it was trained with")
     new_pool = template.pool
     if pool:
-        new_pool = PoolState(_rank_pool(tr["pool_buffer"], template, group,
-                                        epoch), tr["pool_count"])
+        buf = _block_pool(tr["pool_buffer"], template, grid, epoch) \
+            if grid is not None else \
+            _rank_pool(tr["pool_buffer"], template, group, epoch)
+        new_pool = PoolState(buf, tr["pool_count"])
     # checkpoints of the IN nets written before "bn" was saved have none
     return template._replace(
         gen_bn=gen.get("bn", {}), disc_bn=disc.get("bn", {}),
         g_opt=_adam_state(gen["opt"], dev),
         d_opt=_adam_state(disc["opt"], dev), pool=new_pool,
         step=tr["step"], ema=ema)
+
+
+def _block_pool(buffer: dict, template: TrainState, grid,
+                epoch: int) -> dict:
+    """This rank's block of a saved spatial pool in the global layout."""
+    sizes = (grid.data, grid.space, grid.wspace)
+    out = {}
+    for k, mine in template.pool.buffer.items():
+        want = global_shape(mine.shape, sizes)
+        if tuple(buffer[k].shape) != want:
+            raise ValueError(
+                f"checkpoint cp-{epoch:04d} holds a {k} pool of "
+                f"{tuple(buffer[k].shape)}; this grid's is {want} "
+                f"(--mesh_data {grid.data} --mesh_space {grid.space} "
+                f"--mesh_space_w {grid.wspace})")
+        out[k] = buffer[k][pool_block(want, sizes, (grid.d, grid.s,
+                                                    grid.w))].clone()
+    return out
 
 
 def _rank_pool(buffer: dict, template: TrainState, group,

@@ -25,9 +25,17 @@ def free_port() -> int:
 
 
 def run_ranks(job: str, args, world: int = 2, timeout: float = 600,
-              env_extra=None):
-    """Run ``_torch_dp_worker.py job *args`` as ``world`` ranks of one gloo
-    job; returns [(returncode, output)] in rank order."""
+              env_extra=None, worker: str = "_torch_dp_worker.py"):
+    """Run ``worker job *args`` (``tests/_torch_dp_worker.py`` by default)
+    as ``world`` ranks of one gloo job; returns [(returncode, output)] in
+    rank order."""
+    return wait_ranks(start_ranks(job, args, world, env_extra, worker),
+                      timeout)
+
+
+def start_ranks(job: str, args, world: int = 2, env_extra=None,
+                worker: str = "_torch_dp_worker.py") -> list:
+    """``run_ranks``'s processes, started and not waited for."""
     port = str(free_port())
     procs = []
     for r in range(world):
@@ -36,9 +44,15 @@ def run_ranks(job: str, args, world: int = 2, timeout: float = 600,
                    MASTER_PORT=port, OMP_NUM_THREADS="1",
                    PYTHONPATH=ROOT, **(env_extra or {}))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "_torch_dp_worker.py"), job,
+            [sys.executable, os.path.join(HERE, worker), job,
              *map(str, args)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT))
+    return procs
+
+
+def wait_ranks(procs: list, timeout: float = 600) -> list:
+    """[(returncode, output)] of ``start_ranks``'s processes, in rank
+    order; kills what is left on a timeout."""
     outs = []
     try:
         for p in procs:

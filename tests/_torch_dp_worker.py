@@ -152,14 +152,22 @@ def trainer(dataset: str, work: str) -> None:
         pickle.dump({"rows": raw["rows"],
                      **{k: v.numpy() for k, v in got.items()}}, f)
 
-    # --mesh_data must be the world size; spatial sharding is refused
-    for kw, err in ((dict(mesh_data=4), ValueError),
-                    (dict(mesh_data=1), ValueError),
-                    (dict(mesh_data=2, mesh_space=2), NotImplementedError)):
+    # --mesh_data (x --mesh_space x --mesh_space_w) must be the world
+    # size; the pix2pix nets' spatial step and a data row's spatial ranks
+    # on two hosts (one rank a host here) are refused
+    for kw, err, hosts in (
+            (dict(mesh_data=4), ValueError, 1),
+            (dict(mesh_data=1), ValueError, 1),
+            (dict(mesh_data=2, mesh_space=2), ValueError, 1),
+            (dict(mesh_data=1, mesh_space=2, use_pix2pix=True,
+                  loss_mode="p2p"), NotImplementedError, 1),
+            (dict(mesh_data=1, mesh_space=2), NotImplementedError, 2)):
+        os.environ["LOCAL_WORLD_SIZE"] = str(2 // hosts)
         try:
             Trainer(cfg.replace(**kw), device="cpu")
         except err as e:
             print(f"OK refused {sorted(kw.items())}: {e}", flush=True)
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
     mesh = distributed.global_mesh(device_kind="cpu")
     print(f"OK mesh {mesh.mesh_dim_names} {mesh.size()} coordinator "
           f"{distributed.is_coordinator()}", flush=True)

@@ -707,3 +707,91 @@ def test_forward_graph_never_runs_stale_weights(dev):
     np.testing.assert_array_equal(y1, evaluate.generate(p2p, gen, x, dev,
                                                         gen_bn=moved))
     assert not np.array_equal(y0, y1)
+
+
+# ----------------------------------------------------------------------
+# K1's split passes, the spatial path's (parallel/spatial.py)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64), (2, 1, 64, 512),
+                                   (3, 5, 7, 13), (8, 32, 128, 256),
+                                   (2, 16, 33, 34)])
+def test_split_passes_match_the_twin(dev, shape, act, dtype):
+    """One rank's plane (no all-reduce): ``sp_stats`` then ``sp_apply``
+    (y, mean, rstd), ``sp_bwd_stats`` (dgamma, dbeta) then ``sp_bwd_apply``
+    (dx), against ``instance_norm_sp_ref`` and ``_bwd_ref``; rows of one
+    element (``(2, 1, 64, 512)``), odd C (the scalar route)."""
+    x, g, b = _inputs(shape, dev, dtype)
+    count = shape[1] * shape[2]
+    sums = cuda_in.sp_stats(x)
+    ref_sums = torch.stack([x.float().sum((1, 2)),
+                            (x.float() ** 2).sum((1, 2))], 1)
+    torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=1e-4)
+    y, mean, rstd = cuda_in.sp_apply(x, sums, g, b, count, 1e-3, act, 0.3)
+    ry, rm, rr = tnorm.instance_norm_sp_ref(x, g, b, count, None, 1e-3, act,
+                                            0.3)
+    tol = TOL[dtype]
+    assert ((y.float() - ry.float()).abs()
+            <= tol + tol * ry.float().abs()).all()
+    torch.testing.assert_close(mean, rm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rr, rtol=1e-4, atol=1e-5)
+    dy = torch.randn(shape, device=dev).to(dtype)
+    s, dg, db = cuda_in.sp_bwd_stats(x, dy, g, b, mean, rstd, act, 0.3)
+    dx = cuda_in.sp_bwd_apply(x, dy, g, b, mean, rstd, s, count, act, 0.3)
+    rdx, rdg, rdb = tnorm.instance_norm_sp_bwd_ref(x, dy, g, b, mean, rstd,
+                                                   count, None, act, 0.3)
+    if dtype == torch.float32:
+        assert ((dx - rdx).abs() <= 1e-5 + 1e-4 * rdx.abs()).all()
+    else:
+        assert (dx.float() - rdx.float()).abs().max() \
+            <= 2e-2 * rdx.float().abs().max()
+    for got, want in ((dg, rdg), (db, rdb)):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_split_relu_gate_halves_dy_at_an_exact_zero(dev):
+    """A symmetric plane whose pre-activation is exactly 0 at one element:
+    the split backward passes half of dy there, as its twin and JAX's
+    ``maximum`` do; the one-card kernel passes none."""
+    x = torch.tensor([-2.0, -1.0, 0.0, 1.0, 2.0, -0.5, 0.5, 3.0, -3.0],
+                     device=dev).reshape(1, 3, 3, 1)
+    g, b = torch.ones(1, device=dev), torch.zeros(1, device=dev)
+    dy = torch.arange(1.0, 10.0, device=dev).reshape(1, 3, 3, 1)
+    y, mean, rstd = cuda_in.sp_apply(x, cuda_in.sp_stats(x), g, b, 9, 1e-3,
+                                     "relu", 0.3)
+    assert y[0, 0, 2, 0].item() == 0.0
+    s, _, _ = cuda_in.sp_bwd_stats(x, dy, g, b, mean, rstd, "relu", 0.3)
+    dx = cuda_in.sp_bwd_apply(x, dy, g, b, mean, rstd, s, 9, "relu", 0.3)
+    rdx = tnorm.instance_norm_sp_bwd_ref(x, dy, g, b, mean, rstd, 9, None,
+                                         "relu", 0.3)[0]
+    torch.testing.assert_close(dx, rdx, rtol=1e-4, atol=1e-5)
+    one = cuda_in.instance_norm_bwd_cuda(x, dy, g, b, mean, rstd, "relu")[0]
+    assert (one - rdx).abs().max() > 1e-2
+
+
+def test_split_autograd_never_takes_the_cluster_route(dev):
+    """``ops.norm.instance_norm_sp`` on a CUDA tensor whose one-card plan
+    is the cluster route runs the split entries, one of each pass a call
+    each way, and no one-card launch."""
+    x, g, b = _inputs((2, 8, 8, 64), dev, torch.float32)
+    assert cuda_in.plan(2, 8, 8, 64, torch.float32, "fwd").route == "cluster"
+    assert cuda_in.sp_plan(x, "fwd").route == "stream"
+    x.requires_grad_(True)
+    before = dict(cuda_in.sp_launches), cuda_in.launches, \
+        cuda_in.bwd_launches
+    y = tnorm.instance_norm_sp({"gamma": g, "beta": b}, x, 64, None,
+                               act="leaky_relu")
+    y.backward(torch.ones_like(y))
+    assert {k: v - before[0][k] for k, v in cuda_in.sp_launches.items()} \
+        == dict.fromkeys(("stats", "apply", "bwd_stats", "bwd_apply"), 1)
+    assert (cuda_in.launches, cuda_in.bwd_launches) == before[1:]
+
+
+def test_split_wrappers_refuse_what_they_do_not_take(dev):
+    x, g, b = _inputs((2, 8, 8, 64), dev, torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_in.sp_stats(x.cpu())
+    with pytest.raises(ValueError, match="sums must be"):
+        cuda_in.sp_apply(x, torch.zeros(2, 64, device=dev), g, b, 64)

@@ -53,6 +53,7 @@ and with the cycle's terms on, bit for bit against one process over both
 shards (``tests/test_torch_dp_shards.py``)."""
 
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import pytest
@@ -173,9 +174,13 @@ def _plain(js) -> SimpleNamespace:
         step=np.asarray(js.step), ema=None if js.ema is None else n(js.ema))
 
 
-def _jax_case(name, kw, mesh):
+def _jax_case(name, kw, mesh, compiles):
     """The JAX init_state(n_data=2), the global batches, each shard's
-    draws and masks, and the JAX dp step's losses and states."""
+    draws and masks, and the JAX dp step, lowered here and compiled in
+    ``compiles`` (a thread pool: XLA compiles outside the GIL, so the
+    modes' compiles overlap one another and the next mode's tracing);
+    returns a function that runs both steps and returns the ranks' inputs
+    and the JAX losses and states."""
     jcfg = JConfig(**kw)
     init = jcycle.init_cycle_state if kw["loss_mode"] == "cycle" \
         else jstep.init_state
@@ -183,28 +188,39 @@ def _jax_case(name, kw, mesh):
     # one batch for both steps: the second swaps pooled history
     batches = [_batch(kw["loss_mode"] == "cycle", SEED[name])] * len(RNGS)
     draws, masks = _shard_draws(kw, RNGS)
-    step = jax.jit(make_dp_step_body(jcfg, mesh))
     jstate = replicate(js, mesh)
-    states, ref = [_plain(js)], []
-    fn = None
-    for batch, rng in zip(batches, RNGS):
-        args = (jstate, shard_batch(batch, mesh), jnp.float32(LR), rng)
-        if fn is None:
-            fn = step.lower(*args).compile(FAST)
-        jstate, jm = fn(*args)
-        ref.append(({k: float(v) for k, v in jm.items()}, _plain(jstate)))
-        states.append(ref[-1][1])
-    return {"kw": kw, "states": states[:-1], "batches": batches,
-            "draws": draws, "masks": masks, "lr": LR}, ref
+    fn = compiles.submit(jax.jit(make_dp_step_body(jcfg, mesh)).lower(
+        jstate, shard_batch(batches[0], mesh), jnp.float32(LR),
+        RNGS[0]).compile, FAST)
+
+    def run():
+        nonlocal jstate
+        step = fn.result()
+        states, ref = [_plain(js)], []
+        for batch, rng in zip(batches, RNGS):
+            jstate, jm = step(jstate, shard_batch(batch, mesh),
+                              jnp.float32(LR), rng)
+            ref.append(({k: float(v) for k, v in jm.items()},
+                        _plain(jstate)))
+            states.append(ref[-1][1])
+        return {"kw": kw, "states": states[:-1], "batches": batches,
+                "draws": draws, "masks": masks, "lr": LR}, ref
+    return run
 
 
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
-    """The JAX references, then one 2-rank gloo job over every case."""
+    """The JAX references (the cycle mode's, the longest compile, first),
+    then one 2-rank gloo job over every case."""
     mesh = make_mesh(data=N, space=1, devices=jax.devices()[:N])
     cases, refs = {}, {}
-    for name, kw in MODES.items():
-        cases[name], refs[name] = _jax_case(name, kw, mesh)
+    order = sorted(MODES, key=lambda k: MODES[k]["loss_mode"] != "cycle")
+    with ThreadPoolExecutor(len(MODES)) as compiles:
+        runs = {name: _jax_case(name, MODES[name], mesh, compiles)
+                for name in order}
+        done = {name: run() for name, run in runs.items()}
+    for name in MODES:  # the modes' order for the ranks
+        cases[name], refs[name] = done[name]
     for name, kw in SINGLE.items():
         cfg = Config(**{**kw, "mesh_data": 1})
         js = bridge.train_state_to_jax(
@@ -389,15 +405,18 @@ def test_ranks_import_no_jax(job):
 
 
 def test_a_group_of_another_size_is_refused():
-    """In a one-rank process group, ``--mesh_data 2`` names both numbers;
-    spatial sharding names its ROADMAP item; ``--mesh_data 1`` builds the
-    one-process step, which averages nothing."""
+    """In a one-rank process group, ``--mesh_data 2`` names both numbers,
+    ``--mesh_space 2`` the ranks it needs, the pix2pix nets' spatial step
+    its ROADMAP item; ``--mesh_data 1`` builds the one-process step, which
+    averages nothing."""
     with one_rank_group() as group:
         for kw, err, what in (
                 (dict(mesh_data=2), ValueError,
                  "--mesh_data 2 must equal the world size, 1"),
-                (dict(mesh_space=2), NotImplementedError,
-                 "parallel: spatial")):
+                (dict(mesh_space=2), ValueError,
+                 "= 2 ranks must equal the world size, 1"),
+                (dict(mesh_space=2, use_pix2pix=True, loss_mode="p2p"),
+                 NotImplementedError, "parallel: spatial pix2pix")):
             cfg = Config(**{**MODES["sggan_resnet"], "mesh_data": 1, **kw})
             with pytest.raises(err, match=what):
                 tstep.build_step_fn(cfg, group)

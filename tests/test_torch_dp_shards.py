@@ -26,7 +26,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from _torch_dist import run_ranks  # noqa: E402
+from _torch_dist import start_ranks, wait_ranks  # noqa: E402
 from sggan_tpu_torch.config import Config  # noqa: E402
 from sggan_tpu_torch.train import cycle as tcycle  # noqa: E402
 from sggan_tpu_torch.train import pool as tpool  # noqa: E402
@@ -126,18 +126,24 @@ def _cases() -> dict:
 
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
+    """The 2-rank gloo job over every case, and while it runs, each case's
+    one-process steps over both shards."""
     cases = _cases()
     work = tmp_path_factory.mktemp("dp_shards")
     with open(work / "cases.pkl", "wb") as f:
         pickle.dump(cases, f)
-    outs = run_ranks("steps", [work / "cases.pkl", work])
+    procs = start_ranks("steps", [work / "cases.pkl", work])
+    try:
+        ones = {name: _one_process(case) for name, case in cases.items()}
+    finally:
+        outs = wait_ranks(procs)
     for r, (rc, out) in enumerate(outs):
         assert rc == 0, f"rank {r} failed:\n{out}"
     ranks = []
     for r in range(N):
         with open(work / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
-    return cases, ranks
+    return cases, ranks, ones
 
 
 def _mean(a, b):
@@ -200,10 +206,10 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_dp_steps_equal_one_process_over_both_shards(job, mode):
-    cases, ranks = job
+    cases, ranks, ones = job
     for seed in SEEDS:
         name = f"{mode}/{seed}"
-        for t, (m, refs) in enumerate(_one_process(cases[name])):
+        for t, (m, refs) in enumerate(ones[name]):
             for r in range(N):
                 got_m, got = ranks[r][name]["steps"][t]
                 assert got_m == m, (name, t, r)

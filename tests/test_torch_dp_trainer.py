@@ -14,8 +14,8 @@ the saved step.  Each rank's rows of a global batch, preprocessed with
 the draws of the whole batch, are the one-process preprocess of that
 batch; the global-row preprocess equals the JAX package's
 ``preprocess_train(..., global_b, sample_rows)`` with the same draws.  A
-world size other than ``--mesh_data``, spatial sharding, ``--mesh_data
-2`` outside a launcher and a ``LOCAL_RANK`` with no card behind it each
+world size other than ``--mesh_data``, the pix2pix nets' spatial step,
+``--mesh_data 2`` outside a launcher and a ``LOCAL_RANK`` with no card behind it each
 raise."""
 
 import os
@@ -192,8 +192,9 @@ def test_global_rows_match_jax(case, layout):
 
 def test_group_mismatches_are_refused(job, monkeypatch):
     """In the 2-rank job: ``--mesh_data`` 4 or 1 names both numbers,
-    ``--mesh_space 2`` names its ROADMAP item, and the ``data`` mesh spans
-    both ranks.  In one process: ``--mesh_data 2`` with no launcher's
+    ``--mesh_data 2 --mesh_space 2`` the 4 ranks it needs, the pix2pix
+    nets' spatial step and a data row's spatial ranks on two hosts their
+    ROADMAP items, and the ``data`` mesh spans both ranks.  In one process: ``--mesh_data 2`` with no launcher's
     environment, and a ``LOCAL_RANK`` with no card behind it."""
     for r, out in enumerate(job[2]):
         assert "OK refused [('mesh_data', 4)]: --mesh_data 4 must equal " \
@@ -201,7 +202,13 @@ def test_group_mismatches_are_refused(job, monkeypatch):
         assert "OK refused [('mesh_data', 1)]: --mesh_data 1 must equal " \
             "the world size, 2" in out
         assert "OK refused [('mesh_data', 2), ('mesh_space', 2)]: " \
-            "parallel: spatial" in out
+            "--mesh_data 2 x --mesh_space 2 x --mesh_space_w 1 = 4 ranks " \
+            "must equal the world size, 2" in out
+        assert "OK refused [('loss_mode', 'p2p'), ('mesh_data', 1), " \
+            "('mesh_space', 2), ('use_pix2pix', True)]: parallel: spatial " \
+            "pix2pix" in out
+        assert "OK refused [('mesh_data', 1), ('mesh_space', 2)]: " \
+            "parallel: spatial multi-host" in out
         assert f"OK mesh ('data',) 2 coordinator {r == 0}" in out
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(k, raising=False)

@@ -177,15 +177,20 @@ def test_bf16_step_stores_the_pool_in_bf16_and_restores_tf32():
 
 
 @pytest.mark.parametrize("kw,err,what", [
-    ({"mesh_space": 2}, NotImplementedError,
-     "parallel: spatial .*ROADMAP Queue 1, item 10"),
+    ({"mesh_space": 2}, ValueError,
+     "--mesh_space 2 x --mesh_space_w 1 = 2 ranks must equal the world "
+     "size, 1"),
+    ({"mesh_space": 2, "use_pix2pix": True, "loss_mode": "p2p"},
+     NotImplementedError,
+     "parallel: spatial pix2pix .*ROADMAP Queue 1, item 10"),
     ({"mesh_data": 2}, ValueError,
      "--mesh_data 2 must equal the world size, 1")])
 def test_unported_modes_raise_naming_the_roadmap(kw, err, what):
-    """Spatial sharding is not ported and names its ROADMAP item;
-    ``--mesh_data 2`` outside a group of 2 ranks (none here, then a group
-    of this process alone, passed where the JAX step took ``axis_name``)
-    names both numbers."""
+    """The spatial step of the pix2pix nets is not ported and names its
+    ROADMAP item; ``--mesh_space 2`` (one process) and ``--mesh_data 2``
+    outside a group of 2 ranks (none here, then a group of this process
+    alone, passed where the JAX step took ``axis_name``) name the numbers
+    and the world size."""
     from _torch_dist import one_rank_group
     cfg = Config(**{**KW, **kw})
     with pytest.raises(err, match=what):

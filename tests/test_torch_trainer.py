@@ -242,11 +242,16 @@ def test_main_without_a_gpu_is_an_error(tmp_path, monkeypatch):
 @pytest.mark.parametrize("cfg_kw,err,what", [
     (dict(mesh_data=2), ValueError,
      "--mesh_data 2 must equal the world size, 1"),
-    (dict(mesh_space=2), NotImplementedError, "parallel")])
+    (dict(mesh_space=2), ValueError, "= 2 ranks must equal the world "
+     "size, 1"),
+    (dict(mesh_space=2, use_pix2pix=True, loss_mode="p2p"),
+     NotImplementedError, "parallel: spatial pix2pix")])
 def test_trainer_refuses_what_is_not_ported(dataset, tmp_path, cfg_kw, err,
                                             what):
-    """Spatial sharding is not ported; ``--mesh_data 2`` needs a group of
-    2 ranks (tests/test_torch_dp_trainer.py runs one)."""
+    """The pix2pix nets' spatial step is not ported; ``--mesh_data 2`` and
+    ``--mesh_space 2`` need groups of 2 ranks
+    (tests/test_torch_dp_trainer.py and test_torch_spatial_trainer.py run
+    them)."""
     with pytest.raises(err, match=what):
         Trainer(_cfg(dataset, tmp_path, **cfg_kw), device="cpu")
 
