@@ -120,8 +120,9 @@ Phases, each of which raises on failure:
      --phase train`` with no net or loss flag on phase 16's PNG set at
      128x128 (train, test, resume; sustained img/s; the step's graph of
      27 + 27 K1 calls), one in-process epoch with ``--scan_steps 1`` and
-     K1's exact calls, then one short ``--use_pix2pix`` epoch (one chunk
-     of 8, one print) whose checkpoint carries moved BN state;
+     K1's exact calls, and beside the last three one short
+     ``--use_pix2pix`` epoch (one chunk of 8, one print) whose
+     checkpoint carries moved BN state;
   21. /translate with the U-Net at 128x128 (15 x 2 K1 calls at the
      start-up's capture, a request a replay) and the
      U-Net's bf16 forward at b=1 and 16, 128x128 and 256x512;
@@ -153,10 +154,12 @@ Phases, each of which raises on failure:
      AtoB and BtoA (" [*] Load SUCCESS", different PNGs),
      ``--continue_train`` 1 epoch (resumes at the saved step), then one
      in-process epoch with ``--scan_steps 1`` and K1's exact calls;
-  26. the exported artifact (main path): ``python -m sggan_tpu_torch.serve
-     --export`` on the checkpoints of phases 16 (ResNet, bf16 and again
-     f32), 20 (U-Net, pix2pix) and 25 (cycle, AtoB and BtoA), each
-     printing checkpoint_loaded=True; 23, 15 and 0 K1 op nodes a graph
+  26. the exported artifact (main path): ``python -m
+     sggan_tpu_torch.serve --export`` on the checkpoints of phases 16
+     (ResNet, bf16 and again f32), 20 (U-Net, pix2pix) and 25 (cycle,
+     AtoB and BtoA), side by side; then, beside the untimed rest of
+     phases 36 and 37 and phase 35's recon eval, each export printed
+     checkpoint_loaded=True; 23, 15 and 0 K1 op nodes a graph
      and no plain reduction; a fresh process that imports only
      ``utils.export`` runs each twice: the first call captures its CUDA
      graph with K1's exact calls (twice a forward's) on the planned
@@ -175,9 +178,11 @@ Phases, each of which raises on failure:
      generator (ngf 64) and a semantic discriminator (ndf 64, 34
      classes) written by the port's ``tf_bundle`` from seeded weights;
      ``python -m sggan_tpu_torch.utils.import_tf`` writes cp-0000.pt,
-     which holds them exactly; the service serves it within one PNG
-     level of the eager forward; ``--selftest`` (started in the
-     background before phase 26) passes;
+     which holds them exactly (both in a process of their own beside
+     phases 29 and 33, whose fresh process leaves the host's other cores
+     idle); after phases 30-32 the service serves it within one PNG
+     level of the eager forward; ``--selftest`` (started beside phase
+     29) passes;
   29. the CUDA graphs (main path): the trainer's loop over a resident
      split made on the card, for the ResNet sggan step (256x512 b=16),
      the default p2p U-Net with dropout and the pix2pix pair with batch
@@ -191,14 +196,15 @@ Phases, each of which raises on failure:
      routes; a profiler window of an epoch's replays names K1's kernels
      for those calls each; then eager beside the graph with cuDNN's
      defaults: step ms by events, busy by the profiler, idle share, peak
-     memory, img/s (pairs/s), the cycle step also at b=2 and 4; and the
-     forward graphs of ``evaluate.generate``, the ResNet at 256x512 and
-     the U-Net at 128x128, bf16, b=1 and 16: bitwise equal to the eager
-     forward, K1's calls only at the capture, a replay's kernels
-     profiled, ms a call beside eager's.  The ResNet sggan cell also
+     memory, img/s (pairs/s); and the forward graphs of
+     ``evaluate.generate``, the ResNet at 256x512 and the U-Net at
+     128x128, bf16, b=1 and 16: bitwise equal to the eager forward, K1's
+     calls only at the capture, a replay's kernels profiled, ms a call
+     beside eager's.  The ResNet sggan cell also
      under ``--remat``: its graph holds the backward's recompute, K1's
-     calls at the capture 55 + 37.  In a fresh process: late in a long
-     one the profiler drops kernels from short traces;
+     calls at the capture 55 + 37.  In a fresh process, with phase 33
+     after it: late in a long one the profiler drops kernels from short
+     traces;
   30. the reflect layers, in a fresh process with 31 and 32: the reflect
      pad's ``autograd.Function`` (the strip-add adjoint) and both forms
      of the reflect conv, the pad-free Function and the gather + VALID
@@ -227,7 +233,7 @@ Phases, each of which raises on failure:
      and without it (probes at b=4 and 8, then at the batch a straight
      line through their peaks puts at 95% of the card's memory, walked a
      batch at a time, then bisected; at most 8 probes);
-  33. ``--compat_fake_history`` (main path), in a fresh process: both K1
+  33. ``--compat_fake_history`` (main path), in phase 29's process: both K1
      kernels against their plain versions at the discriminator's new
      sites (N = 11 and 13 at 128x128, 17 and 25 at 256x512), f32 and
      bf16, on the planned routes; the f32 history step card vs CPU at
@@ -248,7 +254,7 @@ Phases, each of which raises on failure:
      the MFU of phase 29's sggan and cycle graph steps from
      ``utils/flops.py`` against the dense bf16 peak;
   35. ``python -m sggan_tpu_torch.utils.hbm`` in fresh processes: the
-     sggan step at 2048x1024 under ``--remat`` at b=12 doubled to 24
+     sggan step at 2048x1024 under ``--remat`` at b=2 doubled to 4
      fits, and at b=64 doubled to 128 without it runs out of memory, its
      bytes parsed; ``python -m sggan_tpu_torch.cycle_recon_eval`` on
      phase 25's checkpoint: finite scores and both PNG strips;
@@ -258,7 +264,7 @@ Phases, each of which raises on failure:
      two ranks on one card; the phase tries it once and prints what it
      says).  Part 2's training runs alone after phase 25 (its steps are
      timed); part 1, part 2's resume and test, and the NCCL attempt run
-     beside phase 28, which checks values only.  Part 1: every loss mode
+     beside phase 26, which checks values.  Part 1: every loss mode
      (ResNet sggan with the pool and the EMA, the p2p U-Net with dropout,
      pix2pix with batch norm, the ResNet cycle step) at 32x64 f32, a
      shard of 2, 3 steps, held against one process that computes both
@@ -289,17 +295,28 @@ Phases, each of which raises on failure:
      ``sp.halo`` and ``sp.moments`` ranges' ms, the moments' all-reduces a
      step, a step's peak memory beside one process's at the same global
      batch; K1's split passes timed at a rank's resblock block beside the
-     twin and ``F.instance_norm``.  Beside phase 28: part 1's 2-rank jobs
-     and part 2's ``--continue_train``; then part 1's 4-rank jobs: the
-     ResNet sggan step at data 2 x space 2 and space 2 x wspace 2, the
-     U-Net sggan step at space 2 with its shards' masks, the ResNet cycle
-     step at space 2 (32x64 f32), each against one process on the whole
-     plane (losses rel 1e-6, gradients 1e-4 of a tensor's largest), K1's
-     split calls a step per rank exactly the step's sites, the split passes
-     against their twin at every rank's site (phase 7's limits, the moments
-     all-reduced both ways); one step at 512x1024 on a 2 x 2 grid, each
-     rank's peak beside one process's.  Alone: ``python -c "import
-     chip_smoke; chip_smoke.sp_alone()"``.
+     twin and ``F.instance_norm``.  Then, in the same two processes, the
+     CLI with ``--use_pix2pix --loss_mode p2p`` (ngf and ndf 64,
+     dropout): equal finite losses and each rank's whole state bitwise
+     equal (both nets' BN states in it), no K1 call, the checkpoint with
+     both nets' BN
+     states; each rank's step, busy, idle, the gathers' bytes and
+     collectives a step and the ``sp.gather`` range, the halos and the BN
+     moments, a step's peak beside one process's.  Beside phase 26: part
+     1's 2-rank jobs, part 2's ``--continue_train`` (both runs) and the
+     pix2pix run's one-process ``--phase test``; then part 1's 4-rank
+     jobs: the ResNet sggan step at data 2 x space 2 and space 2 x wspace
+     2, the U-Net sggan step at space 2 with its shards' masks, the ResNet
+     cycle step at space 2, the pix2pix p2p step at space 2 and space 2 x
+     wspace 2 with its masks (32x64 f32), each against one process on the
+     whole plane (losses rel 1e-6, gradients 1e-4 of a tensor's largest,
+     the pix2pix nets' new BN states 1e-5 + 1e-4 rel and bitwise equal on
+     the ranks), K1's split calls a step per rank exactly the step's sites
+     (none for the pix2pix pair), the split passes against their twin at
+     every rank's site (phase 7's limits, the moments all-reduced both
+     ways); one step at 512x1024 on a 2 x 2 grid, each rank's peak beside
+     one process's.  Alone: ``python -c "import chip_smoke;
+     chip_smoke.sp_alone()"``.
 
 Prints a JSON line of the trainer's and the preprocess's rates, one of
 the default nets' numbers, one of the cycle mode's, one of the inference
@@ -320,8 +337,10 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -547,15 +566,41 @@ CATEGORIES = [("K1 instance norm", K1_FWD_KERNELS),
 
 def kernel_times(prof, n_runs: int) -> list:
     """(device ms per run, launches per run, name) of every device kernel
-    in a torch.profiler trace of ``n_runs`` runs, the longest first."""
-    kern = []
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            kern.append((us / n_runs / 1e3, e.count // n_runs, e.key))
-    return sorted(kern, reverse=True)
+    in a torch.profiler trace of ``n_runs`` runs, the longest first.  Read
+    from the trace's raw device events, as ``key_averages`` counts them
+    (synchronous device events, names demangled): ``key_averages`` first
+    builds an event object for every host op of the window too, which
+    takes tens of seconds over a window of eager steps."""
+    from torch._C._autograd import DeviceType
+    ns, cnt = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        name = e.name()
+        ns[name] = ns.get(name, 0) + e.duration_ns()
+        cnt[name] = cnt.get(name, 0) + 1
+    by_name = {}
+    for name in ns:
+        key = torch._C._demangle(name)
+        t, c = by_name.get(key, (0, 0))
+        by_name[key] = (t + ns[name], c + cnt[name])
+    return sorted(((t / n_runs / 1e6, c // n_runs, key)
+                   for key, (t, c) in by_name.items()), reverse=True)
+
+
+def range_ms(prof, names, n_runs: int) -> dict:
+    """Host ms per run of each ``record_function`` range of ``names`` in a
+    torch.profiler trace of ``n_runs`` runs, summed over its entries: the
+    host-side events only (a CUDA trace also lists each range as a device
+    annotation).  A range the trace does not hold is absent."""
+    from torch._C._autograd import DeviceType
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.name() in names:
+            out[e.name()] = (out.get(e.name(), 0.0)
+                             + e.duration_ns() / n_runs / 1e6)
+    return out
 
 
 def print_breakdown(prof, n_runs: int, wall_ms: float, title: str,
@@ -632,6 +677,26 @@ def cycle_batch(cfg, b: int, dev, seed: int) -> dict:
     bb = train_batch(cfg, b, dev, seed + 1000)
     return dict(train_batch(cfg, b, dev, seed), real_b=bb["real_a"],
                 seg_b=bb["seg_a"], mask_b=bb["mask_a"])
+
+
+def device_batch(cfg, b: int, dev, seed: int) -> dict:
+    """``train_batch``'s tensors (``cycle_batch``'s under the cycle mode)
+    drawn on the card: for phase 32's memory probes, whose values do not
+    matter and whose host draws at 2048x1024 take seconds each."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = cfg.image_size
+    hm, wm = cfg.mask_hw
+    out = {}
+    for s in ("a", "b") if cfg.loss_mode == "cycle" else ("a",):
+        ids = torch.randint(0, cfg.segment_class, (b, hm, wm), generator=g,
+                            device=dev)
+        out.update({f"real_{s}": torch.rand(b, h, w, 3, generator=g,
+                                            device=dev),
+                    f"seg_{s}": torch.rand(b, h, w, 3, generator=g,
+                                           device=dev),
+                    f"mask_{s}": torch.nn.functional.one_hot(
+                        ids, cfg.segment_class).float()})
+    return out
 
 
 def to_dev(x, dev):
@@ -1240,8 +1305,7 @@ def k2_profile(card: str, dev, wall_ms: float) -> None:
             torch.cuda.synchronize()
     print_breakdown(prof, 3, wall_ms, f"[{card}] profiler, K2 forward "
                     f"{K2_FULL[0]} bf16", K2_CATEGORIES)
-    names = [e.key for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    names = [k[2] for k in kernel_times(prof, 1)]
     if not any("k2_conv_wgmma" in k for k in names):
         raise AssertionError("the profiler saw no k2_conv_wgmma kernel")
     bad = [k for k in names if "k2_" not in k
@@ -1458,9 +1522,10 @@ def repo_env() -> dict:
 
 
 def run_cli(run_dir: str, label: str, args: list,
-            module: str = "sggan_tpu_torch.main") -> tuple:
+            module: str = "sggan_tpu_torch.main", show=print) -> tuple:
     """``python -m <module>`` with ``args`` in ``run_dir``; returns
-    (stdout, seconds).  Raises if it fails."""
+    (stdout, seconds), its exit and last lines given to ``show``.  Raises
+    if it fails."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", module, *args],
                           cwd=run_dir, env=repo_env(), capture_output=True,
@@ -1468,10 +1533,10 @@ def run_cli(run_dir: str, label: str, args: list,
     dt = time.perf_counter() - t0
     lines = proc.stdout.strip().splitlines()
     shown = [ln for ln in lines if not ln.startswith("Processing image")]
-    print(f"  python -m {module}, {label}: exit {proc.returncode} in "
-          f"{dt:.1f} s")
+    show(f"  python -m {module}, {label}: exit {proc.returncode} in "
+         f"{dt:.1f} s")
     for ln in shown[-8:]:
-        print(f"    | {ln}")
+        show(f"    | {ln}")
     if proc.returncode:
         print(proc.stderr[-4000:], file=sys.stderr)
         raise AssertionError(f"python -m {module} failed")
@@ -2066,9 +2131,9 @@ def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
     net or loss flag (the U-Net with the semantic discriminator, p2p loss,
     dropout on, b=1 doubled to 2, 128x128, bf16) on phase 16's PNG set,
     ``--train_size`` 48: train, test and resume, checked as phase 16 checks
-    them; one in-process epoch with K1's exact calls a step; then one
-    short epoch with ``--use_pix2pix`` whose checkpoint carries both nets'
-    BN state, moved by the steps."""
+    them; one in-process epoch with K1's exact calls a step; beside the
+    last three, one short epoch with ``--use_pix2pix`` whose checkpoint
+    carries both nets' BN state, moved by the steps."""
     from sggan_tpu_torch.config import parse_args
     from sggan_tpu_torch.train.trainer import Trainer
     from sggan_tpu_torch.utils.summary import read_scalars
@@ -2108,6 +2173,18 @@ def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
           f"2): epoch img/s {[round(r, 2) for r in rates]} (StepTimer), "
           f"sustained (epochs >= 1) {sustained:.2f} img/s, whole run "
           f"{wall_rate:.2f} img/s")
+    # the --use_pix2pix epoch (not timed) beside the test, the resume and
+    # the in-process epoch (K1's counts, not timed); its lines shown after
+    p2p_dir = os.path.join(work, "pix2pix_cli")
+    os.makedirs(p2p_dir)
+    p2p_log = []
+    pool = ThreadPoolExecutor(1)
+    p2p_run = pool.submit(
+        run_cli, p2p_dir, "--use_pix2pix, 1 epoch",
+        ["--phase", "train", "--epoch", "1", "--use_pix2pix", "--dataset_dir",
+         root, "--train_size", str(DEFAULT_P2P_TRAIN), "--print_freq", "1"],
+        show=p2p_log.append)
+    pool.shutdown(wait=False)
     (out, _), (res, _) = test_beside_resume(run_dir, args)
     need(" [*] Load SUCCESS" in out and all(os.path.isfile(os.path.join(
         run_dir, "test", f"real_s{i:04d}.png")) for i in range(E2E_TEST)),
@@ -2147,12 +2224,8 @@ def default_cli_phase(card: str, dev, work: str, root: str) -> dict:
     del tr
     torch.cuda.empty_cache()
 
-    p2p_dir = os.path.join(work, "pix2pix_cli")
-    os.makedirs(p2p_dir)
-    out, _ = run_cli(p2p_dir, "--use_pix2pix, 1 epoch",
-                     ["--phase", "train", "--epoch", "1", "--use_pix2pix",
-                      "--dataset_dir", root, "--train_size",
-                      str(DEFAULT_P2P_TRAIN), "--print_freq", "1"])
+    out, _ = p2p_run.result(timeout=600)
+    print(*p2p_log, sep="\n")
     need_captured(out, 0)
     losses = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
         r"Gen_Loss: (\S+) Disc_Loss: (\S+)", out)]
@@ -2239,8 +2312,7 @@ def unet_serve_phase(card: str, dev) -> dict:
 
 CYCLE_B = 8                     # bench.py:221-256's cycle cell
 CYCLE_SWEEP = (2, 4, 8, 12, 16)  # phase 23's sites
-# phase 24's step sweep; b=2 and 4 are phase 29's cycle cells (the loop
-# eager and through the graph)
+# phase 24's step sweep
 CYCLE_SWEEP_STEP = (8, 12, 16)
 CYCLE_STEPS = 12
 CYCLE_K1_PER_STEP = 166  # 6 x 23 generator + 2 x 7 (gen loss) + 2 x 7
@@ -2746,7 +2818,8 @@ def u8(y: np.ndarray) -> np.ndarray:
     return ((y + 1.0) / 2.0 * 255).astype(np.uint8).astype(int)
 
 
-def artifact_phase(card: str, dev, work: str, root: str) -> dict:
+def artifact_phase(card: str, dev, work: str, root: str,
+                   after_exports) -> dict:
     """Phase 26.  ``python -m sggan_tpu_torch.serve --export`` on the
     checkpoints of phases 16, 20 and 25 (all at once, one process each),
     each printing checkpoint_loaded=True; every graph holds one K1 op node
@@ -2756,7 +2829,8 @@ def artifact_phase(card: str, dev, work: str, root: str) -> dict:
     service's (``Trainer.generate``): f32 within phase 4's limit with
     TF32 off, bf16 within one PNG level, AtoB and BtoA apart; then the
     service with ``--artifact``: /healthz, four PNGs within one level of
-    the checkpoint service's, 23 K1 calls a request, a garbage body 400."""
+    the checkpoint service's, 23 K1 calls a request, a garbage body 400.
+    ``after_exports()`` is called once the exports have ended."""
     from PIL import Image
 
     from sggan_tpu_torch import serve as srv
@@ -2779,6 +2853,7 @@ def artifact_phase(card: str, dev, work: str, root: str) -> dict:
         exported = dict(zip(cases, pool.map(export, cases)))
     print(f"  {len(cases)} exports side by side in "
           f"{time.perf_counter() - t0:.1f} s")
+    after_exports()
     res = {"export_s": {}, "graph": {}}
     for label, (out, secs) in exported.items():
         need(f"exported {paths[label]} (checkpoint_loaded=True)" in out,
@@ -3046,20 +3121,35 @@ def selftest_start(work: str) -> subprocess.Popen:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def tf_import_phase(card: str, dev, work: str,
-                    selftest: subprocess.Popen) -> dict:
-    """Phase 28.  Reference-TF2 bundles of a ResNet generator (ngf 64) and
-    a semantic discriminator (ndf 64, 34 classes, 256x512) written by the
-    port's ``tf_bundle`` from seeded weights; ``python -m
-    sggan_tpu_torch.utils.import_tf`` makes cp-0000.pt of them, which
-    holds the source weights exactly; the service serves it
-    (checkpoint_loaded) within one PNG level of the eager forward of the
-    source weights; ``--selftest``, started before phase 26, passes."""
-    from sggan_tpu_torch import serve as srv
-    from sggan_tpu_torch.config import parse_args
+TF_FLAGS = ["--use_resnet", "--img_height", str(H), "--img_width", str(W),
+            "--segment_class", str(N_CLASS), "--compute_dtype", "bfloat16",
+            "--dataset_dir", "city"]
+TF_CHILD = ("import json, sys, chip_smoke; "
+            "print(json.dumps(chip_smoke.tf_import_write(sys.argv[1])))")
+
+
+def tf_import_start(work: str) -> subprocess.Popen:
+    """Phase 28's host part in a process of its own, a session leader
+    (its import_tf child is killed with it): ``tf_import_write``.  Started
+    beside phase 29, whose fresh processes leave the host's other cores
+    idle."""
+    return subprocess.Popen([sys.executable, "-c", TF_CHILD, work], cwd=REPO,
+                            env=repo_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def tf_import_write(work: str) -> dict:
+    """Reference-TF2 bundles of a ResNet generator (ngf 64) and a semantic
+    discriminator (ndf 64, 34 classes, 256x512) written by the port's
+    ``tf_bundle`` from seeded weights; ``python -m
+    sggan_tpu_torch.utils.import_tf`` makes cp-0000.pt of them (pure-
+    Python checksums; it builds the train state on the card), which must
+    hold the source weights exactly.  The source generator's weights are
+    saved beside them for ``tf_import_phase``; returns the lines to show
+    and the seconds."""
     from sggan_tpu_torch.models.discriminator import Discriminator
     from sggan_tpu_torch.models.generator_resnet import GeneratorResnet
-    from sggan_tpu_torch.train import evaluate
     from sggan_tpu_torch.utils import tf_bundle, tf_weights
     from sggan_tpu_torch.utils.bridge import params_from_jax, params_to_jax
 
@@ -3080,7 +3170,7 @@ def tf_import_phase(card: str, dev, work: str,
                 ndf=64, n_class=N_CLASS, image_size=(H, W),
                 generator=torch.Generator().manual_seed(29)),
                 "discriminator")}
-    src = {}
+    src, log = {}, []
     t0 = time.perf_counter()
     for which, (net, kind) in nets.items():
         tree = move_1d(params_to_jax(net.state_dict()))
@@ -3091,18 +3181,16 @@ def tf_import_phase(card: str, dev, work: str,
         os.makedirs(os.path.dirname(prefix), exist_ok=True)
         tf_bundle.write_keras_weights(prefix, flat, attrs, compress=True)
         src[which] = (prefix, params_from_jax(tree))
-        print(f"  {which}: {len(flat)} weights "
-              f"({sum(w.size for w in flat) / 1e6:.2f} M) written as "
-              f"{prefix}")
+        log.append(f"  {which}: {len(flat)} weights "
+                   f"({sum(w.size for w in flat) / 1e6:.2f} M) written as "
+                   f"{prefix}")
     write_s = time.perf_counter() - t0
-    flags = ["--use_resnet", "--img_height", str(H), "--img_width", str(W),
-             "--segment_class", str(N_CLASS), "--compute_dtype", "bfloat16",
-             "--dataset_dir", "city", "--checkpoint_dir",
-             os.path.join(d, "checkpoint")]
     out, import_s = run_cli(d, "TF bundles to cp-0000.pt",
                             ["--gen_src", src["gen"][0], "--disc_src",
-                             src["disc"][0], *flags],
-                            module="sggan_tpu_torch.utils.import_tf")
+                             src["disc"][0], *TF_FLAGS, "--checkpoint_dir",
+                             os.path.join(d, "checkpoint")],
+                            module="sggan_tpu_torch.utils.import_tf",
+                            show=log.append)
     line = json.loads(out.strip().splitlines()[-1])
     need(line["ok"] and line["net"] == "resnet" and line["disc"]
          and line["epoch"] == 0, f"import_tf printed {line}")
@@ -3114,13 +3202,41 @@ def tf_import_phase(card: str, dev, work: str,
         need(saved.keys() == want.keys() and all(
             torch.equal(saved[k], want[k]) for k in want),
             f"the imported {which} is not the source weights")
-    cfg = parse_args(flags)
+    torch.save(src["gen"][1], os.path.join(d, "src_gen.pt"))
+    return {"log": log, "write_s": write_s, "import_s": import_s}
+
+
+def tf_import_phase(card: str, dev, work: str, job_out: tuple,
+                    selftest: subprocess.Popen) -> dict:
+    """Phase 28.  ``tf_import_start``'s job, ended: ``job_out`` its
+    (stdout, stderr, exit code, seconds waited for it); the import holds
+    the source weights exactly; the service serves its cp-0000.pt
+    (checkpoint_loaded) within one PNG level of the eager forward of the
+    source weights; ``--selftest``, started beside phase 29, passes."""
+    from sggan_tpu_torch import serve as srv
+    from sggan_tpu_torch.config import parse_args
+    from sggan_tpu_torch.models.generator_resnet import GeneratorResnet
+    from sggan_tpu_torch.train import evaluate
+    from sggan_tpu_torch.utils import tf_weights
+
+    jout, jerr, rc, waited = job_out
+    print(f"  the bundles' write and import_tf, beside phase 29 (waited "
+          f"{waited:.1f} s after it): exit {rc}")
+    if rc:
+        print(jerr[-4000:], file=sys.stderr)
+        raise AssertionError("the TF bundles' write or import failed")
+    res = json.loads(jout.strip().splitlines()[-1])
+    print(*res["log"], sep="\n")
+    d = os.path.join(work, "tf_import")
+    cfg = parse_args([*TF_FLAGS, "--checkpoint_dir",
+                      os.path.join(d, "checkpoint")])
     svc = srv._Service(cfg, device=dev)
     need(svc.loaded, "the service did not load the imported checkpoint")
-    gen = nets["gen"][0]
-    gen.load_state_dict(src["gen"][1])
+    gen = GeneratorResnet(ngf=NGF, generator=torch.Generator().manual_seed(0))
+    gen.load_state_dict(torch.load(os.path.join(d, "src_gen.pt"),
+                                   weights_only=True))
     gen = gen.to(dev).eval()
-    x = rng.random((1, H, W, 3), np.float32)
+    x = np.random.default_rng(28).random((1, H, W, 3), np.float32)
     got = svc._fn(x)
     ref = evaluate.generate(cfg, gen, x, dev)
     levels = int(np.abs(u8(got[0]) - u8(ref[0])).max())
@@ -3141,12 +3257,12 @@ def tf_import_phase(card: str, dev, work: str,
         "pix2pix_gen": len(tf_weights.pix2pix_gen_layout()),
         "pix2pix_disc": len(tf_weights.pix2pix_disc_layout())}}
     got_line = sout.strip().splitlines()[-1] if sout.strip() else ""
-    print(f"  --selftest (in the background since phase 26; waited "
+    print(f"  --selftest (in the background since phase 29; waited "
           f"{wait_s:.1f} s): {got_line}")
     need(selftest.returncode == 0 and json.loads(got_line) == want,
          "import_tf --selftest failed")
-    return {"write_s": write_s, "import_s": import_s, "max_levels": levels,
-            "selftest": want["selftest"]}
+    return {"write_s": res["write_s"], "import_s": res["import_s"],
+            "max_levels": levels, "selftest": want["selftest"]}
 
 
 # ----------------------------------------------------------------------
@@ -3470,26 +3586,39 @@ def run_fresh(card: str, fn: str, timeout: int) -> dict:
     profiler drops kernels from short traces (PERF.md section 7), which
     phase 29 counts, and phase 32 needs the card's memory to itself."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", FRESH_CHILD, fn, card],
-                          cwd=REPO, env=repo_env(), capture_output=True,
-                          text=True, timeout=timeout)
-    lines = proc.stdout.strip().splitlines()
-    for ln in lines[:-1]:
-        print(ln)
-    print(f"  {fn} in a fresh process: exit {proc.returncode} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if proc.returncode:
-        print(proc.stderr[-4000:], file=sys.stderr)
-        raise AssertionError(f"{fn} failed")
-    return json.loads(lines[-1])
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen([sys.executable, "-u", "-c", FRESH_CHILD, fn,
+                                 card], cwd=REPO, env=repo_env(),
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+        timer = threading.Timer(timeout, proc.kill)
+        timer.start()
+        # shown as it comes, one line behind: the last line is the result
+        last = None
+        try:
+            for ln in proc.stdout:
+                if last is not None:
+                    print(last, end="", flush=True)
+                last = ln
+            proc.wait()
+        finally:
+            timer.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        print(f"  {fn} in a fresh process: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if proc.returncode:
+            err.seek(0)
+            print((last or "") + err.read()[-4000:], file=sys.stderr)
+            raise AssertionError(f"{fn} failed")
+    return json.loads(last)
 
 
 def graphs_phase(card: str, dev) -> dict:
-    """Phase 29: ``--scan_steps`` and the fixed-shape forward as CUDA
-    graphs: each step cell's gate (``step_graph_gate``) and its loop
-    eager beside the graph (``loop_timing``), the cycle step also at b=2
-    and 4.  The forward graphs (``forward_graph_gate``) run after it in a
-    process of their own, so that their profiler windows come early in a
+    """Phase 29's step cells as CUDA graphs (``--scan_steps``): each
+    cell's gate (``step_graph_gate``) and its loop eager beside the graph
+    (``loop_timing``); ``graphs_hist_phases`` runs it first in its
     process."""
     out = {"steps": {}, "timing": {}}
     for label, (cfg, sites) in graph_cases().items():
@@ -3503,14 +3632,18 @@ def graphs_phase(card: str, dev) -> dict:
         out["timing"][label] = loop_timing(card, label, tr, ds)
         del tr, ds
         torch.cuda.empty_cache()
-    for b in (1, 2):
-        label = f"cycle_resnet_b{2 * b}"
-        tr, ds = graph_trainer(cycle_cfg(b).replace(
-            save_freq=0, print_freq=1000, data_seed=29), dev, GRAPH_STEPS)
-        out["timing"][label] = loop_timing(card, label, tr, ds)
-        del tr, ds
-        torch.cuda.empty_cache()
     return out
+
+
+def graphs_hist_phases(card: str, dev) -> dict:
+    """Phase 29's step cells (``graphs_phase``), then its forward graphs
+    (``forward_graph_gate``), then phase 33 (``hist_phase``), in one fresh
+    process: the profiler windows that count K1's kernels come in its
+    first minutes, each taken again when a trace drops one
+    (``k1_window``)."""
+    graphs = graphs_phase(card, dev)
+    graphs["forward"] = forward_graph_gate(card, dev)
+    return {"graphs": graphs, "hist": hist_phase(card, dev)}
 
 
 # ----------------------------------------------------------------------
@@ -4054,8 +4187,7 @@ def largest_batch(card: str, label: str, cfg, dev, guess: int = 0) -> tuple:
         try:
             state = tstep.init_state(c, torch.Generator().manual_seed(0),
                                      dev)
-            make = cycle_batch if c.loss_mode == "cycle" else train_batch
-            batch = make(c, b, dev, seed=5)
+            batch = device_batch(c, b, dev, seed=5)
             step_fn = tstep.build_step_fn(c)
             draw_gen = torch.Generator().manual_seed(6)
             for _ in range(2):
@@ -4245,17 +4377,17 @@ def crf_timer_result(proc: subprocess.Popen) -> dict:
 
 
 def hist_phase(card: str, dev) -> dict:
-    """Phase 33, in a fresh process: ``--compat_fake_history``.  Both K1
-    kernels against their plain twins at the discriminator's sites over
-    the history and over [seg; history] (N = 11, 13 at 128x128; 17, 25 at
-    256x512), f32 and bf16, each call on its planned route, the forward's
-    output of its own moments (``k1_vs_plain``'s ``own_moments``); the f32
-    history step card against CPU at 32x64 with a history of 6 earlier
-    fakes (``unet_card_vs_cpu``); the bf16 step cells of HIST_CELLS
-    (``unet_step_cell`` with the history); then the trainer's loop over a
-    resident split of the default config with the flag, eager against the
-    step's graph, bitwise (``step_graph_gate``), and both timed
-    (``loop_timing``)."""
+    """Phase 33, in phase 29's fresh process: ``--compat_fake_history``.
+    Both K1 kernels against their plain twins at the discriminator's
+    sites over the history and over [seg; history] (N = 11, 13 at
+    128x128; 17, 25 at 256x512), f32 and bf16, each call on its planned
+    route, the forward's output of its own moments (``k1_vs_plain``'s
+    ``own_moments``); the f32 history step card against CPU at 32x64
+    with a history of 6 earlier fakes (``unet_card_vs_cpu``); the bf16
+    step cells of HIST_CELLS (``unet_step_cell`` with the history); then
+    the trainer's loop over a resident split of the default config with
+    the flag, eager against the step's graph, bitwise
+    (``step_graph_gate``), and both timed (``loop_timing``)."""
     from sggan_tpu_torch.config import Config
     from sggan_tpu_torch.ops import cuda_in
     phase("33 --compat_fake_history (main path): K1 at the history's "
@@ -4466,8 +4598,8 @@ def hist_cli_phase(card: str, dev, work: str, root: str, crf_big,
 
 def recon_start(work: str, root: str) -> subprocess.Popen:
     """Phase 35's ``python -m sggan_tpu_torch.cycle_recon_eval`` on phase
-    25's checkpoint, trainB as the B side, started beside phase 28 (which
-    checks values only); its output goes to a file of ``work``."""
+    25's checkpoint, trainB as the B side, started beside phase 26 (which
+    checks values); its output goes to a file of ``work``."""
     log = open(os.path.join(work, "recon.log"), "w")
     try:
         return subprocess.Popen(
@@ -4488,7 +4620,7 @@ def recon_wait(work: str, proc: subprocess.Popen) -> str:
     with open(os.path.join(work, "recon.log")) as f:
         out = f.read()
     print(f"  python -m sggan_tpu_torch.cycle_recon_eval, phase 25's "
-          f"checkpoint (beside phase 28): exit {proc.returncode}")
+          f"checkpoint (beside phase 26): exit {proc.returncode}")
     for ln in [x for x in out.strip().splitlines()
                if not x.startswith("Processing image")][-8:]:
         print(f"    | {ln}")
@@ -4501,17 +4633,17 @@ def recon_wait(work: str, proc: subprocess.Popen) -> str:
 def probe_recon_phase(card: str, work: str, recon_out: str) -> dict:
     """Phase 35.  ``python -m sggan_tpu_torch.utils.hbm`` in fresh
     processes: the ResNet sggan step at 2048x1024 under ``--remat`` at
-    b=12 doubled to 24 (phase 32: it fits) must fit; at b=64 doubled to
-    128 without it must run out of memory, with the bytes of torch's
-    message parsed.  Then ``cycle_recon_eval``'s output on phase 25's
-    checkpoint (``recon_start``, run beside phase 28): finite scores, both
+    b=2 doubled to 4 must fit (phase 32 finds the largest); at b=64
+    doubled to 128 without it must run out of memory, with the bytes of
+    torch's message parsed.  Then ``cycle_recon_eval``'s output on phase 25's
+    checkpoint (``recon_start``, run beside phase 26): finite scores, both
     strips."""
     base = ["--use_resnet", "--loss_mode", "sggan", "--img_height", "1024",
             "--img_width", "2048", "--segment_class", str(N_CLASS),
             "--probe_kind", "step"]
     probes = {}
-    for label, extra in (("fit", ["--remat", "--batch_size", "12",
-                                  "--probe_items", "12"]),
+    for label, extra in (("fit", ["--remat", "--batch_size", "2",
+                                  "--probe_items", "2"]),
                          ("oom", ["--batch_size", "64", "--probe_items",
                                   "64"])):
         out, dt = run_cli(work, f"the memory probe, {label}", base + extra,
@@ -4845,13 +4977,10 @@ def dp_cli_rank(work: str, dev, resume: str = "0") -> dict:
     if win is not None and win.steps:
         wall_ms = 1e3 * win.seconds / win.steps
         busy = sum(k[0] for k in kernel_times(win.prof, win.steps))
-        # the range's host-side entry (a CUDA run also lists it as a
-        # device annotation, with no CPU time)
-        comm = [e.cpu_time_total / win.steps / 1e3
-                for e in win.prof.key_averages() if e.key == "dp.all_reduce"]
+        comm = range_ms(win.prof, ("dp.all_reduce",), win.steps)
         out.update(step_ms=wall_ms, busy_ms=busy,
                    idle_share=1 - busy / wall_ms,
-                   all_reduce_ms=max(comm) if comm else None,
+                   all_reduce_ms=comm.get("dp.all_reduce"),
                    window_steps=win.steps)
     out["all_reduce_alone"] = dp_all_reduce_alone(tr, dev)
     return out
@@ -4971,8 +5100,8 @@ def dp_train(card: str, dev, work: str, e2e: dict) -> dict:
 
 
 def dp_follow_start(work: str) -> dict:
-    """The rest of phase 36, started together beside phase 28 (which
-    checks values only; none of these is timed): part 1's parity ranks,
+    """The rest of phase 36, started together beside phase 26 (which
+    checks values; none of these is timed): part 1's parity ranks,
     the two-rank ``--continue_train`` of part 2's checkpoint, one
     process's ``--phase test`` of it, and the NCCL attempt."""
     run = os.path.join(work, "dp_cli")
@@ -5055,8 +5184,17 @@ SP_CASES = {
                     dropout_mode="intended", mesh_space=2),
     "cycle_s2": dict(loss_mode="cycle", use_resnet=True,
                      identity_lambda=5.0, mesh_space=2),
+    # the pix2pix pair: batch norm with the moments across ranks, the
+    # plane gathered at depth (the CPU tests' test_torch_spatial_pix2pix*)
+    "p2p_s2": dict(loss_mode="p2p", use_pix2pix=True, use_resnet=False,
+                   dropout_mode="intended", mesh_space=2),
+    "p2p_s2w2": dict(loss_mode="p2p", use_pix2pix=True, use_resnet=False,
+                     dropout_mode="intended", mesh_space=2, mesh_space_w=2),
 }
 SP_LOSS_REL, SP_GRAD_REL = 1e-6, 1e-4
+# the new BN states against one process's (its batch norms' two-pass
+# variance beside the sharded E[x^2] - mean^2)
+SP_BN_TOL = dict(rtol=1e-4, atol=1e-5)
 # part 2: the ResNet sggan CLI at full width, 8 files a step doubled to 16
 # by augmentation (the CLI's default), each rank their 128 x 512 blocks,
 # on phase 16's PNG set; then one step at 512x1024 on a 2 x 2 grid
@@ -5065,6 +5203,13 @@ SP_CLI_ARGS = ["--batch_size", str(SP_CLI_B), "--img_height", str(H),
                "--img_width", str(W), "--loss_mode", "sggan", "--use_resnet",
                "--segment_class", str(N_CLASS), "--compute_dtype",
                "bfloat16", "--max_size", "50", "--data_seed", "19",
+               "--save_freq", "0", "--print_freq", "1", "--host_downscale",
+               "2", "--train_size", str(SP_CLI_TRAIN), "--epoch", "1",
+               "--mesh_space", "2"]
+# and the pix2pix pair in the p2p mode, the same widths and batches
+SP_P2P_ARGS = ["--batch_size", str(SP_CLI_B), "--img_height", str(H),
+               "--img_width", str(W), "--use_pix2pix", "--loss_mode", "p2p",
+               "--compute_dtype", "bfloat16", "--data_seed", "19",
                "--save_freq", "0", "--print_freq", "1", "--host_downscale",
                "2", "--train_size", str(SP_CLI_TRAIN), "--epoch", "1",
                "--mesh_space", "2"]
@@ -5090,7 +5235,9 @@ def sp_sites(cfg) -> int:
     call): the generators' 23 (ResNet) or 15 (U-Net) a call, the patch-
     head D's 3 a call; sggan: one generator call, D in the generator loss
     and over [real; fake]; cycle: 4 generator calls (6 with the identity
-    term) and 4 D calls."""
+    term) and 4 D calls; none for the pix2pix pair (batch norm)."""
+    if cfg.use_pix2pix:
+        return 0
     g = 23 if cfg.use_resnet else 15
     if cfg.loss_mode == "cycle":
         return (4 + 2 * bool(cfg.identity_lambda)) * g + 4 * 3
@@ -5192,8 +5339,8 @@ def sp_rank(job: str, work: str, *args: str) -> int:
     distributed.initialize(backend=os.environ.get("SP_BACKEND", "gloo"))
     dev = distributed.device("cuda")
     try:
-        res = {"parity": sp_parity_rank, "cli": sp_cli_rank,
-               "wide": sp_wide_rank}[job](work, dev, *args)
+        res = {"parity": sp_parity_rank, "cli": sp_cli_runs,
+               "parity_wide": sp_parity_wide}[job](work, dev, *args)
     finally:
         dist.barrier()
         distributed.shutdown()
@@ -5245,18 +5392,61 @@ def sp_parity_rank(work: str, dev) -> dict:
                  for o, opt in (("g", st.g_opt), ("d", st.d_opt))
                  for k, v in opt.mu.items()}
         torch.save({"losses": {k: v.item() for k, v in m.items()},
-                    "grads": grads, "split": split, "one_card": counts},
+                    "grads": grads, "split": split, "one_card": counts,
+                    "bn": sp_bn(st)},
                    os.path.join(work, f"sp_{name}_rank{r}.pt"))
         errs = [sp_k1_vs_plain(site, grid, dev, seed=370 + 10 * r + i)
                 for i, site in enumerate(sites)]
         out[name] = {"split_per_step": split, "one_card": counts,
-                     "sites": len(sites),
-                     "fwd_err": max(e[0] for e in errs),
-                     "dx_err": max(e[1] for e in errs),
-                     "dgb_rel": max(e[2] for e in errs),
-                     "f32_fwd_err": max(e[0] for e, s in zip(errs, sites)
-                                        if s[1] == torch.float32)}
+                     "sites": len(sites)}
+        if errs:  # the pix2pix pair has no K1 site
+            out[name].update(
+                fwd_err=max(e[0] for e in errs),
+                dx_err=max(e[1] for e in errs),
+                dgb_rel=max(e[2] for e in errs),
+                f32_fwd_err=max(e[0] for e, s in zip(errs, sites)
+                                if s[1] == torch.float32))
     return out
+
+
+def sp_bn(st) -> dict:
+    """Both nets' BN moving stats of a state by name, on the host ({} for
+    the instance-norm nets)."""
+    return {f"{n}.{k}.{s}": t.detach().float().cpu()
+            for n, bn in (("gen", st.gen_bn), ("disc", st.disc_bn))
+            for k, v in bn.items() for s, t in v.items()}
+
+
+def sp_grid_of(cfg, rank: int):
+    """A stand-in ``mesh.Grid`` of ``rank`` in ``cfg``'s layout without
+    groups: what a rank's draws read (its place and the sizes)."""
+    from sggan_tpu_torch.parallel import mesh
+    D, S, Wn = cfg.mesh_data, cfg.mesh_space, cfg.mesh_space_w
+    edge = mesh.Axis(None, None, None)
+    return mesh.Grid(D, S, Wn, rank, *mesh.coords(rank, S, Wn), None, None,
+                     edge, edge, None)
+
+
+def sp_p2p_masks(cfg, g1, sizes) -> tuple:
+    """The pix2pix generator's masks of part 1 on the whole plane: each
+    rank's (``sp_dropout_masks`` from the ranks' seed), a block's put
+    together where it runs sharded, its data rows' stacked where it runs
+    replicated."""
+    from sggan_tpu_torch.parallel import mesh
+    from sggan_tpu_torch.parallel.spatial_step import sp_dropout_masks
+    D, S, Wn = sizes
+    ranks = [sp_dropout_masks(cfg, sp_grid_of(cfg, r), g1,
+                              torch.Generator().manual_seed(12), SP_B_ROW)
+             for r in range(D * S * Wn)]
+    out = []
+    for i, shape in enumerate(g1.drop_shapes(SP_B_ROW, *cfg.image_size)):
+        if tuple(ranks[0][i].shape) == tuple(shape):  # replicated
+            out.append(torch.cat([ranks[mesh.rank_of(d, 0, 0, S, Wn)][i]
+                                  for d in range(D)]))
+        else:
+            out.append(torch.from_numpy(sp_assemble(
+                [m[i].numpy() for m in ranks], sizes)))
+    return tuple(out)
 
 
 def sp_parity_check(card: str, dev, work: str, ranks: dict) -> dict:
@@ -5290,7 +5480,9 @@ def sp_parity_check(card: str, dev, work: str, ranks: dict) -> dict:
             shapes = {"fake": (*one.image_size, 3),
                       "mask": (*one.mask_hw, one.segment_class)}
         gen, disc = gen.to(dev), disc.to(dev)
-        st = tstep.TrainState(gen, {}, disc, {}, tstep.adam_init(gen),
+        bn = ({}, {}) if cycle else (gen.init_bn_state(dev),
+                                     disc.init_bn_state(dev))
+        st = tstep.TrainState(gen, bn[0], disc, bn[1], tstep.adam_init(gen),
                               tstep.adam_init(disc),
                               tpool.pool_init(cfg.max_size * sizes[0],
                                               shapes, torch.float32, dev),
@@ -5301,7 +5493,9 @@ def sp_parity_check(card: str, dev, work: str, ranks: dict) -> dict:
                                  cfg.max_size * sizes[0])
         masks = None
         g1 = gen["a2b"] if cycle else gen
-        if g1.drop_rate and cfg.dropout_mode != "keras_quirk":
+        if cfg.use_pix2pix and cfg.dropout_mode != "keras_quirk":
+            masks = to_dev(sp_p2p_masks(cfg, g1, sizes), dev)
+        elif g1.drop_rate and cfg.dropout_mode != "keras_quirk":
             mask_gen = torch.Generator().manual_seed(12)
             shards = [dropout_masks(mask_gen, g1.drop_shapes(
                 SP_B_ROW, cfg.image_height // cfg.mesh_space,
@@ -5311,10 +5505,26 @@ def sp_parity_check(card: str, dev, work: str, ranks: dict) -> dict:
                 [s[i].numpy() for s in shards], sizes)) for i in range(3)),
                 dev)
         mod = tcycle if cycle else tstep
-        m, g_grads, d_grads = mod.losses_and_grads(one, st, batch, draws,
-                                                   masks)[:3]
+        one_out = mod.losses_and_grads(one, st, batch, draws, masks)
+        m, g_grads, d_grads = one_out[:3]
         saved = [torch.load(os.path.join(work, f"sp_{name}_rank{r}.pt"))
                  for r in range(world)]
+        # the new BN states (one data row: the ranks' moments the plane's)
+        bn_want = sp_bn(st._replace(gen_bn=one_out[4][0],
+                                    disc_bn=one_out[4][1])) \
+            if cfg.use_pix2pix else {}
+        need(saved[0]["bn"].keys() == bn_want.keys(),
+             f"sp {name}: the BN states' names")
+        worst_bn = 0.0
+        for k, v in bn_want.items():
+            d = (saved[0]["bn"][k] - v).abs()
+            need(bool((d <= SP_BN_TOL["atol"]
+                       + SP_BN_TOL["rtol"] * v.abs()).all()),
+                 f"sp {name}: the new BN state {k} against one process")
+            worst_bn = max(worst_bn, d.max().item())
+            for sv in saved[1:]:
+                need(torch.equal(sv["bn"][k], saved[0]["bn"][k]),
+                     f"sp {name}: the ranks' BN states {k} differ")
         worst_loss = max(abs(saved[0]["losses"][k] - m[k].item())
                          / abs(m[k].item()) for k in m)
         worst_grad = 0.0
@@ -5339,7 +5549,10 @@ def sp_parity_check(card: str, dev, work: str, ranks: dict) -> dict:
               f"against one process on the whole plane; K1 split calls a "
               f"step per rank {splits[0]} ({sites} sites), one-card K1 "
               f"{saved[0]['one_card']}; ranks' gradients bitwise equal; "
-              f"split vs twin at the ranks' sites: {ranks[name]}")
+              + (f"both nets' new BN states max |diff| {worst_bn:.3g} "
+                 f"(limit {SP_BN_TOL}), bitwise equal on the ranks; "
+                 if bn_want else "")
+              + f"split vs twin at the ranks' sites: {ranks[name]}")
         need(worst_loss <= SP_LOSS_REL and worst_grad <= SP_GRAD_REL,
              f"sp {name}: the ranks disagree with one process")
         need(all(s == want_split for s in splits)
@@ -5350,6 +5563,8 @@ def sp_parity_check(card: str, dev, work: str, ranks: dict) -> dict:
         res[name] = {"loss_max_rel": worst_loss, "grad_max_rel": worst_grad,
                      "k1_split_per_rank_per_step": splits[0],
                      "sites_check": ranks[name]}
+        if bn_want:
+            res[name]["bn_max_abs"] = worst_bn
     return res
 
 
@@ -5363,22 +5578,44 @@ def sp_assemble(blocks: list, sizes) -> np.ndarray:
         for s in range(S)], axis=1) for d in range(D)], axis=0)
 
 
-def sp_cli_rank(work: str, dev, resume: str = "0") -> dict:
+def sp_cli_runs(work: str, dev, resume: str = "0",
+                nets: str = "resnet") -> dict:
+    """Part 2's CLI runs of ``nets`` ("resnet", "p2p", comma-separated)
+    one after the other in this rank's process, each ``sp_cli_rank``'s:
+    {net: its numbers}.  The later run's process is the earlier's, so it
+    starts no process and joins no group of its own."""
+    import gc
+    out = {}
+    for n in nets.split(","):
+        out[n] = sp_cli_rank(work, dev, resume, n)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_cli_rank(work: str, dev, resume: str = "0",
+                nets: str = "resnet") -> dict:
     """Part 2 in one rank: ``sggan_tpu_torch.main --mesh_space 2`` trains
-    (or resumes) the full-width ResNet sggan run, with a profiler window
-    of 2 steps; returns this rank's losses, K1's calls, the halo and
-    moments traffic a step, the window's numbers and its peak memory; in
-    the first run also K1's split passes against the twin at every site
-    of the CLI's steps (``sp_k1_vs_plain``)."""
+    (or resumes) the full-width ResNet sggan run (``nets`` "p2p": the
+    pix2pix pair's p2p run), with a profiler window of 2 steps; returns
+    this rank's losses, a digest of its state (the pool aside), K1's
+    calls, the halo, moments and gather traffic a step, the window's
+    numbers and its peak memory; in the first run also K1's split passes
+    against the twin at every site of the CLI's steps
+    (``sp_k1_vs_plain``)."""
+    import hashlib
+
     from sggan_tpu_torch import main as tmain
     from sggan_tpu_torch.ops import cuda_in
     from sggan_tpu_torch.ops import norm as tnorm
     from sggan_tpu_torch.parallel import spatial
+    from sggan_tpu_torch.train.step import state_tensors
     from sggan_tpu_torch.train.trainer import Trainer
 
     r = torch.distributed.get_rank()
-    run = os.path.join(work, "sp_cli")
-    argv = ["--phase", "train", *SP_CLI_ARGS,
+    run = os.path.join(work, "sp_cli" if nets == "resnet" else "sp_p2p")
+    argv = ["--phase", "train",
+            *(SP_CLI_ARGS if nets == "resnet" else SP_P2P_ARGS),
             "--dataset_dir", os.path.join(work, "datasets", "city"),
             "--checkpoint_dir", os.path.join(run, "checkpoint"),
             *(x for d in ("test", "sample", "log", "profile")
@@ -5404,24 +5641,33 @@ def sp_cli_rank(work: str, dev, resume: str = "0") -> dict:
     sites = []
     sp_reset()
     before = (spatial.halo_bytes, spatial.halo_calls, tnorm.moments_bytes,
-              tnorm.moments_calls)
+              tnorm.moments_calls, spatial.gather_bytes, spatial.gather_calls)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    with sp_site_log(sites):
-        tmain.main(argv)
+    try:
+        with sp_site_log(sites):
+            tmain.main(argv)
+    finally:
+        Trainer.train = train
     wall = time.perf_counter() - t0
     counts, _ = read_k1()
     split = dict(cuda_in.sp_launches)
     tr, last = runs[-1]
     steps = SP_CLI_TRAIN // SP_CLI_B
     after = (spatial.halo_bytes, spatial.halo_calls, tnorm.moments_bytes,
-             tnorm.moments_calls)
+             tnorm.moments_calls, spatial.gather_bytes, spatial.gather_calls)
     per = [(a - b) / steps for a, b in zip(after, before)]
+    digest = hashlib.sha256(b"".join(
+        t.detach().float().cpu().numpy().tobytes()
+        for k, t in sorted(state_tensors(tr.state).items())
+        if not k.startswith("pool."))).hexdigest()
     out = {"rank": r, "step": tr.state.step, "gen_loss": last["gen_loss"],
+           "state_digest": digest,
            "k1_one_card": counts, "k1_split": split,
            "seconds": wall, "halo_bytes_per_step": per[0],
            "halo_calls_per_step": per[1], "moments_bytes_per_step": per[2],
            "moments_calls_per_step": per[3],
+           "gather_bytes_per_step": per[4], "gather_calls_per_step": per[5],
            "step_peak_gib": max(p for p, _ in peaks) / 2 ** 30,
            "step_peak_above_gib": max(p - b for p, b in peaks) / 2 ** 30,
            "run_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
@@ -5429,19 +5675,15 @@ def sp_cli_rank(work: str, dev, resume: str = "0") -> dict:
     if win is not None and win.steps:
         wall_ms = 1e3 * win.seconds / win.steps
         busy = sum(k[0] for k in kernel_times(win.prof, win.steps))
-        # each range's host-side entry (a CUDA run also lists it as a
-        # device annotation, with no CPU time)
-        rng = {}
-        for e in win.prof.key_averages():
-            if e.key in ("sp.halo", "sp.moments", "dp.all_reduce"):
-                rng[e.key] = max(rng.get(e.key, 0.0),
-                                 e.cpu_time_total / win.steps / 1e3)
+        rng = range_ms(win.prof, ("sp.halo", "sp.moments", "sp.gather",
+                                  "dp.all_reduce"), win.steps)
         out.update(step_ms=wall_ms, busy_ms=busy,
                    idle_share=1 - busy / wall_ms, window_steps=win.steps,
                    halo_ms=rng.get("sp.halo"),
                    moments_ms=rng.get("sp.moments"),
+                   gather_ms=rng.get("sp.gather"),
                    all_reduce_ms=rng.get("dp.all_reduce"))
-    if resume == "1":
+    if resume == "1" or not sites:  # the pix2pix pair has no K1 site
         return out
     # K1's split passes against the twin at every site the CLI's steps
     # visited (bf16, this rank's block, the plane's count), the moments
@@ -5454,6 +5696,14 @@ def sp_cli_rank(work: str, dev, resume: str = "0") -> dict:
         "fwd_err": max(e[0] for e in errs), "dx_err": max(e[1] for e in errs),
         "dgb_rel": max(e[2] for e in errs)}
     return out
+
+
+def sp_parity_wide(work: str, dev) -> dict:
+    """The 4-rank job: part 1's cases of this world size, then the 2 x 2
+    grid's step at 512x1024 in the same processes."""
+    parity = sp_parity_rank(work, dev)
+    torch.cuda.empty_cache()
+    return {"parity": parity, "wide": sp_wide_rank(work, dev)}
 
 
 def sp_wide_rank(work: str, dev) -> dict:
@@ -5486,36 +5736,47 @@ def sp_wide_rank(work: str, dev) -> dict:
                                - before) / 2 ** 30}
 
 
-def one_process_peak(dev, h: int, w: int, b: int) -> float:
+def one_process_peak(dev, h: int, w: int, b: int,
+                     pix2pix: bool = False) -> float:
     """The peak GiB above what was resident before them of two
-    one-process ResNet sggan steps (the patch-head D, bf16) on the whole
-    plane at the same global batch (this long process holds other
-    phases' tensors: the absolute peak would count them)."""
+    one-process ResNet sggan steps (the patch-head D, bf16; with
+    ``pix2pix`` the pix2pix pair's p2p steps with their dropout masks) on
+    the whole plane at the same global batch (this long process holds
+    other phases' tensors: the absolute peak would count them)."""
     from sggan_tpu_torch.config import Config
     from sggan_tpu_torch.train import pool as tpool
     from sggan_tpu_torch.train import step as tstep
-    cfg = Config(image_height=h, image_width=w, batch_size=b,
-                 use_resnet=True, loss_mode="sggan", segment_class=N_CLASS,
-                 compute_dtype="bfloat16", max_size=50)
-    g0 = torch.Generator().manual_seed(0)
-    gen = tstep.new_generator(cfg, g0).to(dev)
-    disc = tstep.new_discriminator(cfg, g0, head="patch").to(dev)
-    st = tstep.TrainState(gen, {}, disc, {}, tstep.adam_init(gen),
-                          tstep.adam_init(disc), tpool.pool_init(
-                              50, {"fake": (h, w, 3),
-                                   "mask": (*cfg.mask_hw, N_CLASS)},
-                              torch.bfloat16, dev), 0, None)
+    if pix2pix:
+        cfg = Config(image_height=h, image_width=w, batch_size=b,
+                     use_pix2pix=True, loss_mode="p2p",
+                     compute_dtype="bfloat16")
+        st = tstep.init_state(cfg, torch.Generator().manual_seed(0), dev)
+    else:
+        cfg = Config(image_height=h, image_width=w, batch_size=b,
+                     use_resnet=True, loss_mode="sggan",
+                     segment_class=N_CLASS, compute_dtype="bfloat16",
+                     max_size=50)
+        g0 = torch.Generator().manual_seed(0)
+        gen = tstep.new_generator(cfg, g0).to(dev)
+        disc = tstep.new_discriminator(cfg, g0, head="patch").to(dev)
+        st = tstep.TrainState(gen, {}, disc, {}, tstep.adam_init(gen),
+                              tstep.adam_init(disc), tpool.pool_init(
+                                  50, {"fake": (h, w, 3),
+                                       "mask": (*cfg.mask_hw, N_CLASS)},
+                                  torch.bfloat16, dev), 0, None)
     batch = train_batch(cfg, b, dev, 7)
     step = tstep.build_step_fn(cfg)
+    mask_gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
     for _ in range(2):
         st, m = step(st, batch, SP_LR, tpool.pool_draws(torch.Generator(), b,
-                                                        50))
+                                                        50),
+                     tstep.dropout_masks(cfg, st.gen_params, mask_gen, b))
     torch.cuda.synchronize()
     peak = (torch.cuda.max_memory_allocated(dev) - before) / 2 ** 30
-    del st, gen, disc, batch
+    del st, batch
     torch.cuda.empty_cache()
     return peak
 
@@ -5569,7 +5830,22 @@ def sp_k1_times(card: str, dev) -> dict:
     return out
 
 
-def sp_train(card: str, dev, work: str) -> dict:
+def sp_cli_job(work: str) -> tuple:
+    """Part 2's CLI runs in one pair of gloo ranks sharing the card: the
+    ResNet sggan run, then the pix2pix p2p run in the same processes;
+    returns the ranks' (exit code, stdout, stderr) and their last lines
+    parsed."""
+    outs = dp_wait(dp_start("cli", work, "0", "resnet,p2p", child=SP_CHILD),
+                   "train 1 epoch over 2 gloo ranks (python -m "
+                   "sggan_tpu_torch.main --mesh_space 2), then the same "
+                   "with --use_pix2pix --loss_mode p2p in the same two "
+                   "processes", 900)
+    for o in outs:
+        need("imported JAX modules: []" in o[1], "an sp rank imported JAX")
+    return outs, [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+
+
+def sp_train(card: str, dev, work: str, job: tuple) -> dict:
     """Phase 37, part 2 (main path): the full-width ResNet sggan CLI with
     ``--mesh_space 2`` over two gloo ranks sharing the card, alone on it:
     equal finite losses, K1's split calls a step per rank those of its
@@ -5579,12 +5855,8 @@ def sp_train(card: str, dev, work: str) -> dict:
     peak beside one process's peak at the same global batch."""
     run = os.path.join(work, "sp_cli")
     steps = SP_CLI_TRAIN // SP_CLI_B
-    outs = dp_wait(dp_start("cli", work, "0", child=SP_CHILD),
-                   "train 1 epoch over 2 gloo ranks (python -m "
-                   "sggan_tpu_torch.main --mesh_space 2)", 600)
-    res = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
-    for o in outs:
-        need("imported JAX modules: []" in o[1], "an sp rank imported JAX")
+    outs, both = job
+    res = [x["resnet"] for x in both]
     losses = [x["gen_loss"] for x in res]
     need(math.isfinite(losses[0]) and losses[0] == losses[1],
          f"the ranks' epoch losses {losses}")
@@ -5654,38 +5926,142 @@ def sp_train(card: str, dev, work: str) -> dict:
                                          ("bwd", "bwd_apply"))}}
 
 
+def sp_p2p_train(card: str, dev, work: str, job: tuple) -> dict:
+    """Phase 37, part 2's pix2pix half (main path): ``python -m
+    sggan_tpu_torch.main --mesh_space 2 --use_pix2pix --loss_mode p2p`` at
+    full width over two gloo ranks sharing the card, alone on it: equal
+    finite losses, each rank's whole state bitwise equal (both nets' BN
+    states in it), no K1 call (batch norm), only rank 0 printing and
+    writing, the checkpoint with both nets' BN states and the p2p step's
+    one-slot pool in the global layout; each rank's step, busy, idle,
+    gather, halo and moments traffic and peak beside one process's peak
+    at the same global batch."""
+    from sggan_tpu_torch.models.discriminator_pix2pix import (
+        DiscriminatorPix2pix)
+    from sggan_tpu_torch.models.generator_pix2pix import GeneratorPix2pix
+    run = os.path.join(work, "sp_p2p")
+    steps = SP_CLI_TRAIN // SP_CLI_B
+    outs, both = job
+    res = [x["p2p"] for x in both]
+    losses = [x["gen_loss"] for x in res]
+    need(math.isfinite(losses[0]) and losses[0] == losses[1],
+         f"the pix2pix ranks' epoch losses {losses}")
+    need(all(x["step"] == steps for x in res), "the pix2pix ranks' steps")
+    need(res[0]["state_digest"] == res[1]["state_digest"],
+         "the pix2pix ranks' states (parameters, BN states, Adam, EMA) "
+         "differ")
+    need(" [*] spatially sharded over 2 ranks (gloo)" in outs[0][1]
+         and "Epoch: [ 0]" in outs[0][1] and "Epoch:" not in outs[1][1],
+         "only the coordinator prints the run's lines")
+    ck = os.path.join(run, "checkpoint", "city")
+    saved = {part: torch.load(os.path.join(ck, part, "cp-0000.pt"),
+                              weights_only=True)
+             for part in ("gen", "disc", "train")}
+    gen_bn = set(GeneratorPix2pix(image_size=H)._bn_ch)
+    disc_bn = set(DiscriminatorPix2pix()._bn_ch)
+    need(saved["train"]["step"] == steps
+         and tuple(saved["train"]["pool_buffer"]["fake"].shape)
+         == (1, H, W, 3)
+         and set(saved["gen"]["bn"]) == gen_bn
+         and set(saved["disc"]["bn"]) == disc_bn,
+         "the pix2pix checkpoint's step, pool layout or BN states")
+    need(all(os.path.isfile(os.path.join(run, "test0", f"s{i:04d}.png"))
+             for i in range(E2E_TEST)), "rank 0 wrote no eval PNGs")
+    need(not any(os.path.exists(os.path.join(run, f"{d}1"))
+                 for d in ("test", "sample", "log")),
+         "rank 1 wrote eval PNGs, samples or tfevents")
+    zero = dict.fromkeys(("stats", "apply", "bwd_stats", "bwd_apply"), 0)
+    need(all(x["k1_split"] == zero
+             and x["k1_one_card"] == {"fwd": 0, "bwd": 0} for x in res),
+         f"K1 ran in the pix2pix run: {[x['k1_split'] for x in res]}")
+    one_peak = one_process_peak(dev, H, W, 2 * SP_CLI_B, pix2pix=True)
+    for x in res:
+        need("step_ms" in x and x["moments_ms"] and x["halo_ms"]
+             and x["gather_ms"],
+             f"rank {x['rank']}: no profiler window with the collectives")
+        print(f"  [{card}] pix2pix rank {x['rank']}, two gloo ranks sharing "
+              f"one card, not a scaling number: step {x['step_ms']:.3f} ms "
+              f"(b={SP_CLI_B} doubled to {2 * SP_CLI_B}, a block of "
+              f"{H // 2} x {W} a rank), device busy {x['busy_ms']:.3f} ms, "
+              f"idle {100 * x['idle_share']:.1f}% (profiler, "
+              f"{x['window_steps']} steps); gathers "
+              f"{x['gather_bytes_per_step']:.0f} bytes in "
+              f"{x['gather_calls_per_step']:g} collectives a step (the "
+              f"backward's reductions included), sp.gather "
+              f"{x['gather_ms']:.3f} ms; halos "
+              f"{x['halo_bytes_per_step']:.0f} bytes in "
+              f"{x['halo_calls_per_step']:g} exchanges, sp.halo "
+              f"{x['halo_ms']:.3f} ms; BN moments "
+              f"{x['moments_bytes_per_step']:.0f} bytes in "
+              f"{x['moments_calls_per_step']:g} all-reduces, sp.moments "
+              f"{x['moments_ms']:.3f} ms; gradients dp.all_reduce "
+              f"{x['all_reduce_ms']} ms; a step's peak allocated above what "
+              f"was resident before it {x['step_peak_above_gib']:.3f} GiB "
+              f"(one process, same batch, whole plane: {one_peak:.3f} GiB); "
+              f"absolute {x['step_peak_gib']:.3f}, the whole run's "
+              f"{x['run_peak_gib']:.3f} GiB; state digest "
+              f"{x['state_digest'][:16]} on both ranks")
+    return {"ranks": res, "one_process_peak_gib": one_peak}
+
+
 def sp_follow_start(work: str) -> dict:
-    """The rest of phase 37, started together beside phase 28 (none of it
+    """The rest of phase 37, started together beside phase 26 (none of it
     timed): part 1's ranks (2 and 4, two jobs), the 2-rank
     ``--continue_train`` of part 2's checkpoint, the 2 x 2 grid's step at
     512x1024 (each rank's peak is its own process's)."""
-    return {"resume": dp_start("cli", work, "1", child=SP_CHILD),
+    run = os.path.join(work, "sp_p2p")
+    test = subprocess.Popen(
+        [sys.executable, "-m", "sggan_tpu_torch.main", "--phase", "test",
+         *SP_P2P_ARGS, "--dataset_dir", os.path.join(work, "datasets",
+                                                     "city"),
+         "--checkpoint_dir", os.path.join(run, "checkpoint"), "--test_dir",
+         os.path.join(run, "test_one")], cwd=run, env=repo_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"resume": dp_start("cli", work, "1", "resnet,p2p",
+                               child=SP_CHILD),
+            "p2p_test": [test],
             "parity2": dp_start("parity", work, child=SP_CHILD),
-            "parity4": dp_start("parity", work, child=SP_CHILD, world=4),
-            "wide": dp_start("wide", work, child=SP_CHILD, world=4)}
+            "parity4": dp_start("parity_wide", work, child=SP_CHILD,
+                                world=4)}
 
 
 def sp_follow_check(card: str, dev, work: str, procs: dict) -> dict:
     """Waits for ``sp_follow_start``'s processes and holds them."""
     steps = SP_CLI_TRAIN // SP_CLI_B
     outs = dp_wait(procs["resume"], "--continue_train 1 epoch over 2 gloo "
-                   "ranks (--mesh_space 2)", 600)
-    again = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
-    need(" [*] Load SUCCESS" in outs[0][1]
+                   "ranks (--mesh_space 2), then the pix2pix run's", 900)
+    both = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+    again = [x["resnet"] for x in both]
+    p2p_again = [x["p2p"] for x in both]
+    need(outs[0][1].count(" [*] Load SUCCESS") == 2
          and all(x["step"] == 2 * steps for x in again),
          "the spatial --continue_train did not resume at the saved step")
+    need(all(x["step"] == 2 * steps for x in p2p_again)
+         and p2p_again[0]["state_digest"] == p2p_again[1]["state_digest"]
+         and math.isfinite(p2p_again[0]["gen_loss"]),
+         "the pix2pix --continue_train did not resume at the saved step "
+         "with the ranks' states equal")
+    test = dp_wait(procs["p2p_test"], "--phase test of the pix2pix "
+                   "spatial checkpoint in one process", 600)
+    test_dir = os.path.join(work, "sp_p2p", "test_one")
+    need(" [*] Load SUCCESS" in test[0][1]
+         and all(os.path.isfile(os.path.join(test_dir, f"s{i:04d}.png"))
+                 for i in range(E2E_TEST)),
+         "the one-process --phase test of the pix2pix spatial checkpoint")
     ranks = {}
     for label, procs_ in (("2", procs["parity2"]), ("4", procs["parity4"])):
-        got = dp_wait(procs_, f"part 1, the parity ranks ({label})", 600)
+        got = dp_wait(procs_, f"part 1, the parity ranks ({label})"
+                      + (f", then one step at {SP_WIDE[0]}x{SP_WIDE[1]} "
+                         "on a 2 x 2 grid" if label == "4" else ""), 600)
         for o in got:
             need("imported JAX modules: []" in o[1],
                  "an sp rank imported JAX")
-        for name, v in json.loads(got[0][1].strip().splitlines()[-1]
-                                  ).items():
+        last = [json.loads(o[1].strip().splitlines()[-1]) for o in got]
+        if label == "4":
+            wres = [x["wide"] for x in last]
+            last = [x["parity"] for x in last]
+        for name, v in last[0].items():
             ranks[name] = v
-    wide = dp_wait(procs["wide"], f"one step at {SP_WIDE[0]}x{SP_WIDE[1]} "
-                   "on a 2 x 2 grid", 600)
-    wres = [json.loads(o[1].strip().splitlines()[-1]) for o in wide]
     need(all(math.isfinite(v) for x in wres for v in x["losses"].values()),
          "the 2 x 2 grid's losses")
     one = one_process_peak(dev, SP_WIDE[0], SP_WIDE[1], SP_WIDE[2])
@@ -5695,8 +6071,8 @@ def sp_follow_check(card: str, dev, work: str, procs: dict) -> dict:
           f"GiB (absolute {[round(x['peak_gib'], 3) for x in wres]}) "
           f"against one process's {one:.3f} GiB; losses "
           f"{wres[0]['losses']}")
-    return {"resume": again, "parity": sp_parity_check(card, dev, work,
-                                                       ranks),
+    return {"resume": again, "p2p_resume": p2p_again,
+            "parity": sp_parity_check(card, dev, work, ranks),
             "wide": {"ranks": wres, "one_process_peak_gib": one}}
 
 
@@ -5706,10 +6082,12 @@ def sp_nccl(card: str, work: str) -> dict:
     if n < 2:
         print(f"  nccl: not run, {n} card")
         return {"nccl": f"not run, {n} card"}
-    outs = dp_wait(dp_start("cli", work, "1", child=SP_CHILD, nccl=True,
+    outs = dp_wait(dp_start("cli", work, "1", "resnet", child=SP_CHILD,
+                            nccl=True,
                             env_extra={"SP_BACKEND": "nccl"}),
                    "--continue_train over 2 NCCL ranks, a card each", 600)
-    res = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+    res = [json.loads(o[1].strip().splitlines()[-1])["resnet"]
+           for o in outs]
     for x in res:
         print(f"  [{card}] NCCL rank {x['rank']}: step "
               f"{x.get('step_ms')} ms, idle {x.get('idle_share')}, halo "
@@ -5729,8 +6107,10 @@ def sp_alone() -> int:
     build_dataset(os.path.join(work, "datasets", "city"), SP_CLI_TRAIN)
     t0 = time.perf_counter()
     phase("37 spatial sharding: gloo ranks on the card")
-    res = sp_train(card, dev, work)
+    job = sp_cli_job(work)
+    res = sp_train(card, dev, work, job)
     res["k1_times"] = sp_k1_times(card, dev)
+    res["p2p"] = sp_p2p_train(card, dev, work, job)
     res.update(sp_follow_check(card, dev, work, sp_follow_start(work)))
     res.update(sp_nccl(card, work))
     shutil.rmtree(work)
@@ -6270,75 +6650,76 @@ def main() -> int:
           "sggan_tpu_torch.main --mesh_space 2 at full width over two gloo "
           "ranks sharing the card; K1's split passes timed")
     t37 = time.perf_counter()
-    sp_res = sp_train(card, dev, work)
+    sp_job = sp_cli_job(work)
+    sp_res = sp_train(card, dev, work, sp_job)
     sp_res["k1_times"] = sp_k1_times(card, dev)
+    sp_res["p2p"] = sp_p2p_train(card, dev, work, sp_job)
     t37 = time.perf_counter() - t37
 
-    selftest = selftest_start(work)  # CPU only: runs beside 26 and 27
+    procs, tf_job = [], None
     try:
+        def follow_start():
+            # the untimed rest of phase 36 (part 1's parity ranks at 32x64,
+            # part 2's resume, test and the NCCL attempt), of phase 37
+            # (part 1, the resumes, the 512x1024 step) and phase 35's
+            # recon eval, beside the rest of phase 26 (after its exports:
+            # both at once crowd the host's 8 cores)
+            started.update(dp=dp_follow_start(work), sp=sp_follow_start(work),
+                           recon=recon_start(work, os.path.join(
+                               work, "datasets", "city")))
+            procs.extend([started["recon"], *(
+                x for v in (*started["dp"].values(),
+                            *started["sp"].values()) for x in v)])
+        started = {}
         phase("26 the exported artifact on the card (main path): python -m "
               "sggan_tpu_torch.serve --export, then --artifact")
         art = artifact_phase(card, dev, work,
-                             os.path.join(work, "datasets", "city"))
-
-        phase("27 the inference cell: the artifact at b=1 and b=16 beside "
-              "the eager forward")
-        cell = inference_cell_phase(card, dev, work, art)
-
-        # the rest of phase 36 (part 1's parity ranks at 32x64, part 2's
-        # resume, test and the NCCL attempt; none timed) beside phase 28,
-        # which checks values only
-        dp_procs = dp_follow_start(work)
-        # and the rest of phase 37 (none timed), and phase 35's recon eval
-        sp_procs = sp_follow_start(work)
-        recon = recon_start(work, os.path.join(work, "datasets", "city"))
-        phase("28 the reference-TF2 import at full width: python -m "
-              "sggan_tpu_torch.utils.import_tf, then the service")
-        tf_imp = tf_import_phase(card, dev, work, selftest)
+                             os.path.join(work, "datasets", "city"),
+                             after_exports=follow_start)
         phase("36 data parallelism, part 1 against one process averaging "
               "both shards, every loss mode at 32x64; part 2's resume and "
               "--phase test; NCCL at world 2")
-        dp_res.update(dp_follow_check(card, dev, work, dp_procs))
+        dp_res.update(dp_follow_check(card, dev, work, started["dp"]))
         phase("37 spatial sharding, part 1 against one process on the "
               "whole plane, the four step cases at 32x64 on 2 and 4 gloo "
               "ranks; part 2's resume; one step at 512x1024 on a 2 x 2 "
               "grid; NCCL")
         t = time.perf_counter()
-        sp_res.update(sp_follow_check(card, dev, work, sp_procs))
+        sp_res.update(sp_follow_check(card, dev, work, started["sp"]))
         sp_res.update(sp_nccl(card, work))
         t37 += time.perf_counter() - t
         print(f"  phase 37: {t37:.1f} s in its own sections (part 1, the "
-              "resume and the 512x1024 step ran beside phase 28)")
-        recon_out = recon_wait(work, recon)
-    finally:
-        for p in (selftest, *([recon] if "recon" in locals() else [])):
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-        for p in (x for v in (
-                {**(dp_procs if "dp_procs" in locals() else {}),
-                 **{"sp_" + k: v for k, v in (
-                     sp_procs if "sp_procs" in locals() else {}).items()}})
-                  .values() for x in v):
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    dp_par = dp_res["parity"]
+              "resume and the 512x1024 step ran beside phase 26)")
+        recon_out = recon_wait(work, started["recon"])
 
-    # the native CRF at 512x1024x34 on the host, beside phases 29-33
-    crf_big = crf_timer_start(CRF_BIG)
-    try:
+        phase("27 the inference cell: the artifact at b=1 and b=16 beside "
+              "the eager forward")
+        cell = inference_cell_phase(card, dev, work, art)
+
+        # on the host beside phases 29 and 33, whose fresh process leaves
+        # the other cores idle: phase 28's bundles and import (the card
+        # briefly; it ends before phase 32 needs the card's memory to
+        # itself), import_tf --selftest and the native CRF at 512x1024x34
+        tf_job = tf_import_start(work)
+        selftest = selftest_start(work)
+        crf_big = crf_timer_start(CRF_BIG)
+        procs += [tf_job, selftest, crf_big]
         phase("29 CUDA graphs (main path): --scan_steps K in every loss "
               "mode, eager beside the graph; the forward graphs")
-        graphs = run_fresh(card, "graphs_phase", 600)
-        graphs["forward"] = run_fresh(card, "forward_graph_gate", 300)
-
-        # phases 30-32 and 33 print their own headers
-        forms = run_fresh(card, "forms_phases", 700)
-        hist = run_fresh(card, "hist_phase", 600)
+        fresh = run_fresh(card, "graphs_hist_phases", 900)
+        graphs, hist = fresh["graphs"], fresh["hist"]
         for d, e in (("fwd", errs), ("bwd", bwd_errs)):
             for dt in (torch.float32, torch.bfloat16):
                 e[dt] = max(e[dt], hist["k1_max_abs_err"][d][str(dt)[6:]])
+        t = time.perf_counter()
+        tf_out = (*tf_job.communicate(timeout=600), tf_job.returncode,
+                  time.perf_counter() - t)
+
+        # phases 30-32 print their own headers
+        forms = run_fresh(card, "forms_phases", 700)
+        phase("28 the reference-TF2 import at full width: python -m "
+              "sggan_tpu_torch.utils.import_tf, then the service")
+        tf_imp = tf_import_phase(card, dev, work, tf_out, selftest)
 
         phase("34 the default CLI with --compat_fake_history --eval_crf "
               f"--scan_steps {HIST_CLI_K} (main path); the native CRF; "
@@ -6347,9 +6728,14 @@ def main() -> int:
                                      os.path.join(work, "datasets", "city"),
                                      crf_big, graphs)
     finally:
-        if crf_big.poll() is None:
-            crf_big.kill()
-            crf_big.communicate()
+        for p in procs:
+            if p.poll() is None:
+                if p is tf_job:  # and its import_tf child
+                    os.killpg(p.pid, signal.SIGKILL)
+                else:
+                    p.kill()
+                p.communicate()
+    dp_par = dp_res["parity"]
 
     phase("35 the memory probe (python -m sggan_tpu_torch.utils.hbm) and "
           "python -m sggan_tpu_torch.cycle_recon_eval")
@@ -6546,7 +6932,7 @@ def main() -> int:
                   "CUDA graph of the step; the ResNet sggan step 256x512 "
                   "b=8 doubled to 16, the default p2p U-Net and the "
                   "pix2pix pair 128x128 b=1 doubled to 2, the ResNet "
-                  "cycle step 256x512 b=4 doubled to 8 (and b=2, 4), bf16; "
+                  "cycle step 256x512 b=4 doubled to 8, bf16; "
                   f"the gate over {GRAPH_STEPS} steps with cuDNN "
                   "deterministic, the times with its default; the forward "
                   "graphs of evaluate.generate",
@@ -6591,13 +6977,16 @@ def main() -> int:
                   "not a scaling number; part 1 the ResNet sggan step at "
                   "data 2 x space 2 and space 2 x wspace 2, the U-Net "
                   "sggan step at space 2 with its shards' masks, the ResNet "
-                  "cycle step at space 2, 32x64, ngf and ndf 4, f32, 2 "
-                  "samples a data row, one step each against one process "
-                  "on the whole plane; part 2 python -m "
+                  "cycle step at space 2, the pix2pix p2p step at space 2 "
+                  "and space 2 x wspace 2 with its masks, 32x64, ngf and "
+                  "ndf 4, f32, 2 samples a data row, one step each against "
+                  "one process on the whole plane; part 2 python -m "
                   "sggan_tpu_torch.main --mesh_space 2, ResNet sggan "
                   f"256x512 bf16 ngf and ndf 64, b={SP_CLI_B} doubled to "
                   f"{2 * SP_CLI_B}, --train_size "
-                  f"{SP_CLI_TRAIN}, 1 epoch and a resume; one step at "
+                  f"{SP_CLI_TRAIN}, 1 epoch and a resume, and the same "
+                  "with --use_pix2pix --loss_mode p2p (p2p), then its "
+                  "one-process --phase test; one step at "
                   f"{SP_WIDE[0]}x{SP_WIDE[1]} b={SP_WIDE[2]} on a 2 x 2 grid",
         **sp_res}}))
     from sggan_tpu_torch.perf_in import EVENT_TIMED
@@ -6620,7 +7009,8 @@ def main() -> int:
             "max_abs_err": max(x["sites_check"][err]
                                for x in sp_res["ranks"]),
             "max_abs_err_f32_part1": max(v["sites_check"][err]
-                                         for v in sp_par.values()),
+                                         for v in sp_par.values()
+                                         if err in v["sites_check"]),
             "ms": kt[f"{d}_ms"], "plain_ms": kt[f"{d}_plain_ms"],
             "bound_ms": kt[f"{d}_bound_ms"], "bound_by": "bytes",
             "library_ms": kt[f"{d}_library_ms"],

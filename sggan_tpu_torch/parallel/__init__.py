@@ -1,6 +1,6 @@
 """Data parallelism and spatial sharding over ``torch.distributed``, one
-rank per card: port of ``sggan_tpu/parallel`` (its pix2pix spatial step
-and multi-host spatial sharding excepted, ROADMAP Queue 1, item 10)."""
+rank per card: port of ``sggan_tpu/parallel``, every step of it (the
+semantic nets' and the pix2pix nets' spatial steps among them)."""
 
 from .mesh import DATA_AXIS
 

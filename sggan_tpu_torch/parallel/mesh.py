@@ -11,18 +11,25 @@ column shard ``w``.
 
 ``grid`` builds that layout's process groups once, every rank making
 every group in the same order: the ``space`` group (same d and w: the H
-halos), the ``wspace`` group (same d and s: the W halos), the plane group
-(same d: the instance-norm moments over both spatial axes) and the world
-(gradients and losses).  The groups are made with ``dist.new_group``:
-the plane group spans two dims of the layout, which a 3-D ``DeviceMesh``
-gives only through its dims' flattening, an API that is private in the
-torch versions the port meets.
+halos and gathers), the ``wspace`` group (same d and s: the W halos and
+gathers), the plane group (same d: the instance-norm and batch-norm
+moments over both spatial axes), the ``data`` group (same s and w: the
+pix2pix nets' batch-norm states, averaged over the data rows) and the
+world (gradients and losses).  The groups are made with
+``dist.new_group``: the plane group spans two dims of the layout, which
+a 3-D ``DeviceMesh`` gives only through its dims' flattening, an API that
+is private in the torch versions the port meets.
 
-What stays refused raises with the title of its open item (ROADMAP
-Queue 1, item 10): "parallel: spatial pix2pix" (the pix2pix nets'
-spatial step, ``batch_norm_sp`` and the gather at depth) and "parallel:
-spatial multi-host" (the spatial ranks of one data row on more than one
-host).
+``check_space`` refuses what the JAX trainer refuses of a grid
+(sggan_tpu/train/trainer.py:55-77), with its errors: a job over several
+hosts whose hosts do not each hold whole data rows of the grid, or has
+one data row, or a batch that the hosts cannot split.  The JAX package
+counts a host's devices (``jax.local_device_count``); the port runs one
+rank a card, so a host's ranks (``LOCAL_WORLD_SIZE``, as torchrun sets
+it) take their place, and the hosts are the world's ranks over a
+host's.  A data-parallel job meets the last two by its own checks
+(``--mesh_data`` is the world size, and the trainer splits the batch
+over it).
 """
 
 from __future__ import annotations
@@ -36,16 +43,6 @@ DATA_AXIS = "data"
 
 T = TypeVar("T")
 
-SPATIAL_P2P_TODO = (
-    "parallel: spatial pix2pix (--mesh_space > 1 with --use_pix2pix: the "
-    "batch norm with moments across shards and the gather at depth of "
-    "sggan_tpu/parallel/spatial.py) is not ported yet (ROADMAP Queue 1, "
-    "item 10); the spatial step runs the semantic nets")
-SPATIAL_MULTIHOST_TODO = (
-    "parallel: spatial multi-host (the spatial ranks of one data row on "
-    "more than one host) is not ported yet (ROADMAP Queue 1, item 10): "
-    "--mesh_space x --mesh_space_w must divide the ranks of a host")
-
 
 def is_spatial(cfg) -> bool:
     """Whether ``cfg`` shards the image plane (``--mesh_space`` or
@@ -54,28 +51,46 @@ def is_spatial(cfg) -> bool:
 
 
 def check_space(cfg, world: int) -> None:
-    """The spatial job ``cfg`` asks for against a world of ``world`` ranks:
-    the pix2pix nets and a data row across hosts raise with their open
-    items' titles, and ``D x S x W`` must be the world size."""
+    """The spatial job ``cfg`` asks for against a world of ``world``
+    ranks: ``D x S x W`` ranks in the world, then the reference's
+    multi-host conditions (``check_hosts``)."""
     if not is_spatial(cfg):
         return
-    if cfg.use_pix2pix:
-        raise NotImplementedError(SPATIAL_P2P_TODO)
-    plane = cfg.mesh_space * cfg.mesh_space_w
-    need = cfg.mesh_data * plane
+    need = cfg.mesh_data * cfg.mesh_space * cfg.mesh_space_w
     if need != world:
         raise ValueError(
             f"--mesh_data {cfg.mesh_data} x --mesh_space {cfg.mesh_space} x "
             f"--mesh_space_w {cfg.mesh_space_w} = {need} ranks must equal "
             f"the world size, {world}: the port runs one rank a card "
             f"(torchrun --nproc_per_node {need} ...)")
-    # torchrun numbers a host's ranks together, so a data row's ranks are
-    # on one host exactly when the plane divides the host's ranks
+    check_hosts(cfg, world)
+
+
+def check_hosts(cfg, world: int) -> None:
+    """The JAX trainer's checks of a spatial job over several hosts
+    (trainer.py:55-77), in its order and words, with a host's ranks
+    (``LOCAL_WORLD_SIZE``) for its local devices: the space grid must
+    divide them (torchrun numbers a host's ranks together, so a data
+    row's ranks are then on one host), ``--mesh_data`` must be above 1,
+    and the batch must divide by the hosts.  Nothing for one host."""
     per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    if per_host % plane:
-        raise NotImplementedError(
-            f"{SPATIAL_MULTIHOST_TODO} ({plane} ranks a data row, "
-            f"{per_host} on this host)")
+    n_proc = world // per_host
+    if n_proc <= 1:
+        return
+    sp_grid = cfg.mesh_space * cfg.mesh_space_w
+    if per_host % sp_grid:
+        raise ValueError(
+            f"multi-host spatial sharding needs the space grid ({sp_grid}) "
+            f"to divide the local device count ({per_host}) so every host "
+            "owns whole data rows of the mesh")
+    if cfg.mesh_data <= 1:
+        raise ValueError("multi-host training needs --mesh_data > 1 (the "
+                         "data axis spans hosts)")
+    if cfg.batch_size % n_proc:
+        raise ValueError(
+            f"batch_size={cfg.batch_size} must divide by "
+            f"process_count={n_proc} (each process feeds its contiguous "
+            "slice of the global batch)")
 
 
 class Axis(NamedTuple):
@@ -106,8 +121,9 @@ class Grid(NamedTuple):
     w: int
     world: object          # every rank: gradients and losses
     plane: Optional[object]  # the ranks of data row d: the moments
-    h: Axis                # the space axis: H halos
-    wax: Axis              # the wspace axis: W halos
+    h: Axis                # the space axis: H halos and gathers
+    wax: Axis              # the wspace axis: W halos and gathers
+    across: Optional[object]  # this block in every data row: BN states
 
     @property
     def size(self) -> int:
@@ -176,10 +192,14 @@ def grid(cfg, group=None) -> Grid:
     gw = groups(wspace_lists, [rank_of(d, s, ww, S, W) for ww in range(W)]) \
         if W > 1 else None
     gp = groups(plane_lists, plane_lists[d]) if S * W > 1 else None
+    across_lists = [[rank_of(dd, ss, ww, S, W) for dd in range(D)]
+                    for ss in range(S) for ww in range(W)]
+    ga = groups(across_lists, [rank_of(dd, s, w, S, W) for dd in range(D)]) \
+        if D > 1 else None
     h = Axis(gh, rank_of(d, s - 1, w, S, W) if s > 0 else None,
              rank_of(d, s + 1, w, S, W) if s < S - 1 else None)
     wax = Axis(gw, rank_of(d, s, w - 1, S, W) if w > 0 else None,
                rank_of(d, s, w + 1, S, W) if w < W - 1 else None)
-    out = Grid(D, S, W, r, d, s, w, world, gp, h, wax)
+    out = Grid(D, S, W, r, d, s, w, world, gp, h, wax, ga)
     _GRIDS[key] = (world, out)
     return out

@@ -20,17 +20,34 @@ the ``wspace`` ranks (``parallel/mesh.py``), one rank per card.
   VALID conv (``conv2d_sp``), a VALID conv after a sharded reflect pad,
   and the transpose conv on a block extended by one row each way, then
   cropped (``conv2d_transpose_sp``).
+* ``batch_norm_sp`` (the pix2pix nets'): the batch's f32 sum and sum of
+  squares over the block, all-reduced over the plane's ranks, so the
+  moments are the data row's whole batch's (spatial.py:192-222); its
+  backward all-reduces their cotangents over the same ranks, as the
+  transpose of JAX's ``psum`` is a ``psum``.
+* ``all_gather_h``/``_w`` put the plane together on every rank of the
+  axis (a tiled all-gather); the backward gives each rank the sum of
+  every rank's cotangent of its block (JAX's transpose, ``psum_scatter``):
+  the loss terms of the other ranks that flow through the replicated
+  layers come back that way.  ``scatter_h``/``_w`` take this rank's
+  slice of a replicated block (spatial.py:225-248); the backward pads
+  with zeros.
 * The nets: the ResNet and U-Net generators with the parameters of the
-  port's modules, and the semantic discriminator with its patch head.
+  port's modules, the semantic discriminator with its patch head, and
+  the pix2pix pair, whose deep middle runs replicated once the plane is
+  too small to split (``pix2pix_sharded``, spatial.py:438-583).
 
 Compute dtypes as the JAX functions set them: the convs in the compute
 dtype, the norms' moments in f32, the derivative filters in f32.
 ``halo_bytes`` and ``halo_calls`` count the exchanges (forward and
-backward), for a reader who measures them; the program never reads them.
+backward), ``gather_bytes`` and ``gather_calls`` the gathers and their
+backwards' reductions, for a reader who measures them; the program never
+reads them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -41,11 +58,15 @@ from ..ops.deriv import deriv_kernel_diff, deriv_kernel_sobel
 from ..ops.deriv import depthwise_conv2d
 from ..ops.layers import (_same_pads, conv2d, conv2d_transpose, dropout,
                           leaky_relu, reflect_pad, relu, tanh)
+from ..ops.norm import BN_EPS, BN_MOMENTUM, batch_norm
 from ..ops.norm import instance_norm_sp as _in_sp
+from ..ops.norm import moments_all_reduce
 from .mesh import Axis, Grid
 
 halo_bytes = 0
 halo_calls = 0
+gather_bytes = 0
+gather_calls = 0
 
 
 # ------------------------------------------------------------ halo exchange
@@ -284,6 +305,118 @@ def gradloss_criterion_sp(in_: torch.Tensor, target: torch.Tensor,
     return (weight * d.mean(-1, keepdim=True)).mean()
 
 
+class _SumOver(torch.autograd.Function):
+    """``x`` summed over the ranks of ``group``; the backward sums the
+    cotangents over the same ranks (JAX's transpose of ``psum``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return moments_all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return moments_all_reduce(dy.contiguous().clone(), ctx.group), None
+
+
+def batch_norm_sp(params, state, x: torch.Tensor, grid: Grid,
+                  training: bool, momentum: float = BN_MOMENTUM,
+                  eps: float = BN_EPS):
+    """Keras batch norm of a sharded block (spatial.py:192-222), as
+    ``ops.norm.batch_norm`` but for the moments in training: the block's
+    f32 sums over (N, H, W) all-reduced over the plane's ranks, n the data
+    row's count, var = max(Q / n - mean^2, 0) (the JAX spatial form, not
+    ``batch_norm``'s two passes); on the moving stats ``batch_norm``
+    itself.  Returns ``(y, new_state)``."""
+    if not training:  # the moving stats: no moments to sum
+        return batch_norm(params, state, x, False, momentum, eps)
+    xf = x.float()
+    n = x.shape[0] * x.shape[1] * x.shape[2] * grid.space * grid.wspace
+    sums = _SumOver.apply(torch.stack([xf.sum((0, 1, 2)),
+                                       xf.square().sum((0, 1, 2))]),
+                          grid.plane)
+    mean = sums[0] / n
+    # jnp.maximum: a tie's gradient is halved, as torch.maximum's
+    var = torch.maximum(sums[1] / n - mean.square(), xf.new_zeros(()))
+    m_mean, m_var = state["moving_mean"], state["moving_var"]
+    new = {"moving_mean": (momentum * m_mean + (1 - momentum)
+                           * mean.detach()).to(m_mean.dtype),
+           "moving_var": (momentum * m_var + (1 - momentum)
+                          * var.detach()).to(m_var.dtype)}
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["gamma"].float() + params["beta"].float()
+    return y.to(x.dtype), new
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's block of ``axis`` put together along ``dim`` (a tiled
+    all-gather, through the host on a gloo group); the backward gives
+    this rank (``index`` in the axis) the sum of every rank's cotangent of
+    its block."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, index):
+        global gather_bytes, gather_calls
+        group = axis.group
+        gloo = dist.get_backend(group) == dist.Backend.GLOO
+        xs = x.to("cpu" if gloo else x.device).contiguous()
+        parts = [torch.empty_like(xs)
+                 for _ in range(dist.get_world_size(group))]
+        with torch.profiler.record_function("sp.gather"):
+            dist.all_gather(parts, xs, group=group)
+        gather_bytes += xs.numel() * xs.element_size()
+        gather_calls += 1
+        ctx.args = (group, dim, index, x.shape[dim])
+        return torch.cat(parts, dim).to(x.device)
+
+    @staticmethod
+    def backward(ctx, dy):
+        global gather_bytes, gather_calls
+        group, dim, index, k = ctx.args
+        total = dy.contiguous().clone()
+        with torch.profiler.record_function("sp.gather"):
+            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        gather_bytes += total.numel() * total.element_size()
+        gather_calls += 1
+        return total.narrow(dim, index * k, k).contiguous(), None, None, None
+
+
+def all_gather_h(x: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """The whole H of the plane on every rank of the space axis
+    (spatial.py:225-227)."""
+    if grid.h.group is None:
+        return x
+    return _Gather.apply(x, grid.h, 1, grid.s)
+
+
+def all_gather_w(x: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """The whole W of the plane on every rank of the wspace axis
+    (spatial.py:230-232)."""
+    if grid.wax.group is None:
+        return x
+    return _Gather.apply(x, grid.wax, 2, grid.w)
+
+
+def scatter_h(x: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """This rank's rows of a replicated block (spatial.py:243-248)."""
+    k = x.shape[1] // grid.space
+    return x.narrow(1, grid.s * k, k)
+
+
+def scatter_w(x: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """This rank's columns of a replicated block (spatial.py:235-240)."""
+    k = x.shape[2] // grid.wspace
+    return x.narrow(2, grid.w * k, k)
+
+
+def _gather(x: torch.Tensor, grid: Grid) -> torch.Tensor:
+    return all_gather_w(all_gather_h(x, grid), grid)
+
+
+def _scatter(x: torch.Tensor, grid: Grid) -> torch.Tensor:
+    return scatter_w(scatter_h(x, grid), grid).contiguous()
+
+
 # --------------------------------------------- spatially-sharded forwards
 
 def _res_block_sp(b, y: torch.Tensor, grid: Grid, cd) -> torch.Tensor:
@@ -382,3 +515,133 @@ def discriminator_sp(disc, x: torch.Tensor, mask: torch.Tensor, grid: Grid,
     y = instance_norm_sp(disc.h3_in, y, grid, act="leaky_relu")
     y = conv2d_sp(disc.h4, y, 1, grid, cd).float()
     return (y * mask.float()).sum(-1, keepdim=True)
+
+
+# ------------------------------------------------ the pix2pix pair, sharded
+
+def _too_small(h: int, w: int, grid: Grid) -> bool:
+    """Whether a block of ``h`` x ``w`` is too small for a sharded
+    stride-2 conv: a local dim below 2 (spatial.py:469-470)."""
+    return h < 2 or (grid.wspace > 1 and w < 2)
+
+
+def pix2pix_sharded(n_down: int, h: int, w: int, grid: Grid) -> list:
+    """Whether each of the pix2pix generator's ``n_down`` down blocks
+    runs on the sharded plane, for a block of ``h`` x ``w``: the plane is
+    gathered before the first whose input is too small
+    (``_too_small``), and the rest run replicated.  Up block ``i`` runs
+    sharded where its skip, down block ``n_down - 2 - i``'s output, is."""
+    out, sharded = [], True
+    for _ in range(n_down):
+        if sharded and _too_small(h, w, grid):
+            sharded = False
+            h, w = h * grid.space, w * grid.wspace
+        out.append(sharded)
+        h, w = -(-h // 2), -(-w // 2)
+    return out
+
+
+def _bn(net, name: str, state, new: dict, v: torch.Tensor, grid: Grid,
+        sharded: bool, train: bool) -> torch.Tensor:
+    """``net``'s batch norm ``name`` on ``v``: the sharded one on a block,
+    the one-card one on a replicated plane; its new state into ``new``."""
+    if sharded:
+        y, new[name] = batch_norm_sp(getattr(net, name), state[name], v,
+                                     grid, train)
+    else:
+        y, new[name] = batch_norm(getattr(net, name), state[name], v, train)
+    return y
+
+
+def generator_pix2pix_sp(gen, state, x: torch.Tensor, grid: Grid,
+                         compute_dtype=None,
+                         drop_masks: Optional[Sequence[torch.Tensor]] = None,
+                         train: bool = False):
+    """``GeneratorPix2pix``'s forward on a sharded block
+    (spatial.py:438-531): the down blocks sharded until the plane is too
+    small to split, then gathered, the deep middle replicated on the
+    one-card layers; the up blocks scatter back at the first whose skip
+    is sharded (or the last conv-transpose scatters its output).  The
+    sharded batch norms' moments are the data row's (``batch_norm_sp``),
+    the replicated ones' the whole plane's.  ``drop_masks``: the keep
+    masks of up blocks 0-2, this rank's block's where the block is
+    sharded, its data row's whole plane's where it is replicated
+    (``spatial_step.sp_dropout_masks``), or None.  Returns ``(y, new
+    state)``."""
+    cd = compute_dtype or x.dtype
+    gen._check_state(state)
+    n_down = len(gen.down_ch)
+    if int(math.log2(x.shape[1] * grid.space)) != n_down:
+        raise ValueError(f"a plane of height {x.shape[1] * grid.space} "
+                         "needs another depth than this net was built for")
+    at = pix2pix_sharded(n_down, x.shape[1], x.shape[2], grid)
+    new: dict = {}
+    y = x.to(cd)
+    sharded = True
+    skips = []
+    for i in range(n_down):
+        if sharded and not at[i]:
+            y = _gather(y, grid)
+            sharded = False
+        p = getattr(gen, f"down{i}")
+        y = conv2d_sp(p, y, 2, grid, cd) if sharded \
+            else conv2d(p, y, 2, "SAME", cd)
+        if i > 0:
+            y = _bn(gen, f"down{i}_bn", state, new, y, grid, sharded, train)
+        y = leaky_relu(y)
+        skips.append((y, sharded))
+    skips = list(reversed(skips[:-1]))
+    for i in range(len(gen.up_ch)):
+        skip, skip_sharded = skips[i]
+        p = getattr(gen, f"up{i}")
+        if sharded:
+            y = conv2d_transpose_sp(p, y, 2, grid, cd)
+        else:
+            y = conv2d_transpose(p, y, 2, "SAME", cd)
+            if skip_sharded:  # back in the sharded part of the net
+                y = _scatter(y, grid)
+                sharded = True
+        y = _bn(gen, f"up{i}_bn", state, new, y, grid, sharded, train)
+        if i < 3 and drop_masks is not None:
+            y = dropout(y, gen.drop_rate, drop_masks[i])
+        y = relu(y)
+        y = torch.cat([y, skip], dim=-1)
+    if sharded:
+        y = conv2d_transpose_sp(gen.last, y, 2, grid, cd)
+    else:
+        y = _scatter(conv2d_transpose(gen.last, y, 2, "SAME", cd), grid)
+    return tanh(y.float()), new
+
+
+def discriminator_pix2pix_sp(disc, state, inp: torch.Tensor,
+                             tar: torch.Tensor, grid: Grid,
+                             compute_dtype=None, train: bool = False):
+    """``DiscriminatorPix2pix``'s forward on sharded blocks
+    (spatial.py:532-583): the three stride-2 down blocks sharded (the
+    plane gathered early if it gets too small), then the plane gathered
+    and the zero-pad + VALID tail replicated, its batch norm the
+    one-card one.  Returns the replicated patch logits (f32) and the new
+    state."""
+    from ..models.discriminator_pix2pix import _zero_pad
+    cd = compute_dtype or inp.dtype
+    disc._check_state(state)
+    new: dict = {}
+    y = torch.cat([inp.to(cd), tar.to(cd)], dim=-1)
+    sharded = True
+    for i in range(3):
+        if sharded and _too_small(y.shape[1], y.shape[2], grid):
+            y = _gather(y, grid)
+            sharded = False
+        p = getattr(disc, f"down{i}")
+        y = conv2d_sp(p, y, 2, grid, cd) if sharded \
+            else conv2d(p, y, 2, "SAME", cd)
+        if i > 0:
+            y = _bn(disc, f"down{i}_bn", state, new, y, grid, sharded, train)
+        y = leaky_relu(y)
+    if sharded:
+        y = _gather(y, grid)
+    y = conv2d(disc.conv, _zero_pad(y), 1, "VALID", cd)
+    y = _bn(disc, "conv_bn", state, new, y, grid, False, train)
+    y = leaky_relu(y)
+    y = conv2d(disc.last, _zero_pad(y), 1, "VALID", cd)
+    return y.float(), new

@@ -1,13 +1,21 @@
-"""The (data x space[ x wspace]) sharded train step of the semantic nets,
-port of ``sggan_tpu/parallel/spatial_step.py``: one rank per card
+"""The (data x space[ x wspace]) sharded train step, port of
+``sggan_tpu/parallel/spatial_step.py``: one rank per card
 (``parallel/mesh.py``), each holding its data row's rows of the batch cut
 to its block of the plane.
 
 * ``--loss_mode sggan`` with the ResNet or U-Net generator and the
   semantic discriminator with its patch head (the global VALID chain does
-  not split), and ``--loss_mode cycle`` with two generators, two
-  patch-head discriminators and the pair pool; every forward is the
-  sharded one of ``parallel/spatial.py``.
+  not split), ``--loss_mode cycle`` with two generators, two patch-head
+  discriminators and the pair pool, and ``--loss_mode p2p`` with the
+  pix2pix pair (spatial_step.py:334-401); every forward is the sharded
+  one of ``parallel/spatial.py``.
+* The pix2pix step: the generator loss's discriminator call on the
+  pre-step BN state in inference mode, its new state dropped; the
+  discriminator loss's two calls, real then fake, threading the state;
+  the batch norms on the batch's moments unless ``--dropout_mode
+  keras_quirk``.  The new BN states are exact over the plane already
+  (``batch_norm_sp``), so they are averaged over the data rows alone
+  (``Grid.across``), as the JAX step's ``pmean`` over ``data``.
 * Every loss term is a mean over equal blocks, so the local means
   averaged over the world are the global means: each net's gradients and
   loss are averaged over every rank through ``dp.mean_``'s one flat
@@ -20,7 +28,10 @@ to its block of the plane.
   (spatial_step.py:26-28, 263-264).
 * The U-Net's dropout masks are drawn per shard (``sp_dropout_masks``):
   every rank draws every shard's from the generator the ranks share and
-  keeps its own, as ``dp.own_shard`` does.
+  keeps its own, as ``dp.own_shard`` does.  The pix2pix generator's are
+  per shard where its up block runs sharded, and one for the data row's
+  whole plane where it runs replicated (the JAX step folds the latter's
+  key by the data index alone).
 * The discriminator makes one call over [real; pooled fake] (instance
   norm is per sample), where the JAX step makes two: the same sums with
   half the collectives.
@@ -42,8 +53,9 @@ from .. import losses
 from ..ops import dropout_masks as _draw_masks
 from ..train.cycle import N_MASK_SETS, new_cycle_nets
 from ..train.pool import PoolDraws, PoolPlan, pool_init, pool_update
-from ..train.step import (TrainState, _conv_precision, _dtype, _ema_update,
-                          _grads, _keep_pool, adam_init, adam_update,
+from ..train.step import (TrainState, _assign, _conv_precision, _dtype,
+                          _ema_update, _grads, _keep_pool, adam_init,
+                          adam_update,
                           deterministic, mean_over_ranks, new_discriminator,
                           new_generator, pools)
 from . import dp, spatial
@@ -73,19 +85,26 @@ def init_sp_state(cfg, generator: torch.Generator, device,
     """One rank's sggan state (spatial_step.py:49-87): the generator,
     then the patch-head discriminator, drawn on the CPU from
     ``generator``; zero Adam states; a pool of ``max(max_size, 1)`` slots
-    of this block's (fake, mask) rows in the compute dtype."""
+    of this block's (fake, mask) rows in the compute dtype.  Under
+    ``--use_pix2pix`` the pix2pix pair with both nets' BN states and the
+    p2p step's unused pool of one slot of this block's fake rows, which
+    checkpoints carry (spatial_step.py:55-67)."""
     device = _device(device)
     gen = new_generator(cfg, generator).to(device)
     disc = new_discriminator(cfg, generator).to(device)
     h, w = local_hw(cfg, grid)
-    pool = pool_init(cfg.max_size,
-                     {"fake": (h, w, cfg.output_nc),
-                      "mask": (*_local_mask_hw(cfg, grid),
-                               cfg.segment_class)}, _dtype(cfg), device)
+    if cfg.use_pix2pix:
+        shapes, slots = {"fake": (h, w, cfg.output_nc)}, 1
+    else:
+        shapes = {"fake": (h, w, cfg.output_nc),
+                  "mask": (*_local_mask_hw(cfg, grid), cfg.segment_class)}
+        slots = cfg.max_size
+    pool = pool_init(slots, shapes, _dtype(cfg), device)
     ema = ({k: p.detach().clone() for k, p in gen.named_parameters()}
            if cfg.gen_ema > 0 else None)
-    return TrainState(gen, {}, disc, {}, adam_init(gen), adam_init(disc),
-                      pool, 0, ema)
+    return TrainState(gen, gen.init_bn_state(device), disc,
+                      disc.init_bn_state(device), adam_init(gen),
+                      adam_init(disc), pool, 0, ema)
 
 
 def init_sp_cycle_state(cfg, generator: torch.Generator, device,
@@ -116,6 +135,8 @@ def sp_dropout_masks(cfg, grid: Grid, gen: nn.Module,
     g = gen["a2b"] if cfg.loss_mode == "cycle" else gen
     if deterministic(cfg) or not g.drop_rate:
         return None
+    if cfg.use_pix2pix:
+        return _pix2pix_masks(cfg, grid, g, generator, n)
     shapes = g.drop_shapes(n, *local_hw(cfg, grid))
 
     def draw():
@@ -124,6 +145,28 @@ def sp_dropout_masks(cfg, grid: Grid, gen: nn.Module,
                          for _ in range(N_MASK_SETS))
         return _draw_masks(generator, shapes, g.drop_rate)
     return grid.own_shard(draw)
+
+
+def _pix2pix_masks(cfg, grid: Grid, gen: nn.Module,
+                   generator: torch.Generator, n: int) -> tuple:
+    """The pix2pix generator's keep masks of up blocks 0-2, block by
+    block: where the block runs sharded (``spatial.pix2pix_sharded``)
+    every shard's at its block's shape in rank order, this rank's kept;
+    where it runs replicated every data row's at the whole plane's shape,
+    this rank's row's kept."""
+    down = spatial.pix2pix_sharded(len(gen.down_ch), *local_hw(cfg, grid),
+                                   grid)
+    out = []
+    for i, shape in enumerate(gen.drop_shapes(n, *cfg.image_size)):
+        if down[len(down) - 2 - i]:
+            local = (shape[0], shape[1] // grid.space,
+                     shape[2] // grid.wspace, shape[3])
+            out.append(grid.own_shard(
+                lambda: _draw_masks(generator, [local], gen.drop_rate)[0]))
+        else:
+            out.append(grid.own_row(
+                lambda: _draw_masks(generator, [shape], gen.drop_rate)[0]))
+    return tuple(out)
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], grid: Grid
@@ -299,41 +342,87 @@ def _cycle_losses_and_grads(cfg, grid: Grid, state: TrainState, batch,
     return metrics, g_grads, d_grads, new_pool
 
 
+def _pix2pix_losses_and_grads(cfg, grid: Grid, state: TrainState, batch,
+                              draws, drop_masks):
+    """The p2p objective with the pix2pix pair on this rank's block
+    (spatial_step.py:334-401): the generator loss through the pre-step
+    discriminator in inference mode, the discriminator's two calls, real
+    then fake, threading its BN state.  The patch logits are replicated,
+    so each rank's GAN terms are the whole plane's and its L1 its block's
+    mean; the world's average is the global loss."""
+    cd = _dtype(cfg)
+    gen, disc = state.gen_params, state.disc_params
+    bn_train = not deterministic(cfg)
+    if bn_train and drop_masks is None:
+        raise ValueError("--dropout_mode intended: the step needs this "
+                         "shard's dropout masks (sp_dropout_masks)")
+    masks = drop_masks if bn_train else None
+    real_a = batch["real_a"].float()
+    seg_a = batch["seg_a"].float()
+    with _conv_precision(cd):
+        fake, new_gbn = spatial.generator_pix2pix_sp(
+            gen, state.gen_bn, real_a, grid, cd, masks, bn_train)
+        da_fake, _ = spatial.discriminator_pix2pix_sp(
+            disc, state.disc_bn, seg_a, fake, grid, cd, train=False)
+        g_loss = losses.gen_loss_p2p(da_fake, fake, seg_a)
+        g_grads = _grads(g_loss, gen)
+        fake_sg = fake.detach()
+        da_real, dbn1 = spatial.discriminator_pix2pix_sp(
+            disc, state.disc_bn, seg_a, seg_a, grid, cd, train=bn_train)
+        da_fake_s, new_dbn = spatial.discriminator_pix2pix_sp(
+            disc, dbn1, seg_a, fake_sg, grid, cd, train=bn_train)
+        d_loss = losses.disc_loss_p2p(da_real, da_fake_s)
+        d_grads = _grads(d_loss, disc)
+    metrics = {"gen_loss": g_loss.detach(), "disc_loss": d_loss.detach()}
+    return metrics, g_grads, d_grads, state.pool, (new_gbn, new_dbn)
+
+
 def losses_and_grads(cfg, grid: Grid, state: TrainState, batch,
                      draws: Union[PoolDraws, PoolPlan, None],
                      drop_masks: Optional[Sequence] = None):
     """This block's forward and backward, without the averaging or the
-    updates: ``(metrics, gen grads, disc grads, new pool)``; ``state`` is
-    not changed."""
+    updates: ``(metrics, gen grads, disc grads, new pool, (new gen BN
+    state, new disc BN state))``, the BN states ({} for the semantic nets)
+    not yet averaged over the data rows; ``state`` is not changed."""
+    if cfg.use_pix2pix:
+        return _pix2pix_losses_and_grads(cfg, grid, state, batch, draws,
+                                         drop_masks)
     fn = _cycle_losses_and_grads if cfg.loss_mode == "cycle" \
         else _sggan_losses_and_grads
-    return fn(cfg, grid, state, batch, draws, drop_masks)
+    return (*fn(cfg, grid, state, batch, draws, drop_masks), ({}, {}))
 
 
 def build_sp_step_fn(cfg, grid: Grid):
     """The spatial step: ``(state, batch, lr, pool_draws, drop_masks=None)
     -> (state, metrics)`` on this rank's block: ``batch`` its data row's
     rows cut to its block (``shard_batch``), ``pool_draws`` its data row's
-    (``Grid.own_row``), ``drop_masks`` its own (``sp_dropout_masks``).
-    Each net's gradients and loss are averaged over the world, then Adam
-    and the EMA update every rank's replica in place, the same on each."""
-    if cfg.loss_mode not in ("sggan", "cycle"):
+    (``Grid.own_row``, unused by the p2p step), ``drop_masks`` its own
+    (``sp_dropout_masks``).  Each net's gradients and loss are averaged
+    over the world, the pix2pix nets' new BN states over the data rows;
+    then Adam and the EMA update every rank's replica in place, the same
+    on each."""
+    # the JAX trainer's refusal (trainer.py:90-97)
+    if not ((cfg.loss_mode in ("sggan", "cycle") and not cfg.use_pix2pix)
+            or (cfg.loss_mode == "p2p" and cfg.use_pix2pix)):
         raise NotImplementedError(
-            f"the spatial step runs --loss_mode sggan or cycle with the "
-            f"semantic nets, not {cfg.loss_mode!r} (the JAX package's "
-            "spatial p2p step is its pix2pix step: parallel: spatial "
-            "pix2pix)")
+            "mesh_space>1 supports --loss_mode sggan/cycle with the "
+            "resnet/unet nets, or --loss_mode p2p with --use_pix2pix")
 
     def step_fn(state: TrainState, batch, lr, pool_draws,
                 drop_masks=None):
-        metrics, g_grads, d_grads, pool = losses_and_grads(
-            cfg, grid, state, batch, pool_draws, drop_masks)
+        metrics, g_grads, d_grads, pool, (gen_bn, disc_bn) = \
+            losses_and_grads(cfg, grid, state, batch, pool_draws,
+                             drop_masks)
         mean_over_ranks(grid.world, g_grads, {}, metrics["gen_loss"])
         mean_over_ranks(grid.world, d_grads, {}, metrics["disc_loss"])
+        bn = dp.bn_leaves(gen_bn) + dp.bn_leaves(disc_bn)
+        if bn and grid.across is not None:
+            dp.mean_(bn, grid.across)
         adam_update(state.gen_params, state.g_opt, g_grads, lr, cfg.beta1)
         adam_update(state.disc_params, state.d_opt, d_grads, lr, cfg.beta1)
+        _assign(state.gen_bn, gen_bn)
+        _assign(state.disc_bn, disc_bn)
         _ema_update(cfg, state.ema, state.gen_params)
         return _keep_pool(state, pool)._replace(step=state.step + 1), metrics
 
     return step_fn
-

@@ -60,7 +60,8 @@ global layout; on ``--continue_train`` every rank reads it and takes its
 own rows.
 
 ``--mesh_space S`` (and ``--mesh_space_w W``) trains the semantic nets
-spatially sharded (``parallel/spatial_step.py``) on ``D x S x W`` ranks
+(sggan, cycle) or the pix2pix pair (p2p) spatially sharded
+(``parallel/spatial_step.py``) on ``D x S x W`` ranks
 (``--mesh_data D``), laid out as ``mesh.grid`` says: each rank feeds its
 data row's ``batch_size / D`` of each global batch from the host
 iterator (as a rank of a data-parallel job of D ranks), preprocesses the
@@ -71,9 +72,9 @@ draws are the data row's, the dropout masks the shard's.  As under
 ``--mesh_data``, the steps run eagerly from the host iterator; the
 coordinator evaluates with the replicated generator on the whole plane
 while the others wait; a checkpoint holds the pool in the JAX package's
-global layout (slots over data, H over space, W over wspace).
-``--phase test`` of a spatial run's checkpoint runs in one process on
-the whole plane.
+global layout (slots over data, H over space, W over wspace), and the
+pix2pix nets' BN states, equal on every rank.  ``--phase test`` of a
+spatial run's checkpoint runs in one process on the whole plane.
 """
 
 from __future__ import annotations
@@ -153,7 +154,8 @@ class Trainer:
         self.state = init_state(
             run_cfg, torch.Generator().manual_seed(cfg.data_seed),
             self.device, self.group)
-        if run_cfg is not cfg:  # the spatial run's patch-head D
+        if run_cfg is not cfg and not cfg.use_pix2pix:
+            # the spatial run's patch-head D (the pix2pix D is one net)
             disc = _patch_discriminators(cfg, self.device)
             self.state = self.state._replace(disc_params=disc,
                                              d_opt=adam_init(disc))

@@ -14,7 +14,7 @@ loaded onto the template's device, so a round trip is exact.
 
 The ``.pt`` suffix keeps these apart from the JAX package's Orbax
 directories ``cp-NNNN`` in the same tree: importing those is ROADMAP
-Queue 1, item 11.
+Queue 1, item 2.
 
 A data-parallel job (``--mesh_data N``, ``parallel/dp.py``) saves as the
 JAX package's multi-process save does (trainer.py:215-227): every rank

@@ -22,8 +22,9 @@ gradient of the four nets and the generators' first Adam moment under
 two packages' convolutions sum in other orders, see that file), the
 discriminators' moments and the second moments at its plain limits, and
 the pooled entries.  The JAX steps are compiled once each, without XLA's
-LLVM passes, as ``test_torch_step.py`` compiles its step, each one
-program that also returns the draws and masks it takes from its key.
+LLVM passes, as ``test_torch_step.py`` compiles its step but with the
+fusion emitters (its ``CYCLE_FAST``), each one program that also returns
+the draws and masks it takes from its key.
 
 The two packages' forwards differ by up to ~2e-4 (conv summation order,
 rescaled by the instance norms), so a value that close to 0 where the
@@ -65,7 +66,7 @@ from sggan_tpu_torch.train import cycle as tcycle  # noqa: E402
 from sggan_tpu_torch.train import pool as tpool  # noqa: E402
 from sggan_tpu_torch.train import step as tstep  # noqa: E402
 from sggan_tpu_torch.utils import bridge  # noqa: E402
-from test_torch_step import FAST, _close  # noqa: E402
+from test_torch_step import CYCLE_FAST, _close  # noqa: E402
 
 B, H, W, N_CLASS, POOL = 2, 32, 32, 8, 2
 KW = dict(image_height=H, image_width=W, ngf=4, ndf=4, segment_class=N_CLASS,
@@ -166,7 +167,7 @@ def _run(kw, n_steps: int):
     batch = _batch(SEED[cfg.use_resnet])
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     jfn = jax.jit(_jax_step(kw, not cfg.use_resnet)).lower(
-        js, batch, jnp.float32(LR), RNGS[0]).compile(FAST)
+        js, batch, jnp.float32(LR), RNGS[0]).compile(CYCLE_FAST)
     tfn = tstep.build_step_fn(cfg)
     jax_out, port_out, first = [], [], None
     for rng in RNGS[:n_steps]:

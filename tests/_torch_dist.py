@@ -13,6 +13,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -52,11 +53,14 @@ def start_ranks(job: str, args, world: int = 2, env_extra=None,
 
 def wait_ranks(procs: list, timeout: float = 600) -> list:
     """[(returncode, output)] of ``start_ranks``'s processes, in rank
-    order; kills what is left on a timeout."""
+    order, within one deadline ``timeout`` seconds from now for the whole
+    job; kills what is left when it passes."""
+    deadline = time.monotonic() + timeout
     outs = []
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=timeout)
+            out, _ = p.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1))
             outs.append((p.returncode, out))
     finally:
         for p in procs:

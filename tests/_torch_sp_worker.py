@@ -16,9 +16,14 @@ port, never JAX.
         (``bridge.train_state_from_jax(..., rank, n_data)``): the losses,
         Adam's first moments and the state with every rank's pool blocks
         (``bridge.train_state_to_jax(state, grid=grid)``)
-    python tests/_torch_sp_worker.py trainer <dataset> <work_dir>
-        ``main.main`` trains the ResNet sggan over 2 ranks (--mesh_space
-        2), then resumes; prints each rank's pool block and state digest
+    python tests/_torch_sp_worker.py trainer <dataset> <work_dir> [p2p]
+        ``main.main`` trains the ResNet sggan (with ``p2p``, the pix2pix
+        pair in --loss_mode p2p) over 2 ranks (--mesh_space 2), then
+        resumes; prints each rank's pool block and state digest
+    python tests/_torch_sp_worker.py p2p <cases.pkl> <out_dir>
+        the pix2pix pair's sharded ops and nets (``batch_norm_sp``, the
+        gathers and scatters, ``generator_pix2pix_sp``,
+        ``discriminator_pix2pix_sp``): output, new BN state and vjp
 """
 
 import hashlib
@@ -172,12 +177,73 @@ def steps(cases_path: str, out_dir: str) -> None:
     print(f"OK steps rank {dist.get_rank()}", flush=True)
 
 
-def _argv(dataset: str, work: str, rank: int) -> list:
-    """The CLI of the 2-rank ResNet sggan run, one epoch."""
+def p2p(cases_path: str, out_dir: str) -> None:
+    import torch.distributed as dist
+
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.parallel import mesh, spatial
+    from sggan_tpu_torch.parallel.spatial_step import shard_global
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for name, case in cases.items():
+        cfg = Config(**case["kw"])
+        grid = mesh.grid(cfg)
+        blk = shard_global({k: _t(v) for k, v in case["inputs"].items()},
+                           grid)
+        state = {k: {n: _t(a) for n, a in v.items()}
+                 for k, v in case.get("state", {}).items()}
+        kind, train = case["kind"], case.get("train", True)
+        x = blk["x"].clone().requires_grad_(True)
+        if kind == "bn":
+            params = {k: _t(v).requires_grad_(True)
+                      for k, v in case["params"].items()}
+            y, new = spatial.batch_norm_sp(params, state["bn"], x, grid,
+                                           train)
+            new, ins, names = {"bn": new}, [x, *params.values()], \
+                list(params)
+        elif kind == "gather":
+            dims = [1, 2] if grid.wspace > 1 else [1]
+            y = spatial._scatter(spatial._gather(x, grid).flip(dims), grid)
+            new, ins, names = {}, [x], []
+        else:
+            gen, disc = _nets(cfg, case["seed"])
+            if kind == "gen":
+                net = gen
+                masks = case["masks"][grid.rank]
+                masks = None if masks is None else [_t(m) for m in masks]
+                y, new = spatial.generator_pix2pix_sp(
+                    net, state, x, grid, torch.float32, masks, train)
+            else:
+                net = disc
+                y, new = spatial.discriminator_pix2pix_sp(
+                    net, state, blk["inp"], x, grid, torch.float32, train)
+            names, params = zip(*net.named_parameters())
+            ins, names = [x, *params], list(names)
+        # the discriminator's logits are replicated: JAX's vjp through
+        # shard_map hands each shard 1 / (S x W) of their cotangent
+        ct = _t(case["ct"]) / grid.size if kind == "disc" else \
+            shard_global({"c": _t(case["ct"])}, grid)["c"]
+        grads = _vjp(y, ins, ct.numpy())
+        out[name] = {"y": _np(y), "dx": grads[0],
+                     "dparams": dict(zip(names, grads[1:])),
+                     "new": {k: {n: _np(t) for n, t in v.items()}
+                             for k, v in new.items()}}
+    with open(os.path.join(out_dir, f"rank{dist.get_rank()}.pkl"),
+              "wb") as f:
+        pickle.dump(out, f)
+    print(f"OK p2p rank {dist.get_rank()}", flush=True)
+
+
+def _argv(dataset: str, work: str, rank: int, nets: str = "") -> list:
+    """The CLI of the 2-rank run, one epoch: the ResNet sggan, or with
+    ``nets`` "p2p" the pix2pix pair in the p2p mode."""
+    mode = ["--use_pix2pix", "--loss_mode", "p2p"] if nets == "p2p" else \
+        ["--use_resnet", "--loss_mode", "sggan", "--max_size", "4"]
     return ["--dataset_dir", dataset, "--img_height", "32", "--img_width",
             "32", "--ngf", "4", "--ndf", "4", "--segment_class", "8",
-            "--batch_size", "2", "--compute_dtype", "float32",
-            "--use_resnet", "--loss_mode", "sggan", "--max_size", "4",
+            "--batch_size", "2", "--compute_dtype", "float32", *mode,
             "--epoch", "1", "--print_freq", "1", "--mesh_space", "2",
             "--checkpoint_dir", os.path.join(work, "ckpt"),
             "--sample_dir", os.path.join(work, f"sample{rank}"),
@@ -185,7 +251,7 @@ def _argv(dataset: str, work: str, rank: int) -> list:
             "--log_dir", os.path.join(work, f"logs{rank}")]
 
 
-def trainer(dataset: str, work: str) -> None:
+def trainer(dataset: str, work: str, nets: str = "") -> None:
     import torch.distributed as dist
 
     from sggan_tpu_torch import main as tmain
@@ -216,7 +282,7 @@ def trainer(dataset: str, work: str) -> None:
               f"{tr.state.pool.count} gen_loss {last['gen_loss']!r} "
               f"digest {digest}", flush=True)
 
-    argv = _argv(dataset, work, rank)
+    argv = _argv(dataset, work, rank, nets)
     tmain.main(["--phase", "train", *argv], device="cpu")
     report("trainer")
     tmain.main(["--phase", "train", "--continue_train", *argv],
@@ -233,7 +299,8 @@ def main() -> None:
         import torch.distributed as dist
         dist.init_process_group("gloo")
         try:
-            {"ops": ops, "nets": nets, "steps": steps}[job](*args)
+            {"ops": ops, "nets": nets, "steps": steps, "p2p": p2p}[job](
+                *args)
         finally:
             dist.destroy_process_group()
     banned = [m for m in sys.modules if m == "jax" or m.startswith(

@@ -406,9 +406,11 @@ def test_ranks_import_no_jax(job):
 
 def test_a_group_of_another_size_is_refused():
     """In a one-rank process group, ``--mesh_data 2`` names both numbers,
-    ``--mesh_space 2`` the ranks it needs, the pix2pix nets' spatial step
-    its ROADMAP item; ``--mesh_data 1`` builds the one-process step, which
-    averages nothing."""
+    ``--mesh_space 2`` (the semantic nets or the pix2pix pair) the ranks
+    it needs, and passes ``mesh.check_space`` in a world of 2;
+    ``--mesh_data 1`` builds the one-process step, which averages
+    nothing."""
+    from sggan_tpu_torch.parallel import mesh
     with one_rank_group() as group:
         for kw, err, what in (
                 (dict(mesh_data=2), ValueError,
@@ -416,12 +418,14 @@ def test_a_group_of_another_size_is_refused():
                 (dict(mesh_space=2), ValueError,
                  "= 2 ranks must equal the world size, 1"),
                 (dict(mesh_space=2, use_pix2pix=True, loss_mode="p2p"),
-                 NotImplementedError, "parallel: spatial pix2pix")):
+                 ValueError, "= 2 ranks must equal the world size, 1")):
             cfg = Config(**{**MODES["sggan_resnet"], "mesh_data": 1, **kw})
             with pytest.raises(err, match=what):
                 tstep.build_step_fn(cfg, group)
             with pytest.raises(err, match=what):
                 tstep.init_state(cfg, torch.Generator(), "cpu", group)
+            if mesh.is_spatial(cfg):
+                mesh.check_space(cfg, 2)
         one = Config(**{**MODES["sggan_resnet"], "mesh_data": 1})
         ts = tstep.init_state(one, torch.Generator().manual_seed(0), "cpu",
                               group)

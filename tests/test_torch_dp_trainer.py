@@ -192,10 +192,13 @@ def test_global_rows_match_jax(case, layout):
 
 def test_group_mismatches_are_refused(job, monkeypatch):
     """In the 2-rank job: ``--mesh_data`` 4 or 1 names both numbers,
-    ``--mesh_data 2 --mesh_space 2`` the 4 ranks it needs, the pix2pix
-    nets' spatial step and a data row's spatial ranks on two hosts their
-    ROADMAP items, and the ``data`` mesh spans both ranks.  In one process: ``--mesh_data 2`` with no launcher's
-    environment, and a ``LOCAL_RANK`` with no card behind it."""
+    ``--mesh_data 2 --mesh_space 2`` the 4 ranks it needs, a data row's
+    spatial ranks on two hosts get the JAX trainer's own refusal
+    (trainer.py:55-66), the pix2pix nets' spatial trainer builds (the
+    pix2pix discriminator, a block of 16 x 32), and the ``data`` mesh
+    spans both ranks.  In one process: ``--mesh_data 2`` with no
+    launcher's environment, and a ``LOCAL_RANK`` with no card behind
+    it."""
     for r, out in enumerate(job[2]):
         assert "OK refused [('mesh_data', 4)]: --mesh_data 4 must equal " \
             "the world size, 2" in out
@@ -204,11 +207,13 @@ def test_group_mismatches_are_refused(job, monkeypatch):
         assert "OK refused [('mesh_data', 2), ('mesh_space', 2)]: " \
             "--mesh_data 2 x --mesh_space 2 x --mesh_space_w 1 = 4 ranks " \
             "must equal the world size, 2" in out
-        assert "OK refused [('loss_mode', 'p2p'), ('mesh_data', 1), " \
-            "('mesh_space', 2), ('use_pix2pix', True)]: parallel: spatial " \
-            "pix2pix" in out
+        assert "OK built [('loss_mode', 'p2p'), ('mesh_data', 1), " \
+            "('mesh_space', 2), ('use_pix2pix', True)]: " \
+            "DiscriminatorPix2pix, space 2, a block of (16, 32)" in out
         assert "OK refused [('mesh_data', 1), ('mesh_space', 2)]: " \
-            "parallel: spatial multi-host" in out
+            "multi-host spatial sharding needs the space grid (2) to " \
+            "divide the local device count (1) so every host owns whole " \
+            "data rows of the mesh" in out
         assert f"OK mesh ('data',) 2 coordinator {r == 0}" in out
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(k, raising=False)

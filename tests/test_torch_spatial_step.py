@@ -66,7 +66,7 @@ from sggan_tpu_torch.train import cycle as tcycle  # noqa: E402
 from sggan_tpu_torch.train import pool as tpool  # noqa: E402
 from sggan_tpu_torch.train import step as tstep  # noqa: E402
 from sggan_tpu_torch.utils import bridge  # noqa: E402
-from test_torch_step import FAST, _leaves  # noqa: E402
+from test_torch_step import CYCLE_FAST, FAST, _leaves  # noqa: E402
 
 H, W, N_CLASS, POOL, B_ROW, LR = 32, 32, 8, 2, 2, 1e-3
 RNGS = [jax.random.PRNGKey(60 + t) for t in range(2)]
@@ -193,8 +193,9 @@ def _jax_case(name, kw, compiles=None):
     jstate = place_sp(js, mesh)
     lowered = jax.jit(make_sp_step_body(jcfg, mesh)).lower(
         jstate, shard_sp_batch(batches[0], mesh), jnp.float32(LR), RNGS[0])
-    fn = (compiles.submit(lowered.compile, FAST) if compiles is not None
-          else SimpleNamespace(result=lambda: lowered.compile(FAST)))
+    opts = CYCLE_FAST if kw["loss_mode"] == "cycle" else FAST
+    fn = (compiles.submit(lowered.compile, opts) if compiles is not None
+          else SimpleNamespace(result=lambda: lowered.compile(opts)))
 
     def run():
         nonlocal jstate
@@ -349,9 +350,8 @@ def test_sp_first_step_matches_one_process(job, name):
 
 def test_ranks_pool_blocks_and_refusals(job):
     """A rank bridges its block of the JAX state's pool (slots of its data
-    row, its rows and columns); a spatial config in one process names the
-    world size, the pix2pix nets and a row across hosts their open
-    items."""
+    row, its rows and columns); a spatial config in one process, the
+    semantic nets' or the pix2pix pair's, names the world size."""
     cases, _, _ = job
     kw = CASES["resnet_d2s2"]
     js = cases["resnet_d2s2"]["states"][0]
@@ -368,7 +368,7 @@ def test_ranks_pool_blocks_and_refusals(job):
     with pytest.raises(ValueError, match="= 4 ranks must equal the world "
                                          "size, 1"):
         tstep.build_step_fn(cfg)
-    with pytest.raises(NotImplementedError,
-                       match="parallel: spatial pix2pix"):
+    with pytest.raises(ValueError, match="= 4 ranks must equal the world "
+                                         "size, 1"):
         tstep.init_state(cfg.replace(use_pix2pix=True, loss_mode="p2p"),
                          torch.Generator(), "cpu")

@@ -32,6 +32,12 @@ RNGS = [jax.random.PRNGKey(10 + i) for i in range(3)]
 FAST = {"xla_backend_optimization_level": 0,
         "xla_llvm_disable_expensive_passes": True,
         "xla_cpu_use_fusion_emitters": False}
+# the cycle steps (four to six generator calls in one program) compile
+# 25-35% faster with the fusion emitters, to the same bits: the one-card
+# ResNet and U-Net cycle steps and the spatial cycle step of the parity
+# tests give bitwise equal outputs either way; the smaller programs of
+# the other files compile no faster with them
+CYCLE_FAST = {**FAST, "xla_cpu_use_fusion_emitters": True}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -181,17 +187,20 @@ def test_bf16_step_stores_the_pool_in_bf16_and_restores_tf32():
      "--mesh_space 2 x --mesh_space_w 1 = 2 ranks must equal the world "
      "size, 1"),
     ({"mesh_space": 2, "use_pix2pix": True, "loss_mode": "p2p"},
-     NotImplementedError,
-     "parallel: spatial pix2pix .*ROADMAP Queue 1, item 10"),
+     ValueError,
+     "--mesh_space 2 x --mesh_space_w 1 = 2 ranks must equal the world "
+     "size, 1"),
     ({"mesh_data": 2}, ValueError,
      "--mesh_data 2 must equal the world size, 1")])
 def test_unported_modes_raise_naming_the_roadmap(kw, err, what):
-    """The spatial step of the pix2pix nets is not ported and names its
-    ROADMAP item; ``--mesh_space 2`` (one process) and ``--mesh_data 2``
-    outside a group of 2 ranks (none here, then a group of this process
-    alone, passed where the JAX step took ``axis_name``) name the numbers
-    and the world size."""
+    """``--mesh_space 2`` (the semantic nets or the pix2pix pair) and
+    ``--mesh_data 2`` outside a group of 2 ranks (none here, then a group
+    of this process alone, passed where the JAX step took ``axis_name``)
+    name the numbers and the world size; at its own world size each mode
+    passes ``mesh.check_space``, and a spatial one's step builds (on a
+    grid of that size)."""
     from _torch_dist import one_rank_group
+    from sggan_tpu_torch.parallel import mesh, spatial_step
     cfg = Config(**{**KW, **kw})
     with pytest.raises(err, match=what):
         tstep.build_step_fn(cfg)
@@ -200,6 +209,12 @@ def test_unported_modes_raise_naming_the_roadmap(kw, err, what):
     with one_rank_group() as group:
         with pytest.raises(err, match=what):
             tstep.build_step_fn(cfg, group)
+    sizes = (cfg.mesh_data, cfg.mesh_space, cfg.mesh_space_w)
+    mesh.check_space(cfg, int(np.prod(sizes)))
+    if mesh.is_spatial(cfg):
+        edge = mesh.Axis(None, None, None)
+        grid = mesh.Grid(*sizes, 0, 0, 0, 0, None, None, edge, edge, None)
+        assert callable(spatial_step.build_sp_step_fn(cfg, grid))
 
 
 def test_init_state_refuses_cuda_without_a_gpu():

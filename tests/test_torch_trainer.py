@@ -244,16 +244,29 @@ def test_main_without_a_gpu_is_an_error(tmp_path, monkeypatch):
      "--mesh_data 2 must equal the world size, 1"),
     (dict(mesh_space=2), ValueError, "= 2 ranks must equal the world "
      "size, 1"),
-    (dict(mesh_space=2, use_pix2pix=True, loss_mode="p2p"),
-     NotImplementedError, "parallel: spatial pix2pix")])
+    (dict(mesh_space=2, use_pix2pix=True, use_resnet=False,
+          loss_mode="p2p"), ValueError,
+     "= 2 ranks must equal the world size, 1")])
 def test_trainer_refuses_what_is_not_ported(dataset, tmp_path, cfg_kw, err,
                                             what):
-    """The pix2pix nets' spatial step is not ported; ``--mesh_data 2`` and
-    ``--mesh_space 2`` need groups of 2 ranks
-    (tests/test_torch_dp_trainer.py and test_torch_spatial_trainer.py run
-    them)."""
+    """``--mesh_data 2`` and ``--mesh_space 2`` (the semantic nets or the
+    pix2pix pair) train in groups of 2 ranks
+    (tests/test_torch_dp_trainer.py, test_torch_spatial_trainer.py and
+    test_torch_spatial_pix2pix_step.py run them); a spatial config's
+    ``--phase test`` builds in one process with its discriminator (the
+    semantic one's patch head, or the pix2pix one)."""
+    from sggan_tpu_torch.parallel import mesh
+    cfg = _cfg(dataset, tmp_path, **cfg_kw)
     with pytest.raises(err, match=what):
-        Trainer(_cfg(dataset, tmp_path, **cfg_kw), device="cpu")
+        Trainer(cfg, device="cpu")
+    if mesh.is_spatial(cfg):
+        tr = Trainer(cfg.replace(phase="test"), device="cpu")
+        assert tr.grid is None and tr.world == 1
+        disc = tr.state.disc_params
+        if cfg.use_pix2pix:
+            assert type(disc).__name__ == "DiscriminatorPix2pix"
+        else:
+            assert disc.head == "patch"
 
 
 def test_trainer_trains_under_remat(dataset, tmp_path):
