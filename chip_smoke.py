@@ -24,8 +24,9 @@ and of the fixed-shape forward.  Run from the repository root:
 Phases, each of which raises on failure:
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build both kernel sources (csrc/instance_norm.cu, csrc/conv3_in.cu)
-     with nvcc, side by side; registers, spills and static shared memory
-     of every kernel;
+     with nvcc, side by side, and the zstd decoder (csrc/zstd_decode.cpp,
+     host code) with g++ beside them; registers, spills and static
+     shared memory of every kernel;
   3. the kernel against its plain PyTorch version on the card, at the
      four (shape, act) pairs of the generator's 23 instance-norm sites,
      batch 1 and 16, f32 and bf16, with its plan; two calls bitwise
@@ -318,10 +319,31 @@ Phases, each of which raises on failure:
      one process's.  Alone: ``python -c "import chip_smoke;
      chip_smoke.sp_alone()"``.
 
+  38. the JAX package's Orbax checkpoints (main path), at the end of
+     phase 29's fresh process: the zstd decoder built from
+     csrc/zstd_decode.cpp with g++ (in phase 2); for each committed
+     fixture of ``tests/golden/orbax/`` (the JAX package's CLI's
+     ``cp-0000``: the ResNet sggan with ``--gen_ema``, the pix2pix pair
+     with its BN states, the ResNet cycle mode; ngf and ndf 1, 32x64,
+     f32): ``--phase test`` (" [*] Load SUCCESS (JAX Orbax cp-0000)"; its
+     forward in f32, TF32 off, against the JAX package's at phase 4's
+     limit, its PNG within one level), the service on it
+     (``checkpoint_loaded: true``, a POST within one level), then
+     ``--continue_train`` of 2 steps through the step's CUDA graph: the
+     loaded state equal to the fixture's per-leaf SHA-256 bit for bit,
+     K1's calls exactly the cell's (31, 0 or 154 a step at 32x64, at its
+     warm-ups and capture, and the eval's forward graph), the run going on from
+     the saved step, ``cp-0001.pt`` written and the JAX directories left
+     as they were; then the decoder's MB/s on the host over the
+     fixtures' frames repeated to 200 MB of output, with the host CPU
+     and the card.  Alone: ``python -c "import chip_smoke;
+     chip_smoke.orbax_alone()"``.
+
 Prints a JSON line of the trainer's and the preprocess's rates, one of
 the default nets' numbers, one of the cycle mode's, one of the inference
 cell's, one of the CUDA graphs', one of phases 30-32, one of phases
-33-35, one of phase 36, one of phase 37, a JSON line of the kernels
+33-35, one of phase 36, one of phase 37, one of phase 38, a JSON line of
+the kernels
 (K1's entries with ``launches_dp``, and K1's split entries
 ``instance_norm_sp_fwd`` / ``_bwd``), then as the last line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing neither,
@@ -3637,13 +3659,15 @@ def graphs_phase(card: str, dev) -> dict:
 
 def graphs_hist_phases(card: str, dev) -> dict:
     """Phase 29's step cells (``graphs_phase``), then its forward graphs
-    (``forward_graph_gate``), then phase 33 (``hist_phase``), in one fresh
+    (``forward_graph_gate``), then phase 33 (``hist_phase``), then phase
+    38 (``orbax_phase``, beside phase 28's host work), in one fresh
     process: the profiler windows that count K1's kernels come in its
     first minutes, each taken again when a trace drops one
     (``k1_window``)."""
     graphs = graphs_phase(card, dev)
     graphs["forward"] = forward_graph_gate(card, dev)
-    return {"graphs": graphs, "hist": hist_phase(card, dev)}
+    return {"graphs": graphs, "hist": hist_phase(card, dev),
+            "orbax": orbax_phase(card, dev)}
 
 
 # ----------------------------------------------------------------------
@@ -6119,6 +6143,281 @@ def sp_alone() -> int:
     return 0
 
 
+# ----------------------------------------------------------------------
+# The JAX package's Orbax checkpoints (phase 38)
+# ----------------------------------------------------------------------
+
+# the committed fixtures: the JAX package's CLI's checkpoints, each with
+# its flags, its state's per-leaf SHA-256 and its test-phase forward
+# (tests/make_orbax_fixtures.py)
+ORBAX_DIR = os.path.join(REPO, "tests", "golden", "orbax")
+ORBAX_DATASET = os.path.join(ORBAX_DIR, "dataset", "city")
+# K1's calls a step of each fixture's step at 32x64 (phase 36's part 1:
+# the semantic discriminator has fewer instance norms there than at
+# 256x512; the pix2pix pair has none) and of its generator's forward
+# (the eval's graph: 23 for a ResNet)
+ORBAX_K1 = {"sggan_resnet_ema": (31, 23), "pix2pix_p2p": (0, 0),
+            "cycle_resnet": (154, 23)}
+ORBAX_K = 2            # the resume's steps: one chunk through the graph
+ORBAX_MB = 200         # the decoder's output to time, at least
+ORBAX_TOL = SLICE_ATOL  # phase 4's f32 limit
+
+
+class _Tee(io.TextIOBase):
+    """stdout kept as well as shown."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_main(argv: list, dev) -> str:
+    """``sggan_tpu_torch.main`` in this process on ``dev``; its output."""
+    import contextlib
+
+    from sggan_tpu_torch import main as tmain
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        tmain.main(argv, device=str(dev))
+    return tee.buf.getvalue()
+
+
+def tree_digest(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for d, _, files in sorted(os.walk(path)):
+        for f in sorted(files):
+            h.update(os.path.relpath(os.path.join(d, f), path).encode())
+            with open(os.path.join(d, f), "rb") as fh:
+                h.update(fh.read())
+    return h.hexdigest()
+
+
+def orbax_frames() -> list:
+    """Every zarr chunk of every committed fixture: the zstd frames that
+    the JAX package's Orbax save wrote."""
+    from sggan_tpu_torch.utils import ocdbt
+    frames = []
+    for item in sorted(glob.glob(os.path.join(ORBAX_DIR, "*", "checkpoint",
+                                              "*", "*", "cp-*"))):
+        db = ocdbt.Database(item)
+        frames += [db.get(k) for k in db.keys()
+                   if not k.endswith(".zarray")]
+    return frames
+
+
+def orbax_decoder_rate(card: str) -> dict:
+    """The decoder's MB/s of output on this host: the fixtures' frames one
+    after another, that buffer repeated to ``ORBAX_MB`` MB of output,
+    decoded in one call (after one call on a copy of the frames)."""
+    from sggan_tpu_torch.utils import zstd
+    frames = orbax_frames()
+    blob = b"".join(frames)
+    once = zstd.decompress(blob, "the fixtures' frames").size
+    reps = math.ceil(ORBAX_MB * 1e6 / once)
+    big = blob * reps
+    t0 = time.perf_counter()
+    n = zstd.decompress(big, "the repeated frames").size
+    dt = time.perf_counter() - t0
+    need(n == once * reps, "the repeated frames decoded to another size")
+    rate = n / 1e6 / dt
+    cpu = host_cpu()
+    print(f"  zstd decoder (host C++): {len(frames)} frames of the fixtures "
+          f"({len(blob)} bytes -> {once} bytes) x {reps}: {n / 1e6:.1f} MB "
+          f"in {dt:.3f} s, {rate:.1f} MB/s of output, one thread of {cpu}; "
+          f"the card beside it: {card}")
+    return {"frames": len(frames), "compressed_bytes": len(blob) * reps,
+            "output_bytes": n, "s": dt, "mb_per_s": rate, "host_cpu": cpu}
+
+
+def orbax_case(case: str, dev, work: str) -> dict:
+    """One fixture through the port's CLI on the card: ``--phase test``
+    (the forward against the JAX package's, the PNG), the service on it,
+    then ``--continue_train`` of 2 steps through the step's graph with
+    the loaded state held bit for bit."""
+    from PIL import Image
+
+    from sggan_tpu_torch import serve as srv
+    from sggan_tpu_torch.config import parse_args
+    from sggan_tpu_torch.data.loader import load_test_triplet
+    from sggan_tpu_torch.data.preprocess import fake_u8
+    from sggan_tpu_torch.train import evaluate
+    from sggan_tpu_torch.train.trainer import Trainer
+    from sggan_tpu_torch.utils import bridge
+    from sggan_tpu_torch.utils import checkpoint as ckpt
+    from sggan_tpu_torch.utils.orbax import leaf_digests
+
+    with open(os.path.join(ORBAX_DIR, case, "fixture.json")) as f:
+        fx = json.load(f)
+    epoch = fx["epoch"]
+    run = os.path.join(work, case)
+    ck = os.path.join(run, "checkpoint")
+    shutil.copytree(os.path.join(ORBAX_DIR, case, "checkpoint"), ck)
+    parts = {p: os.path.join(ck, "city", p, f"cp-{epoch:04d}")
+             for p in ("gen", "disc", "train")}
+    before = {p: tree_digest(d) for p, d in parts.items()}
+    argv = ["--dataset_dir", ORBAX_DATASET, *fx["flags"], "--checkpoint_dir",
+            ck, *(x for d in ("sample", "test", "log")
+                  for x in (f"--{d}_dir", os.path.join(run, d)))]
+    want = np.load(os.path.join(ORBAX_DIR, case, "test_fake.npy"))
+    name = fx["test_files"][0]
+    out = {}
+
+    # --phase test: the PNG it writes, and its forward in f32 against the
+    # JAX package's at phase 4's limit
+    t0 = time.perf_counter()
+    log = run_main(["--phase", "test", *argv], dev)
+    need(f" [*] Load SUCCESS (JAX Orbax cp-{epoch:04d})" in log,
+         f"{case}: --phase test did not load the JAX checkpoint")
+    png_out = np.asarray(Image.open(os.path.join(run, "test", name)))
+    cfg = parse_args(["--phase", "test", *argv])
+    tr = Trainer(cfg, device=dev)
+    tr.state = ckpt.load(tr.state, cfg.checkpoint_dir, cfg.dataset_dir,
+                         pool=False)
+    x, _ = evaluate._test_inputs(tr, [load_test_triplet(
+        os.path.join(ORBAX_DATASET, "testA", name))])
+    y = evaluate.generate(cfg, evaluate.eval_generator(tr), x, tr.device,
+                          gen_bn=tr.state.gen_bn)
+    err = float(np.abs(np.asarray(y) - want).max())
+    u8 = fake_u8(torch.from_numpy(want)).numpy()[0]
+    png_err = int(np.abs(png_out.astype(int) - u8).max())
+    print(f"  {case}: --phase test on the card, f32 (TF32 off): max abs "
+          f"{err:.3g} against the JAX package's forward (limit "
+          f"{ORBAX_TOL}); its PNG within {png_err} level(s) of the JAX "
+          f"forward's; {time.perf_counter() - t0:.1f} s")
+    need(err <= ORBAX_TOL, f"{case}: the test forward is off the JAX one")
+    need(png_err <= 1, f"{case}: the test PNG is off the JAX forward's")
+    out.update(test_max_abs=err, test_png_levels=png_err)
+    del tr
+
+    # the service on it
+    t0 = time.perf_counter()
+    httpd = srv.serve(cfg, port=0, block=False, device=str(dev))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = httpd.server_address[1]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        with open(os.path.join(ORBAX_DATASET, "testA", name), "rb") as f:
+            status, data = post(port, f.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    served = np.asarray(Image.open(io.BytesIO(data)))
+    # the service's own uint8 rule (serve.py: truncation of (y + 1) / 2 * 255)
+    srv_want = ((want[0] + 1.0) / 2.0 * 255).astype(np.uint8)
+    srv_err = int(np.abs(served.astype(int) - srv_want).max())
+    print(f"  {case}: the service: /healthz {health}; POST {name}: {status}, "
+          f"within {srv_err} level(s) of the JAX forward's; "
+          f"{time.perf_counter() - t0:.1f} s")
+    need(health.get("checkpoint_loaded") is True,
+         f"{case}: the service loaded no checkpoint")
+    need(status == 200 and served.shape == want.shape[1:]
+         and srv_err <= 1, f"{case}: the service's PNG is off")
+    out.update(service_levels=srv_err)
+
+    # --continue_train: the loaded state bit for bit, K1's calls exact,
+    # the next checkpoint numbered after the JAX one, the JAX one kept
+    t0 = time.perf_counter()
+    loaded = {}
+    load = ckpt.load
+
+    def kept(*a, **kw):
+        st = load(*a, **kw)
+        if st is not None:
+            loaded["leaves"] = leaf_digests(bridge.train_state_to_jax(st))
+        return st
+    ckpt.load = kept
+    reset_k1()  # the main path starts here
+    try:
+        log = run_main(["--phase", "train", "--continue_train", "--epoch",
+                        "1", "--scan_steps", str(ORBAX_K), *argv], dev)
+    finally:
+        ckpt.load = load
+    counts, routes = read_k1()
+    k_step, k_gen = ORBAX_K1[case]
+    from sggan_tpu_torch.train.fused import WARMUP_STEPS
+    want_k1 = {"fwd": (WARMUP_STEPS + 1) * k_step + FWD_GRAPH_CALLS * k_gen,
+               "bwd": (WARMUP_STEPS + 1) * k_step}
+    same = sum(loaded.get("leaves", {}).get(k) == v
+               for k, v in fx["leaves"].items())
+    print(f"  {case}: --continue_train {ORBAX_K} steps: {same} of "
+          f"{len(fx['leaves'])} leaves of the loaded state bit for bit; K1 "
+          f"calls {counts} by route {routes} (want {want_k1}: the step's "
+          f"{k_step} each way at its {WARMUP_STEPS} warm-up steps and its "
+          f"capture, the eval's forward graph {FWD_GRAPH_CALLS} x {k_gen}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    need(f" [*] Load SUCCESS (JAX Orbax cp-{epoch:04d})" in log,
+         f"{case}: --continue_train did not load the JAX checkpoint")
+    need(loaded.get("leaves") == fx["leaves"],
+         f"{case}: the loaded state is not the fixture's bit for bit")
+    need_captured(log, k_step, ORBAX_K)
+    need(counts == want_k1, f"{case}: K1's calls are not the cell's")
+    m = re.search(r"Training finished: step (\d+)", log)
+    need(m and int(m.group(1)) == fx["step"] + ORBAX_K,
+         f"{case}: the resume did not go on from step {fx['step']}")
+    for p, d in parts.items():
+        need(os.path.isfile(os.path.join(ck, "city", p,
+                                         f"cp-{epoch + 1:04d}.pt")),
+             f"{case}: no {p}/cp-{epoch + 1:04d}.pt after the resume")
+        need(tree_digest(d) == before[p],
+             f"{case}: the resume changed the JAX {p} checkpoint")
+    out.update(leaves=len(fx["leaves"]), k1=counts, k1_routes=routes)
+    return out
+
+
+def orbax_phase(card: str, dev) -> dict:
+    """Phase 38, at the end of ``graphs_hist_phases``'s fresh process: the
+    JAX package's Orbax checkpoints through the port's CLI on the card
+    (``orbax_case``), each committed fixture in turn, then the decoder's
+    rate (``orbax_decoder_rate``)."""
+    from sggan_tpu_torch.utils import zstd
+    phase("38 the JAX package's Orbax checkpoints (main path): resume, "
+          "test and serve each committed fixture on the card; the zstd "
+          "decoder's MB/s")
+    t_phase = time.perf_counter()
+    zstd.build()
+    cases = sorted(d for d in os.listdir(ORBAX_DIR)
+                   if os.path.isfile(os.path.join(ORBAX_DIR, d,
+                                                  "fixture.json")))
+    need(cases == sorted(ORBAX_K1), f"fixtures {cases}")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = tempfile.mkdtemp(prefix="orbax_", dir=REPO)
+    try:
+        res = {c: orbax_case(c, dev, work) for c in cases}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(work, ignore_errors=True)
+    rate = orbax_decoder_rate(card)
+    dt = time.perf_counter() - t_phase
+    print(f"  phase 38: {dt:.1f} s")
+    return {"cases": res, "decoder": rate, "s": dt}
+
+
+def orbax_alone() -> int:
+    """Phase 38 by itself (``python -c "import chip_smoke;
+    chip_smoke.orbax_alone()"``): K1's build, then the phase."""
+    from sggan_tpu_torch.ops import _build
+    card, dev = card_line(), torch.device("cuda")
+    print(card)
+    _build.build("instance_norm")
+    print(json.dumps({"orbax": orbax_phase(card, dev)}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -6147,10 +6446,17 @@ def main() -> int:
     phase("2 build")
     t0 = time.perf_counter()
     names = ("instance_norm", "conv3_in")
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc each, together
+    from sggan_tpu_torch.utils import zstd
+    # one nvcc each and g++ for the zstd decoder (phase 38), together
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(_build.build_host, "sgzstd",
+                           [_build.CSRC / zstd.SOURCE])
         built = list(pool.map(_build.build, names))
-    print(f"built {', '.join(lib.name for lib, _, _ in built)} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    zlib, _, zfresh = host.result()
+    print(f"built {', '.join(lib.name for lib, _, _ in built)} and "
+          f"{zlib.name} in {time.perf_counter() - t0:.2f} s")
+    print(f"  zstd_decode (g++, host code): "
+          f"{'compiled' if zfresh else 'already built'}")
     for name, (lib, log, fresh) in zip(names, built):
         print(f"  {name}: {'compiled' if fresh else 'already built'}; "
               "ptxas:")
@@ -6706,8 +7012,9 @@ def main() -> int:
         procs += [tf_job, selftest, crf_big]
         phase("29 CUDA graphs (main path): --scan_steps K in every loss "
               "mode, eager beside the graph; the forward graphs")
-        fresh = run_fresh(card, "graphs_hist_phases", 900)
-        graphs, hist = fresh["graphs"], fresh["hist"]
+        fresh = run_fresh(card, "graphs_hist_phases", 960)
+        graphs, hist, orbax_res = fresh["graphs"], fresh["hist"], \
+            fresh["orbax"]
         for d, e in (("fwd", errs), ("bwd", bwd_errs)):
             for dt in (torch.float32, torch.bfloat16):
                 e[dt] = max(e[dt], hist["k1_max_abs_err"][d][str(dt)[6:]])
@@ -6989,6 +7296,16 @@ def main() -> int:
                   "one-process --phase test; one step at "
                   f"{SP_WIDE[0]}x{SP_WIDE[1]} b={SP_WIDE[2]} on a 2 x 2 grid",
         **sp_res}}))
+    print(card)
+    print(json.dumps({"orbax": {
+        "config": "phase 38: the committed fixtures of tests/golden/orbax "
+                  "(the JAX package's CLI's checkpoints: the ResNet sggan "
+                  "with --gen_ema, the pix2pix pair, the ResNet cycle "
+                  "mode; ngf and ndf 1, 32x64, f32) through the port's "
+                  "--phase test, the service and --continue_train of "
+                  f"{ORBAX_K} steps through the step's graph; the zstd "
+                  f"decoder over their frames repeated to {ORBAX_MB} MB",
+        **orbax_res}}))
     from sggan_tpu_torch.perf_in import EVENT_TIMED
     print(f"  profiler: {len(EVENT_TIMED)} device_ms calls found no kernel "
           f"in any trace and were timed by CUDA events: {EVENT_TIMED}")

@@ -6,7 +6,8 @@ It goes into ``sggan_tpu_torch/_build/`` (ignored by git), named by a
 hash of the source and the flags, so an edited source builds anew.
 ``build_host`` builds host C++ the same way with ``g++`` (``$CXX``): the
 dense CRF's permutohedral lattice from ``native/crf/`` (``metrics/crf.py``),
-whose tracked directory it only reads.
+whose tracked directory it only reads, and the zstd decoder
+``csrc/zstd_decode.cpp`` (``utils/zstd.py``).
 Nothing here runs at import: the CPU tests import every module on a
 machine without nvcc.
 """
@@ -92,8 +93,9 @@ def build_host(name: str, files: Sequence[Path]) -> Tuple[Path, str, bool]:
     ``native/crf/Makefile`` does, unless it exists (see ``_compile``)."""
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
-        raise RuntimeError("g++ not found (PATH, $CXX): the native CRF is "
-                           "built from native/crf/ at first use")
+        raise RuntimeError("g++ not found (PATH, $CXX): the host libraries "
+                           "(the native CRF, the zstd decoder) are built "
+                           "at first use")
     return _compile(name, files, cxx, CXX_FLAGS)
 
 

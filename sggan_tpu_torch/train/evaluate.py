@@ -225,11 +225,12 @@ def run_test(tr) -> None:
     cfg = tr.cfg
     if not tr.is_coord:
         return
+    loaded = ckpt.source(cfg.checkpoint_dir, cfg.dataset_dir)
     restored = ckpt.load(tr.state, cfg.checkpoint_dir, cfg.dataset_dir,
                          pool=False)
     if restored is not None:
         tr.state = restored
-        print(" [*] Load SUCCESS")
+        print(f" [*] Load SUCCESS ({loaded})")
     else:
         print(" [!] Load failed...")
     os.makedirs(cfg.test_dir, exist_ok=True)

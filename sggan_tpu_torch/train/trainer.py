@@ -312,7 +312,8 @@ class Trainer:
                 if self.group is not None:
                     dp.broadcast_state(self.state, self.group)
                 if self.is_coord:
-                    print(" [*] Load SUCCESS")
+                    print(" [*] Load SUCCESS (" + ckpt.source(
+                        cfg.checkpoint_dir, cfg.dataset_dir, loaded) + ")")
             else:
                 print(" [!] Load failed...")
         elif self.is_coord:

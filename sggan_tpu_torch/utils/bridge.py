@@ -42,7 +42,8 @@ with ``--mesh_space`` the rank ``(d * S + s) * W + w`` takes its block
 (``train_state_from_jax(..., rank, n_data=D)``), and
 ``train_state_to_jax(state, grid=grid)`` puts every rank's back.
 
-Takes anything ``np.asarray`` reads, so it needs no JAX import.
+Takes anything ``np.asarray`` reads, so it needs no JAX import; a
+bfloat16 pool (the default ``--compute_dtype``'s) comes over bit for bit.
 """
 
 from __future__ import annotations
@@ -58,9 +59,22 @@ from ..train.cycle import new_cycle_nets
 from ..train.pool import PoolState, rank_rows
 from ..train.step import (AdamState, TrainState, new_discriminator,
                           new_generator)
+from .orbax import BF16_BITS
 
 _TF_TO_TORCH = (3, 2, 0, 1)
 _TORCH_TO_TF = (2, 3, 1, 0)
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """An array as a tensor of its bits: a bfloat16 one (``ml_dtypes``'s,
+    as ``np.asarray`` of a JAX array gives it, or the Orbax reader's
+    ``BF16_BITS``) as ``torch.bfloat16``, which ``torch.from_numpy``
+    refuses."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_BITS:
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def params_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -144,7 +158,7 @@ def train_state_from_jax(cfg, state, device="cpu", rank: int = 0,
     else:
         buf = rank_rows({k: np.asarray(v) for k, v in buf.items()}, rank,
                         rows // n_data)
-    pool = PoolState({k: torch.from_numpy(np.array(v)).to(device)
+    pool = PoolState({k: tensor_from_numpy(v).to(device)
                       for k, v in buf.items()},
                      int(np.asarray(state.pool.count)))
     ema = None

@@ -13,8 +13,15 @@ run continues the count's sequence).
 loaded onto the template's device, so a round trip is exact.
 
 The ``.pt`` suffix keeps these apart from the JAX package's Orbax
-directories ``cp-NNNN`` in the same tree: importing those is ROADMAP
-Queue 1, item 2.
+directories ``cp-NNNN`` in the same tree, which ``latest_epoch`` and
+``load`` read as well (``utils/orbax.py``, no JAX needed): a run pointed
+at a JAX run's ``--checkpoint_dir`` resumes, tests and serves from it.
+The newest number wins, the ``.pt`` at a tie; ``source`` names the one
+that ``load`` takes (`` [*] Load SUCCESS (JAX Orbax cp-0007)``).  The
+JAX state becomes the port's through the bridge's converters
+(``utils/bridge.py``), the pool as a ``.pt`` pool does.  The port writes
+only ``.pt`` files and prunes only its own: it never deletes or rewrites
+a JAX ``cp-NNNN`` directory.
 
 A data-parallel job (``--mesh_data N``, ``parallel/dp.py``) saves as the
 JAX package's multi-process save does (trainer.py:215-227): every rank
@@ -32,10 +39,14 @@ from __future__ import annotations
 
 import os
 import re
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 
+from . import orbax
+from .bridge import (_adam_from_jax, _bn_from_jax, params_from_jax,
+                     tensor_from_numpy)
 from ..parallel import dp
 from ..parallel.distributed import rank, world_size
 from ..parallel.spatial_step import global_shape, global_pool, pool_block
@@ -43,6 +54,7 @@ from ..train.pool import PoolState, rank_rows
 from ..train.step import AdamState, TrainState
 
 _CP_RE = re.compile(r"cp-(\d+)\.pt$")
+_JAX_RE = re.compile(r"cp-(\d+)$")  # the JAX package's Orbax directories
 MAX_TO_KEEP = 3  # parity with the dormant CheckpointManager (model.py:88-89)
 PARTS = ("gen", "disc", "train")
 
@@ -69,7 +81,9 @@ def _adam(opt: AdamState) -> dict:
     return {"count": opt.count, "mu": opt.mu, "nu": opt.nu}
 
 
-def _adam_state(d: dict, device) -> AdamState:
+def _adam_state(d, device) -> AdamState:
+    if isinstance(d, AdamState):  # a JAX checkpoint's, bridged
+        return d
     # a count saved as a Python int (before it became a tensor) is read too
     return AdamState(torch.as_tensor(d["count"], dtype=torch.int32,
                                      device=device), d["mu"], d["nu"])
@@ -118,11 +132,75 @@ def _write(state: TrainState, buffer: dict, root: str, epoch: int) -> None:
                 os.remove(_path(root, name, old))
 
 
-def latest_epoch(checkpoint_dir: str, dataset_dir: str) -> Optional[int]:
+def _jax_steps(path: str):
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(m.group(1)) for m in map(_JAX_RE.match,
+                                                os.listdir(path))
+                  if m and os.path.isdir(os.path.join(path, m.group(0))))
+
+
+def _complete(root: str, steps) -> set:
+    return set.intersection(*(set(steps(os.path.join(root, p)))
+                              for p in PARTS))
+
+
+def _find(checkpoint_dir: str, dataset_dir: str,
+          epoch: Optional[int] = None):
+    """(epoch, is_jax) of the checkpoint to load: ``epoch``'s, else the
+    newest number that has all three parts in either format; the port's
+    ``.pt`` at a tie.  None when there is none."""
     root = _ckpt_root(checkpoint_dir, dataset_dir)
-    common = set.intersection(*(set(_steps(os.path.join(root, p)))
-                                for p in PARTS))
-    return max(common) if common else None
+    pt, jx = _complete(root, _steps), _complete(root, _jax_steps)
+    if epoch is None:
+        if not pt | jx:
+            return None
+        epoch = max(pt | jx)
+    if epoch in pt:
+        return epoch, False
+    return (epoch, True) if epoch in jx else None
+
+
+def latest_epoch(checkpoint_dir: str, dataset_dir: str) -> Optional[int]:
+    found = _find(checkpoint_dir, dataset_dir)
+    return found[0] if found else None
+
+
+def source(checkpoint_dir: str, dataset_dir: str,
+           epoch: Optional[int] = None) -> Optional[str]:
+    """What ``load`` reads: "cp-0007.pt" or "JAX Orbax cp-0007"."""
+    found = _find(checkpoint_dir, dataset_dir, epoch)
+    if found is None:
+        return None
+    return f"JAX Orbax cp-{found[0]:04d}" if found[1] \
+        else f"cp-{found[0]:04d}.pt"
+
+
+def _read_jax(root: str, epoch: int, device):
+    """The three parts of the JAX package's Orbax checkpoint ``epoch`` in
+    the ``.pt`` parts' form: state dicts, BN and Adam states on
+    ``device``, the pool buffers by name (a JAX pool of one array holds
+    the "fake" one), the pool count and the step as ints."""
+    gen, disc, tr = (orbax.read(os.path.join(root, p, f"cp-{epoch:04d}"))
+                     for p in PARTS)
+
+    def net(part):
+        return {"params": params_from_jax(part["params"]),
+                "bn": _bn_from_jax(part.get("bn", {}), device),
+                "opt": _adam_from_jax(SimpleNamespace(**part["opt"]),
+                                      device)}
+
+    g, d = net(gen), net(disc)
+    if "ema" in gen:
+        g["ema"] = {k: v.to(device)
+                    for k, v in params_from_jax(gen["ema"]).items()}
+    buf = tr["pool_buffer"]
+    if not isinstance(buf, dict):
+        buf = {"fake": buf}
+    t = {"pool_buffer": {k: tensor_from_numpy(v).to(device)
+                         for k, v in buf.items()},
+         "pool_count": int(tr["pool_count"]), "step": int(tr["step"])}
+    return g, d, t
 
 
 def load(template: TrainState, checkpoint_dir: str, dataset_dir: str,
@@ -138,17 +216,18 @@ def load(template: TrainState, checkpoint_dir: str, dataset_dir: str,
     does not train (the test phase, the service), whatever job wrote
     it."""
     root = _ckpt_root(checkpoint_dir, dataset_dir)
-    if epoch is None:
-        epoch = latest_epoch(checkpoint_dir, dataset_dir)
-    if epoch is None:
+    found = _find(checkpoint_dir, dataset_dir, epoch)
+    if found is None:
         return None
+    epoch, is_jax = found
     dev = next(template.gen_params.parameters()).device
 
     def read(part):
         return torch.load(_path(root, part, epoch), map_location=dev,
                           weights_only=True)
 
-    gen, disc, tr = read("gen"), read("disc"), read("train")
+    gen, disc, tr = _read_jax(root, epoch, dev) if is_jax else \
+        (read("gen"), read("disc"), read("train"))
     template.gen_params.load_state_dict(gen["params"])
     template.disc_params.load_state_dict(disc["params"])
     ema = gen.get("ema")

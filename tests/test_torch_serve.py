@@ -232,8 +232,10 @@ def test_cuda_device_without_gpu_is_an_error(tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """The card's machine has no JAX: the port (and so chip_smoke.py)
-    must serve a forward and take a train step without importing it or
-    any module of the JAX package."""
+    must serve a forward, take a train step and load a JAX package Orbax
+    checkpoint (a committed fixture, ``tests/golden/orbax/``) without
+    importing it, any module of the JAX package, or what reads Orbax
+    files there (orbax, tensorstore, zstandard, ml_dtypes)."""
     code = f"""
 import sys
 import numpy as np
@@ -256,8 +258,16 @@ batch = {{"real_a": torch.rand(1, 32, 32, 3, generator=g),
 state, m = step.build_step_fn(cfg)(state, batch, 1e-3,
                                    pool.pool_draws(g, 1, 2))
 assert state.step == 1 and all(np.isfinite(v.item()) for v in m.values())
-bad = sorted(m for m in sys.modules if m in ("jax", "sggan_tpu")
-             or m.startswith(("jax.", "sggan_tpu.")))
+from sggan_tpu_torch.config import parse_args
+from sggan_tpu_torch.utils import checkpoint
+import json
+fx = "tests/golden/orbax/sggan_resnet_ema"
+cfg = parse_args(json.load(open(fx + "/fixture.json"))["flags"])
+loaded = checkpoint.load(step.init_state(cfg, g, device="cpu"),
+                         fx + "/checkpoint", "city")
+assert loaded is not None and loaded.step == 2 and loaded.ema
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "sggan_tpu", "orbax", "tensorstore", "zstandard", "ml_dtypes"))
 assert not bad, bad
 print("ok")
 """
