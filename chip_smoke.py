@@ -274,21 +274,29 @@ Phases, each of which raises on failure:
      of one shard's step, the ranks' replicas bitwise equal.  Part 2
      (main path): ``python -m sggan_tpu_torch.main --mesh_data 2``
      (ResNet sggan, 256x512 bf16, 8 files a step doubled to 16, 8 a rank,
-     one epoch of 4 steps) with equal finite losses on both ranks, 37 +
-     37 K1 calls a step per rank, only rank 0 printing and writing the
+     one epoch of 4 steps) at the CLI's defaults, each rank on the split
+     resident on its card (its line printed) in a chunk of eager steps,
+     then the same on the host iterator (``--device_dataset_mb 0``) in
+     the same processes: equal finite losses on both ranks, 37 + 37 K1
+     calls a step per rank, only rank 0 printing and writing the
      checkpoint (both ranks' pool rows), the eval's PNGs and the
-     tfevents; each rank's step ms, busy, idle share, the all-reduce's ms
-     from a profiler window and the bytes reduced a step, beside phase
-     16's one-process loop step (two ranks sharing one card, not a
-     scaling number); a one-process ``--phase test`` of that checkpoint;
-     a two-rank ``--continue_train``.  The ranks import no JAX module.
+     tfevents; each rank's step ms, busy, idle share and the
+     all-reduce's ms from a profiler window, resident beside host, and
+     the bytes reduced a step, beside phase 16's one-process loop step
+     (two ranks sharing one card, not a scaling number); a one-process
+     ``--phase test`` of that checkpoint; a two-rank
+     ``--continue_train``, then in its ranks the p2p ResNet (f32,
+     128x256, 4 files a step doubled, 2 steps, cuDNN deterministic) on
+     both paths, its resident epoch loss within rel 1e-4 of the host
+     iterator's.  The ranks import no JAX module.
      Alone: ``python -c "import chip_smoke; chip_smoke.dp_alone()"``.
   37. Spatial sharding, ``--mesh_space`` (gloo ranks sharing the card;
      NCCL over 2 cards where the machine has them, else "nccl: not run, 1
      card").  Part 2 (main path, timed, after phase 36's): ``python -m
      sggan_tpu_torch.main --mesh_space 2`` (ResNet sggan, 256x512 bf16,
      ngf and ndf 64, 34 classes, b=8 doubled to 16, one epoch of 4
-     steps) with equal finite losses on both ranks, exactly 29 calls of
+     steps, on the split resident on each rank, its line printed) with
+     equal finite losses on both ranks, exactly 29 calls of
      each of K1's four split entries a step per rank and no one-card K1
      call but the coordinator's eval, the checkpoint's pool in the JAX
      global layout;
@@ -298,10 +306,9 @@ Phases, each of which raises on failure:
      batch; K1's split passes timed at a rank's resblock block beside the
      twin and ``F.instance_norm``.  Then, in the same two processes, the
      CLI with ``--use_pix2pix --loss_mode p2p`` (ngf and ndf 64,
-     dropout): equal finite losses and each rank's whole state bitwise
-     equal (both nets' BN states in it), no K1 call, the checkpoint with
-     both nets' BN
-     states; each rank's step, busy, idle, the gathers' bytes and
+     dropout) on the host iterator: equal finite losses and each rank's
+     whole state bitwise equal (both nets' BN states in it), no K1 call,
+     the checkpoint with both nets' BN states; each rank's step, busy, idle, the gathers' bytes and
      collectives a step and the ``sp.gather`` range, the halos and the BN
      moments, a step's peak beside one process's.  Beside phase 26: part
      1's 2-rank jobs, part 2's ``--continue_train`` (both runs) and the
@@ -4731,6 +4738,32 @@ DP_CLI_ARGS = ["--batch_size", str(DP_CLI_B), "--use_augmentation",
                "50", "--data_seed", "19", "--save_freq", "0",
                "--print_freq", "1", "--host_downscale", "2",
                "--train_size", str(DP_CLI_TRAIN), "--epoch", "1"]
+# the p2p ResNet in f32 at 128x256, 4 files a step doubled to 8 (4 a
+# rank), on both paths: no pool and no batch norm, so the mean of the
+# shards' means is the batch's, and the resident epoch's loss is held to
+# the host iterator's at DP_LOSS_REL over 2 steps, with cuDNN
+# deterministic (its atomics' run-to-run noise grows through Adam's
+# sign-like first updates); on a set of DP_P2P_TRAIN triplets
+# (``dp_p2p_dataset``), since the host iterator cuts --train_size after
+# its shuffle and the resident split before it, in both packages
+DP_P2P_B, DP_P2P_TRAIN, DP_LOSS_REL = 4, 8, 1e-4
+DP_P2P_ARGS = ["--batch_size", str(DP_P2P_B), "--use_augmentation",
+               "--img_height", str(H // 2), "--img_width", str(W // 2),
+               "--loss_mode", "p2p", "--use_resnet", "--segment_class",
+               str(N_CLASS), "--compute_dtype", "float32", "--data_seed",
+               "19", "--save_freq", "0", "--print_freq", "1",
+               "--host_downscale", "2", "--epoch", "1"]
+HOST_PATH = ["--device_dataset_mb", "0"]
+# part 2's runs: (flags, run directory, steps, dataset); "resident" is
+# the CLI's defaults (the split resident on each rank, --scan_steps 8)
+DP_STEPS_CLI = DP_CLI_TRAIN // DP_CLI_B
+DP_STEPS_P2P = DP_P2P_TRAIN // DP_P2P_B
+DP_RUNS = {"resident": (DP_CLI_ARGS, "dp_cli", DP_STEPS_CLI, "city"),
+           "host": (DP_CLI_ARGS + HOST_PATH, "dp_host", DP_STEPS_CLI,
+                    "city"),
+           "p2p": (DP_P2P_ARGS, "dp_p2p", DP_STEPS_P2P, "p2p"),
+           "p2p_host": (DP_P2P_ARGS + HOST_PATH, "dp_p2p_host",
+                        DP_STEPS_P2P, "p2p")}
 DP_CHILD = ("import sys, chip_smoke; "
             "sys.exit(chip_smoke.dp_rank(*sys.argv[1:]))")
 NCCL_CHILD = ("import sys, chip_smoke; "
@@ -4960,41 +4993,72 @@ def dp_parity_check(card: str, dev, work: str) -> dict:
     return res
 
 
-def dp_cli_rank(work: str, dev, resume: str = "0") -> dict:
-    """Part 2 in one rank: ``sggan_tpu_torch.main`` trains (or resumes)
-    the full-width ResNet sggan run over the ranks, with a profiler
-    window of 2 steps; returns this rank's losses, K1's calls, the step
-    and the window's numbers."""
+def dp_cli_rank(work: str, dev, resume: str = "0",
+                runs: str = "resident") -> dict:
+    """Part 2 in one rank: the runs of ``DP_RUNS`` named in ``runs``
+    (comma-separated) one after the other in this process, each
+    ``dp_cli_run``'s, the "resident" one resumed with ``resume`` "1":
+    {run: its numbers}."""
+    import gc
+    out = {}
+    for name in runs.split(","):
+        out[name] = dp_cli_run(work, dev, name,
+                               resume == "1" and name == "resident")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_cli_run(work: str, dev, name: str, resume: bool) -> dict:
+    """``sggan_tpu_torch.main`` trains (or resumes) part 2's run ``name``
+    over the ranks, the sggan runs with a profiler window of 2 steps, the
+    p2p runs with cuDNN deterministic; returns this rank's losses, K1's
+    calls, the step and the window's numbers."""
     from sggan_tpu_torch import main as tmain
     from sggan_tpu_torch.parallel import dp
     from sggan_tpu_torch.train.trainer import Trainer
 
     r = torch.distributed.get_rank()
-    run = os.path.join(work, "dp_cli")
-    argv = ["--phase", "train", "--mesh_data", str(DP_N), *DP_CLI_ARGS,
-            "--dataset_dir", os.path.join(work, "datasets", "city"),
+    args, sub, steps, data = DP_RUNS[name]
+    run = os.path.join(work, sub)
+    argv = ["--phase", "train", "--mesh_data", str(DP_N), *args,
+            "--dataset_dir", os.path.join(work, "datasets", data),
             "--checkpoint_dir", os.path.join(run, "checkpoint"),
-            *(x for d in ("test", "sample", "log", "profile")
+            *(x for d in ("test", "sample", "log")
+              + (() if name.startswith("p2p") else ("profile",))
               for x in (f"--{d}_dir", os.path.join(run, f"{d}{r}")))]
-    if resume == "1":
+    if resume:
         argv.append("--continue_train")
-    runs = []
+    runs, losses = [], []
     train = Trainer.train
 
     def kept(self):
+        step = self.step_fn
+
+        def kept_losses(*a, **k):  # device scalars: no sync a step
+            state, m = step(*a, **k)
+            losses.append(m["gen_loss"])
+            return state, m
+        self.step_fn = kept_losses
         runs.append((self, train(self)))
         return runs[-1][1]
     Trainer.train = kept
     reset_k1()
     before = dp.bytes_reduced, dp.reductions
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = name.startswith("p2p")
     t0 = time.perf_counter()
-    tmain.main(argv)
+    try:
+        tmain.main(argv)
+    finally:
+        Trainer.train = train
+        torch.backends.cudnn.deterministic = det
     wall = time.perf_counter() - t0
     counts, routes = read_k1()
     tr, last = runs[-1]
-    steps = DP_CLI_TRAIN // DP_CLI_B
     win = tr._prof
     out = {"rank": r, "step": tr.state.step, "gen_loss": last["gen_loss"],
+           "step_losses": [float(x) for x in losses],
            "k1": counts, "k1_routes": routes, "seconds": wall,
            "bytes_reduced_per_step": (dp.bytes_reduced - before[0]) // steps,
            "all_reduces_per_step": (dp.reductions - before[1]) / steps}
@@ -5006,7 +5070,8 @@ def dp_cli_rank(work: str, dev, resume: str = "0") -> dict:
                    idle_share=1 - busy / wall_ms,
                    all_reduce_ms=comm.get("dp.all_reduce"),
                    window_steps=win.steps)
-    out["all_reduce_alone"] = dp_all_reduce_alone(tr, dev)
+    if name == "resident" and not resume:
+        out["all_reduce_alone"] = dp_all_reduce_alone(tr, dev)
     return out
 
 
@@ -5058,23 +5123,37 @@ def nccl_try() -> int:
 
 def dp_train(card: str, dev, work: str, e2e: dict) -> dict:
     """Phase 36, part 2 (main path): the full-width ResNet sggan CLI over
-    two gloo ranks sharing the card, alone on it (each rank's step is
-    timed): equal finite losses, K1's calls a step per rank, only rank 0
-    printing and writing, the checkpoint with both ranks' pool rows."""
+    two gloo ranks sharing the card, alone on it, at the CLI's defaults
+    (each rank on the split resident on its card, ``--scan_steps 8``),
+    then the same run on the host iterator in the same processes (each
+    rank's step is timed on both): equal finite losses, each rank's
+    resident line, K1's calls a step per rank, only rank 0 printing and
+    writing, the checkpoint with both ranks' pool rows."""
     from sggan_tpu_torch.utils.summary import read_scalars
 
     run = os.path.join(work, "dp_cli")
-    steps = DP_CLI_TRAIN // DP_CLI_B
-    outs = dp_wait(dp_start("cli", work, "0"), "train 1 epoch over 2 gloo "
-                   "ranks (python -m sggan_tpu_torch.main --mesh_data 2)",
-                   600)
-    res = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+    steps = DP_STEPS_CLI
+    outs = dp_wait(dp_start("cli", work, "0", "resident,host"),
+                   "train 1 epoch over 2 gloo ranks (python -m "
+                   "sggan_tpu_torch.main --mesh_data 2) on the resident "
+                   "split, then on the host iterator", 600)
+    both = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+    res, host = [x["resident"] for x in both], [x["host"] for x in both]
     for o in outs:
         need("imported JAX modules: []" in o[1], "a dp rank imported JAX")
-    losses = [x["gen_loss"] for x in res]
-    need(math.isfinite(losses[0]) and losses[0] == losses[1],
-         f"the ranks' epoch losses {losses}")
-    need(all(x["step"] == steps for x in res), "the ranks' steps")
+    for r, o in enumerate(outs):
+        need(f" [*] training split resident on device on rank {r} ("
+             in o[1], f"rank {r} did not hold the split on its card")
+    need("from the split resident on each rank's card; --scan_steps 8: "
+         "chunks of 8 eager steps" in outs[0][1]
+         and "from the host iterator (the split is not resident: "
+         "--device_dataset_mb 0)" in outs[0][1],
+         "the coordinator did not print each run's path")
+    for xs in (res, host):
+        losses = [x["gen_loss"] for x in xs]
+        need(math.isfinite(losses[0]) and losses[0] == losses[1],
+             f"the ranks' epoch losses {losses}")
+        need(all(x["step"] == steps for x in xs), "the ranks' steps")
     need(" [*] data parallel over 2 ranks (gloo)" in outs[0][1]
          and "Epoch: [ 0]" in outs[0][1] and "Epoch:" not in outs[1][1],
          "only the coordinator prints the run's lines")
@@ -5092,49 +5171,72 @@ def dp_train(card: str, dev, work: str, e2e: dict) -> dict:
     need(not any(os.path.exists(os.path.join(run, f"{d}1"))
                  for d in ("test", "sample", "log")),
          "rank 1 wrote eval PNGs, samples or tfevents")
-    k1 = [x["k1"] for x in res]
     eval_fwd = 23 * FWD_GRAPH_CALLS
-    need(k1[1] == {"fwd": steps * LAUNCHES_PER_STEP,
-                   "bwd": steps * LAUNCHES_PER_STEP}
-         and k1[0] == {"fwd": steps * LAUNCHES_PER_STEP + eval_fwd,
-                       "bwd": steps * LAUNCHES_PER_STEP},
-         f"K1's calls per rank {k1}: {LAUNCHES_PER_STEP} + "
-         f"{LAUNCHES_PER_STEP} a step, and the coordinator's eval capture")
-    for x in res:
-        need("step_ms" in x and x["all_reduce_ms"],
+    for xs in (res, host):
+        k1 = [x["k1"] for x in xs]
+        need(k1[1] == {"fwd": steps * LAUNCHES_PER_STEP,
+                       "bwd": steps * LAUNCHES_PER_STEP}
+             and k1[0] == {"fwd": steps * LAUNCHES_PER_STEP + eval_fwd,
+                           "bwd": steps * LAUNCHES_PER_STEP},
+             f"K1's calls per rank {k1}: {LAUNCHES_PER_STEP} + "
+             f"{LAUNCHES_PER_STEP} a step, and the coordinator's eval "
+             "capture")
+    for x, h in zip(res, host):
+        need("step_ms" in x and x["all_reduce_ms"] and "step_ms" in h,
              f"rank {x['rank']}: no profiler window with the all-reduce")
         print(f"  [{card}] rank {x['rank']}, two ranks sharing one card, "
-              f"not a scaling number: step {x['step_ms']:.3f} ms "
-              f"(b={DP_CLI_B} doubled to {2 * DP_CLI_B}, "
-              f"{DP_CLI_B} a rank), device busy {x['busy_ms']:.3f} ms, "
-              f"idle {100 * x['idle_share']:.1f}% (profiler, "
-              f"{x['window_steps']} steps); dp.all_reduce "
-              f"{x['all_reduce_ms']:.3f} ms a step (the profiler's range: "
-              f"the gloo collective through host memory and its wait for "
-              f"the backward's kernels); {x['bytes_reduced_per_step']} "
-              f"bytes in {x['all_reduces_per_step']:g} all-reduces a step; "
-              f"each bucket alone, card idle: {x['all_reduce_alone']}; "
-              f"K1 {x['k1']}")
+              f"not a scaling number, b={DP_CLI_B} doubled to "
+              f"{2 * DP_CLI_B}, {DP_CLI_B} a rank (profiler, "
+              f"{x['window_steps']} steps): resident split step "
+              f"{x['step_ms']:.3f} ms, device busy {x['busy_ms']:.3f} ms, "
+              f"idle {100 * x['idle_share']:.1f}%, dp.all_reduce "
+              f"{x['all_reduce_ms']:.3f} ms; host iterator step "
+              f"{h['step_ms']:.3f} ms, busy {h['busy_ms']:.3f} ms, idle "
+              f"{100 * h['idle_share']:.1f}%, dp.all_reduce "
+              f"{h['all_reduce_ms']:.3f} ms (the profiler's range: the "
+              "gloo collective through host memory and its wait for the "
+              f"backward's kernels); {x['bytes_reduced_per_step']} bytes "
+              f"in {x['all_reduces_per_step']:g} all-reduces a step; each "
+              f"bucket alone, card idle: {x['all_reduce_alone']}; K1 "
+              f"{x['k1']}")
     print(f"  [{card}] beside phase 16's one-process loop step: "
           f"{e2e.get('loop_step_ms')} ms at b={2 * E2E_B} (busy "
           f"{e2e.get('loop_busy_ms')} ms, idle "
           f"{e2e.get('loop_idle_share')})")
-    return {"ranks": res,
-            "launches_dp": {d: k1[1][d] // steps for d in ("fwd", "bwd")}}
+    return {"ranks": res, "host_ranks": host,
+            "launches_dp": {d: res[1]["k1"][d] // steps
+                            for d in ("fwd", "bwd")}}
+
+
+def dp_p2p_dataset(work: str) -> None:
+    """``work``/datasets/p2p: the first DP_P2P_TRAIN train triplets of
+    the PNG set and its test split, as symlinks."""
+    src = os.path.join(work, "datasets", "city")
+    dst = os.path.join(work, "datasets", "p2p")
+    for sub in ("", "_seg", "_seg_class"):
+        os.makedirs(os.path.join(dst, "trainA" + sub))
+        for i in range(DP_P2P_TRAIN):
+            os.symlink(os.path.join(src, "trainA" + sub, f"s{i:04d}.png"),
+                       os.path.join(dst, "trainA" + sub, f"s{i:04d}.png"))
+        os.symlink(os.path.join(src, "testA" + sub),
+                   os.path.join(dst, "testA" + sub))
 
 
 def dp_follow_start(work: str) -> dict:
     """The rest of phase 36, started together beside phase 26 (which
     checks values; none of these is timed): part 1's parity ranks,
-    the two-rank ``--continue_train`` of part 2's checkpoint, one
-    process's ``--phase test`` of it, and the NCCL attempt."""
+    the two-rank ``--continue_train`` of part 2's checkpoint, then in the
+    same ranks the p2p ResNet on the resident split and on the host
+    iterator, one process's ``--phase test`` of it, and the NCCL
+    attempt."""
     run = os.path.join(work, "dp_cli")
     args = [*DP_CLI_ARGS, "--dataset_dir",
             os.path.join(work, "datasets", "city"), "--checkpoint_dir",
             os.path.join(run, "checkpoint"), "--test_dir",
             os.path.join(run, "test_one")]
+    dp_p2p_dataset(work)
     return {"parity": dp_start("parity", work),
-            "resume": dp_start("cli", work, "1"),
+            "resume": dp_start("cli", work, "1", "resident,p2p,p2p_host"),
             "test": [subprocess.Popen(
                 [sys.executable, "-m", "sggan_tpu_torch.main", "--phase",
                  "test", *args], cwd=run, env=repo_env(),
@@ -5145,13 +5247,15 @@ def dp_follow_start(work: str) -> dict:
 
 def dp_follow_check(card: str, dev, work: str, procs: dict) -> dict:
     """Waits for ``dp_follow_start``'s processes and holds them: the
-    parity (``dp_parity_check``), the resume at the saved step, the test
+    parity (``dp_parity_check``), the resume at the saved step, the p2p
+    ResNet's resident epoch against its host-iterator epoch, the test
     phase's load; prints NCCL's outcome."""
     run = os.path.join(work, "dp_cli")
-    steps = DP_CLI_TRAIN // DP_CLI_B
+    steps = DP_STEPS_CLI
     dp_wait(procs["parity"], "part 1, the parity ranks", 600)
     outs = dp_wait(procs["resume"], "--continue_train 1 epoch over 2 gloo "
-                   "ranks", 600)
+                   "ranks, then the p2p ResNet on the resident split and "
+                   "on the host iterator", 600)
     test = dp_wait(procs["test"], "one process, --phase test of the dp "
                    "checkpoint", 600)
     n_outs = dp_wait(procs["nccl"], "NCCL at world 2 on one card", 120,
@@ -5161,14 +5265,34 @@ def dp_follow_check(card: str, dev, work: str, procs: dict) -> dict:
                         if ln.startswith("NCCL") or "Duplicate GPU" in ln})
     print(f"  NCCL's outcome: {nccl_said}")
     need(" [*] Load SUCCESS" in test[0][1], "--phase test did not load")
-    again = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+    both = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+    again = [x["resident"] for x in both]
     ck = os.path.join(run, "checkpoint", "city", "train", "cp-0001.pt")
     need(" [*] Load SUCCESS" in outs[0][1]
          and all(x["step"] == 2 * steps for x in again)
          and torch.load(ck, weights_only=True)["step"] == 2 * steps,
          "--continue_train did not resume at the saved step")
+    p2p = {k: [x[k] for x in both] for k in ("p2p", "p2p_host")}
+    for k, xs in p2p.items():
+        need(math.isfinite(xs[0]["gen_loss"])
+             and xs[0]["gen_loss"] == xs[1]["gen_loss"]
+             and all(x["step"] == DP_STEPS_P2P for x in xs),
+             f"{k}: the ranks' epoch losses or steps {xs}")
+    got, ref = p2p["p2p"][0]["gen_loss"], p2p["p2p_host"][0]["gen_loss"]
+    rel = abs(got - ref) / abs(ref)
+    print(f"  [{card}] the p2p ResNet, f32, {H // 2}x{W // 2}, "
+          f"b={DP_P2P_B} doubled to {2 * DP_P2P_B}, {DP_STEPS_P2P} steps "
+          f"over 2 ranks, cuDNN deterministic: epoch generator loss "
+          f"{got!r} on the resident split, {ref!r} on the host iterator, "
+          f"rel {rel:.3g} (limit {DP_LOSS_REL:g}); a step's "
+          f"{p2p['p2p'][0]['step_losses']} and "
+          f"{p2p['p2p_host'][0]['step_losses']}")
+    need(rel <= DP_LOSS_REL, "the p2p ResNet's resident epoch loss is off "
+         "its host-iterator epoch's")
     return {"parity": dp_parity_check(card, dev, work),
-            "resume": again, "nccl": nccl_said}
+            "resume": again, "nccl": nccl_said,
+            "p2p_resident_vs_host": {"gen_loss": [got, ref], "rel": rel,
+                                     "ranks": p2p}}
 
 
 def dp_alone() -> int:
@@ -5230,8 +5354,11 @@ SP_CLI_ARGS = ["--batch_size", str(SP_CLI_B), "--img_height", str(H),
                "--save_freq", "0", "--print_freq", "1", "--host_downscale",
                "2", "--train_size", str(SP_CLI_TRAIN), "--epoch", "1",
                "--mesh_space", "2"]
-# and the pix2pix pair in the p2p mode, the same widths and batches
-SP_P2P_ARGS = ["--batch_size", str(SP_CLI_B), "--img_height", str(H),
+# and the pix2pix pair in the p2p mode, the same widths and batches, on
+# the host iterator (the ResNet sggan run takes the CLI's default, the
+# split resident on each rank)
+SP_P2P_ARGS = ["--device_dataset_mb", "0",
+               "--batch_size", str(SP_CLI_B), "--img_height", str(H),
                "--img_width", str(W), "--use_pix2pix", "--loss_mode", "p2p",
                "--compute_dtype", "bfloat16", "--data_seed", "19",
                "--save_freq", "0", "--print_freq", "1", "--host_downscale",
@@ -5871,9 +5998,11 @@ def sp_cli_job(work: str) -> tuple:
 
 def sp_train(card: str, dev, work: str, job: tuple) -> dict:
     """Phase 37, part 2 (main path): the full-width ResNet sggan CLI with
-    ``--mesh_space 2`` over two gloo ranks sharing the card, alone on it:
-    equal finite losses, K1's split calls a step per rank those of its
-    sites and only the coordinator's eval on the one-card kernel, only
+    ``--mesh_space 2`` over two gloo ranks sharing the card, alone on it,
+    on the split resident on each rank (the CLI's default): equal finite
+    losses, each rank's resident line, K1's split calls a step per rank
+    those of its sites and only the coordinator's eval on the one-card
+    kernel, only
     rank 0 printing and writing, the checkpoint's pool in the global
     layout; each rank's step, busy, idle, halo and moments traffic and
     peak beside one process's peak at the same global batch."""
@@ -5888,6 +6017,16 @@ def sp_train(card: str, dev, work: str, job: tuple) -> dict:
     need(" [*] spatially sharded over 2 ranks (gloo)" in outs[0][1]
          and "Epoch: [ 0]" in outs[0][1] and "Epoch:" not in outs[1][1],
          "only the coordinator prints the run's lines")
+    for r, o in enumerate(outs):
+        need(f" [*] training split resident on device on rank {r} ("
+             in o[1], f"rank {r} did not hold the split on its card")
+    need("data row d takes rows [16d, 16(d + 1)) of each batch of 16 (the "
+         "JAX mesh's blocks), from the split resident on each rank's card; "
+         "--scan_steps 8: chunks of 8 eager steps" in outs[0][1]
+         and "from the host iterator (the split is not resident: "
+         "--device_dataset_mb 0)" in outs[0][1],
+         "the coordinator did not print the sggan run's resident path and "
+         "the pix2pix run's host path")
     saved = torch.load(os.path.join(run, "checkpoint", "city", "train",
                                     "cp-0000.pt"), weights_only=True)
     need(saved["step"] == steps
@@ -7275,8 +7414,12 @@ def main() -> int:
                   "against one process averaging both shards; part 2 "
                   "python -m sggan_tpu_torch.main --mesh_data 2, ResNet "
                   f"sggan 256x512 bf16, b={DP_CLI_B} doubled to "
-                  f"{2 * DP_CLI_B}, --train_size {DP_CLI_TRAIN}, 1 epoch, "
-                  "then --phase test and --continue_train",
+                  f"{2 * DP_CLI_B}, --train_size {DP_CLI_TRAIN}, 1 epoch "
+                  "on the split resident on each rank (--scan_steps 8, "
+                  "eager chunks) and on the host iterator "
+                  "(--device_dataset_mb 0), then --phase test and "
+                  "--continue_train; the p2p ResNet f32 at "
+                  f"{H // 2}x{W // 2}, b={DP_P2P_B} doubled, on both paths",
         **dp_res}}))
     print(card)
     print(json.dumps({"sp": {

@@ -168,15 +168,17 @@ class Config:
     # HBM budget (MB) for keeping the ENTIRE training split resident on
     # device as uint8 arrays (loader.DeviceDataset): batches become
     # device-side gathers with zero per-step upload.  Used when the
-    # (downscaled) split fits the budget; 0 disables.
+    # (downscaled) split fits the budget, on every rank's card under
+    # --mesh_data / --mesh_space; 0 disables.
     device_dataset_mb: int = 2048
     # Train steps per chunk: with the device-resident split the trainer
     # captures one full step (gather + preprocess + draws + step) as a
     # CUDA graph and replays it `scan_steps` times a chunk, the analog of
     # the JAX package's lax.scan of K steps (train/fused.py).  The draws
     # are an eager step's, so every value trains the same steps.  Saves
-    # and prints happen at chunk granularity.  1 = the eager step, one
-    # dispatch per op.
+    # and prints happen at chunk granularity.  Under several ranks the
+    # steps of a chunk run eagerly (a gloo collective is not captured).
+    # 1 = the eager step, one dispatch per op.
     scan_steps: int = 8
     # EMA decay for a shadow copy of the generator params (0 disables).
     # A standard GAN stabilization lever with no reference counterpart:
@@ -379,7 +381,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="HBM budget for a device-resident training split, 0 disables")
     p.add_argument("--scan_steps", type=int, default=d.scan_steps,
                    help="train steps per chunk over the device-resident "
-                        "split, replays of one CUDA graph of the step; 1 = "
+                        "split, replays of one CUDA graph of the step "
+                        "(eager steps under several ranks); 1 = "
                         "the eager step.  NOTE: with K>1, --print_freq output "
                         "and --save_freq checkpoints land on K-step chunk "
                         "boundaries rather than exact steps")

@@ -172,7 +172,8 @@ def _augment_rows(img, seg, draws: PreprocessDraws, flags, src_h: int,
 def preprocess_train(img_u8, seg_u8, cls_u8, draws: PreprocessDraws,
                      aug_flags, *, out_hw, mask_hw, n_class: int,
                      photometric: bool = False, global_b: int = 0,
-                     sample_rows=None, aug_layout: str = "dynamic") -> dict:
+                     sample_rows=None, aug_layout: str = "dynamic",
+                     n_plain: Optional[int] = None) -> dict:
     """img_u8/seg_u8: (B, sh, sw, 3) uint8 tensors; cls_u8: (B, sh, sw)
     uint8; draws: ``draw_preprocess(generator, B, sh, out_hw,
     photometric)``; aug_flags: (B,) bool, which samples warp (and, with
@@ -182,7 +183,10 @@ def preprocess_train(img_u8, seg_u8, cls_u8, draws: PreprocessDraws,
     (preprocess.py:84-103): "none" (no sample warps; plain rows pass
     through bit-exactly), "half" ([False]*(B/2) + [True]*(B/2), the layout
     every iterator emits: only the second half warps, with draw rows
-    B/2..B-1) or "dynamic" (per-row select).
+    B/2..B-1) or "dynamic" (per-row select).  ``n_plain`` moves the cut
+    of "half" to row ``n_plain``: a rank's block of a "half" global batch
+    (``train/fused.py::make_batch_fn``) may hold more plain rows than
+    augmented ones, or none of either.
 
     ``global_b`` and ``sample_rows`` (data parallelism, a process a shard;
     preprocess.py:105-113): ``draws`` are the draws of the global batch of
@@ -209,13 +213,14 @@ def preprocess_train(img_u8, seg_u8, cls_u8, draws: PreprocessDraws,
     if aug_layout == "none":
         pass
     elif aug_layout == "half":
-        if b % 2:
+        if n_plain is None and b % 2:
             raise ValueError("aug_layout='half' needs an even batch")
-        hb = b // 2
-        im2, sg2 = aug(img[hb:], seg[hb:], draw_rows(draws, slice(hb, None)),
-                       flags[hb:])
-        img = torch.cat([img[:hb], im2])
-        seg = torch.cat([seg[:hb], sg2])
+        hb = b // 2 if n_plain is None else n_plain
+        if hb < b:
+            im2, sg2 = aug(img[hb:], seg[hb:],
+                           draw_rows(draws, slice(hb, None)), flags[hb:])
+            img = torch.cat([img[:hb], im2])
+            seg = torch.cat([seg[:hb], sg2])
     elif aug_layout == "dynamic":
         img, seg = aug(img, seg, draws, flags)
     else:

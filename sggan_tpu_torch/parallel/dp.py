@@ -24,6 +24,11 @@ port keeps those semantics with one process per card:
 * ``own_shard`` draws every shard's draws from the generator the ranks
   share and keeps this rank's, so the generators stay in step and one
   process can rebuild any shard's draws;
+* ``own_rows`` is this rank's block of a global batch assembled on every
+  rank (the resident split's, ``train/fused.py``), the rows that
+  ``with_sharding_constraint(batch, P(data))`` gives device r of the JAX
+  mesh; ``agree`` makes one decision of every rank's (the resident
+  split: all ranks take it or none);
 * ``broadcast_state`` copies rank 0's replicated state to every rank
   after an init or a load, as DDP does;
 * ``wait_group`` and ``barrier``: while the coordinator evaluates, the
@@ -40,12 +45,13 @@ result), so the replicas stay bitwise equal step after step.
 from __future__ import annotations
 
 import datetime
-from typing import Callable, Dict, List, Optional, TypeVar
+from typing import Callable, Dict, List, Optional, Tuple, TypeVar
 
 import torch
 import torch.distributed as dist
 
 from .distributed import rank, world_size
+from .mesh import block
 
 T = TypeVar("T")
 
@@ -104,6 +110,27 @@ def own_shard(draw: Callable[[], T], group) -> T:
     one process)."""
     draws = [draw() for _ in range(world_size(group))]
     return draws[rank(group)]
+
+
+def own_rows(total: int, group) -> Optional[Tuple[int, int]]:
+    """This rank's block of a global batch of ``total`` rows (None for one
+    process: every row; ``mesh.block``)."""
+    if group is None:
+        return None
+    return block(total, world_size(group), rank(group))
+
+
+def agree(ok: bool, group) -> bool:
+    """Whether ``ok`` holds on every rank of ``group``: one all-reduce
+    (MIN) of a flag, so that all ranks take the same path (``ok`` itself
+    for one process)."""
+    if group is None:
+        return ok
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    flag = torch.tensor([int(ok)], dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    return bool(flag.item())
 
 
 def _src(group) -> int:

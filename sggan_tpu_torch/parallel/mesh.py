@@ -35,7 +35,7 @@ over it).
 from __future__ import annotations
 
 import os
-from typing import Callable, List, NamedTuple, Optional, TypeVar
+from typing import Callable, List, NamedTuple, Optional, Tuple, TypeVar
 
 import torch.distributed as dist
 
@@ -93,6 +93,14 @@ def check_hosts(cfg, world: int) -> None:
             "slice of the global batch)")
 
 
+def block(total: int, n: int, i: int) -> Tuple[int, int]:
+    """Block ``i`` of ``n`` of ``total`` rows, ``[i * total / n, (i + 1) *
+    total / n)``: the rows a mesh axis of ``n`` devices gives device
+    ``i`` (``total`` divides by ``n``)."""
+    size = total // n
+    return i * size, (i + 1) * size
+
+
 class Axis(NamedTuple):
     """One spatial axis of a rank: its ``group`` (None when the axis is
     not sharded) and the global ranks of its neighbours (None at the
@@ -133,6 +141,13 @@ class Grid(NamedTuple):
         """``draw()`` once for each data row in order, this rank's row's
         kept: the draws every spatial rank of a row shares (the pool's)."""
         return [draw() for _ in range(self.data)][self.d]
+
+    def own_rows(self, total: int) -> Tuple[int, int]:
+        """This rank's data row's block of a global batch of ``total``
+        rows (``block``), as ``_batch_spec`` places the batch's leading
+        dimension over ``data``; ``spatial_step.shard_batch`` then cuts
+        its block of the plane."""
+        return block(total, self.data, self.d)
 
     def own_shard(self, draw: Callable[[], T]) -> T:
         """``draw()`` once for each rank in rank order, this rank's kept

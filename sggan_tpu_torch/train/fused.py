@@ -27,8 +27,10 @@ chunk loop (fused.py:262-281): the chunk's losses kept on the device, one
 the chunk crosses a multiple of ``--print_freq`` (its last step's index
 and losses), a save when it crosses a multiple of ``--save_freq``.  On the
 CPU, which has no graphs, a chunk calls the same step function once a
-step: the tests hold the chunk loop there.  ``--scan_steps 1`` and the
-host iterator run the eager step, one dispatch per op, step by step.  Not
+step: the tests hold the chunk loop there.  The print is the
+coordinator's, the save every rank's, as at a step (``end_step``).
+``--scan_steps 1`` and the host iterator run the eager step, one
+dispatch per op, step by step.  Not
 ported: the JAX fallback to the per-step path when the scan program runs
 out of memory (``is_hbm_failure``); a capture that fails raises.
 
@@ -37,6 +39,23 @@ chunk's rows, once a chunk, under ``--scan_steps`` K), the data draws and
 the generator's dropout masks come from the trainer's device generator,
 and the pool's draws from its host generator, since the pool plans on the
 host (``train/pool.py``).
+
+Under ``--mesh_data N`` every rank holds the whole split and assembles
+its block ``[r B'/N, (r + 1) B'/N)`` of the global batch of B' rows
+(``make_batch_fn``'s ``rows``, ``own_rows``): the rows that
+``with_sharding_constraint(batch, P(data))`` hands device r of the JAX
+mesh in ``make_fused_step`` and ``make_fused_scan`` (fused.py:99-111),
+row j the source ``order[done * b + (j mod b)]``, augmented where ``j >=
+b``, with row j of the global batch's draws, which every rank draws.
+Under ``--mesh_space`` the block is its data row's, then cut to the
+rank's block of the plane (``assemble``, ``_batch_spec``'s layout).  The
+host iterator lays a global batch out otherwise (a rank's files and their
+augmented copies, the JAX multi-process layout, ``trainer.py``).  Under
+several ranks the chunk loop runs as on one, its pool draws and plans
+each rank's own (``own_pool_draws``), but each step of a chunk runs eagerly
+(``StepGraph.captures`` is false): a gloo collective cannot be captured
+in a CUDA graph.  A profiler window then counts steps, as the per-step
+loop's does, where it counts a replayed chunk as one.
 
 Under ``--loss_mode cycle`` the epoch runs over two resident splits,
 trainA and trainB (fused.py:90-104, :197-212): B's order is the shuffle
@@ -51,7 +70,7 @@ one.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +80,7 @@ from ..data.preprocess import (PreprocessDraws, draw_preprocess,
                                preprocess_train)
 from ..ops import cuda_in
 from ..parallel import dp
+from ..parallel.spatial_step import shard_batch
 from ..utils import cuda_graph
 from .pool import (HistPlan, PoolPlan, plan_hist_steps, plan_steps,
                    pool_draws)
@@ -69,35 +89,55 @@ from .step import compat_hist, dropout_masks, pools, state_tensors
 B_SEED_OFFSET = 7919  # trainB's shuffle seed is data_seed + 7919
 
 
-def make_batch_fn(cfg):
+def make_batch_fn(cfg, rows: Optional[Tuple[int, int]] = None):
     """Batch assembly on the device (fused.py:26-50): gather from the
     resident split, augmentation doubling, preprocess, with the host
     iterator's flag layout.  ``make_batch(img_all, seg_all, cls_all, idxs,
     draws)``: ``idxs`` an int64 tensor of ``batch_size`` rows on the
     split's device, ``draws`` from ``draw_preprocess`` for the doubled
-    batch."""
-    b = cfg.batch_size
+    batch.
+
+    ``rows`` (lo, hi): only the rows [lo, hi) of the doubled batch of B'
+    rows (every row by default), a rank's block (``dp.own_rows``,
+    ``mesh.Grid.own_rows``), as ``with_sharding_constraint(batch,
+    P(data))`` hands them to device r of the JAX mesh (fused.py:99-111):
+    row j gathers ``idxs[j mod batch_size]``, warps where ``j >=
+    batch_size`` and takes row j of the global batch's draws
+    (``preprocess_train``'s ``global_b`` and ``sample_rows``), so every
+    row is the one-process batch's row."""
+    b, aug = cfg.batch_size, cfg.use_augmentation
+    lo, hi = (0, effective_batch(cfg)) if rows is None else rows
+    # the block's plain rows come first: [lo, min(hi, b)) of [0, b)
+    n_plain = min(max(b - lo, 0), hi - lo) if aug else hi - lo
 
     def make_batch(img_all, seg_all, cls_all, idxs,
                    draws: PreprocessDraws) -> dict:
-        take = lambda a: a.index_select(0, idxs)  # noqa: E731
-        img, seg, cls = take(img_all), take(seg_all), take(cls_all)
-        if cfg.use_augmentation:
-            img, seg, cls = (torch.cat([a, a]) for a in (img, seg, cls))
-            flags = torch.arange(2 * b, device=img.device) >= b
-        else:
-            flags = torch.zeros(b, dtype=torch.bool, device=img.device)
+        pos = torch.arange(lo, hi, device=idxs.device)
+        src = idxs.index_select(0, pos % b)
+        img, seg, cls = (a.index_select(0, src)
+                         for a in (img_all, seg_all, cls_all))
         return preprocess_train(
-            img, seg, cls, draws, flags, out_hw=cfg.image_size,
+            img, seg, cls, draws, pos >= b, out_hw=cfg.image_size,
             mask_hw=cfg.mask_hw, n_class=cfg.segment_class,
-            photometric=cfg.use_photometric,
-            aug_layout="half" if cfg.use_augmentation else "none")
+            photometric=cfg.use_photometric, global_b=effective_batch(cfg),
+            sample_rows=pos, aug_layout="half" if aug else "none",
+            n_plain=n_plain)
 
     return make_batch
 
 
 def effective_batch(cfg) -> int:
     return cfg.batch_size * (2 if cfg.use_augmentation else 1)
+
+
+def own_rows(tr) -> Optional[Tuple[int, int]]:
+    """This rank's block of the doubled batch: its own under
+    ``--mesh_data``, its data row's under ``--mesh_space``, None (every
+    row) for one process."""
+    grid = getattr(tr, "grid", None)
+    if grid is not None:
+        return grid.own_rows(effective_batch(tr.cfg))
+    return dp.own_rows(effective_batch(tr.cfg), tr.group)
 
 
 def device_draws(tr, src_h: int, src_h_b: Optional[int] = None):
@@ -137,15 +177,21 @@ def step_draws(tr, src_h: int, src_h_b: Optional[int] = None):
     those of the ranks before it and before those of the ranks after;
     under ``--mesh_space`` its data row's (``mesh.Grid.own_row``)."""
     draws, masks = device_draws(tr, src_h, src_h_b)
+    return draws, own_pool_draws(tr), masks
+
+
+def own_pool_draws(tr):
+    """One step's pool draws from the trainer's host generator: every
+    rank's in rank order under ``--mesh_data``, this rank's kept; every
+    data row's under ``--mesh_space``, this rank's row's kept."""
     cfg = tr.cfg
     grid = getattr(tr, "grid", None)
     if grid is not None:
-        return (draws, grid.own_row(lambda: pool_draws(
-            tr.pool_gen, effective_batch(cfg) // grid.data, cfg.max_size)),
-            masks)
-    return (draws, dp.own_shard(lambda: pool_draws(
+        return grid.own_row(lambda: pool_draws(
+            tr.pool_gen, effective_batch(cfg) // grid.data, cfg.max_size))
+    return dp.own_shard(lambda: pool_draws(
         tr.pool_gen, effective_batch(cfg) // tr.world, cfg.max_size),
-        tr.group), masks)
+        tr.group)
 
 
 def two_domain(batch_a: dict, batch_b: dict) -> dict:
@@ -153,6 +199,19 @@ def two_domain(batch_a: dict, batch_b: dict) -> dict:
     ``real_b``, ``seg_b`` and ``mask_b``."""
     return dict(batch_a, real_b=batch_b["real_a"], seg_b=batch_b["seg_a"],
                 mask_b=batch_b["mask_a"])
+
+
+def assemble(tr, splits, make_batch, idxs, draws) -> dict:
+    """A step's batch from the resident ``splits`` (one, or trainA and
+    trainB): each split's rows ``idxs`` through ``make_batch`` with its
+    draws (a pair under ``--loss_mode cycle``), the domains joined, and
+    under ``--mesh_space`` this rank's block of the plane."""
+    batches = [make_batch(ds.img, ds.seg, ds.cls, ix, d)
+               for ds, ix, d in zip(splits, idxs,
+                                    draws if tr.cycle else (draws,))]
+    batch = two_domain(*batches) if tr.cycle else batches[0]
+    grid = getattr(tr, "grid", None)
+    return batch if grid is None else shard_batch(batch, grid)
 
 
 def end_step(tr, epoch: int, idx: int, m: dict, n_images: int,
@@ -209,10 +268,7 @@ def resident_step(tr, splits, make_batch, idxs) -> dict:
     rows a split, on the device): draws, batch assembly, the step.
     Updates ``tr.state``; returns the step's metrics."""
     draws, pdraws, masks = step_draws(tr, *(ds.img.shape[1] for ds in splits))
-    batches = [make_batch(ds.img, ds.seg, ds.cls, ix, d)
-               for ds, ix, d in zip(splits, idxs,
-                                    draws if tr.cycle else (draws,))]
-    batch = two_domain(*batches) if tr.cycle else batches[0]
+    batch = assemble(tr, splits, make_batch, idxs, draws)
     tr.state, m = tr.step_fn(tr.state, batch, tr.lr, pdraws, masks)
     return m
 
@@ -231,8 +287,9 @@ class StepGraph:
     """One train step over the resident split (a (trainA, trainB) pair
     under ``--loss_mode cycle``) from static inputs, captured as a CUDA
     graph on the card at the first chunk and replayed once a step; on the
-    CPU the same function runs eagerly once a step.  ``k1_calls``: K1's
-    wrapper calls recorded at the capture, a step's worth ((forward,
+    CPU, and under a world of several ranks (a gloo collective cannot be
+    captured), the same function runs eagerly once a step.  ``k1_calls``:
+    K1's wrapper calls recorded at the capture, a step's worth ((forward,
     backward) totals and calls by (direction, route)), since the replays
     do not pass through the wrapper."""
 
@@ -246,13 +303,14 @@ class StepGraph:
         # rows, then its buffer rows (the history's valid entries, then
         # its rows)
         self.hist = compat_hist(cfg)
-        out_w = slots if self.hist else effective_batch(cfg)
+        out_w = slots if self.hist else effective_batch(cfg) // tr.n_rows
         self.cuts = [i * b for i in range(len(self.splits) + 1)]
         self.cuts += [self.cuts[-1] + out_w, self.cuts[-1] + out_w + slots]
         self.rows = torch.zeros(self.cuts[-1], dtype=torch.int64,
                                 device=self.splits[0].img.device)
         self.graph = self.losses = self.k1_calls = None
         self._key = None
+        self.captures = self.rows.device.type == "cuda" and tr.world == 1
 
     def _step(self) -> torch.Tensor:
         """One step from ``rows``: the state updated in place, the
@@ -260,11 +318,9 @@ class StepGraph:
         tr, c = self.tr, self.cuts
         draws, masks = device_draws(
             tr, *(ds.img.shape[1] for ds in self.splits))
-        batches = [self.make_batch(ds.img, ds.seg, ds.cls,
-                                   self.rows[c[i]:c[i + 1]], d)
-                   for i, (ds, d) in enumerate(zip(
-                       self.splits, draws if tr.cycle else (draws,)))]
-        batch = two_domain(*batches) if tr.cycle else batches[0]
+        batch = assemble(tr, self.splits, self.make_batch,
+                         [self.rows[c[i]:c[i + 1]]
+                          for i in range(len(self.splits))], draws)
         out, buf, count = (self.rows[c[-3]:c[-2]], self.rows[c[-2]:],
                            tr.state.pool.count)
         plan = (HistPlan(buf, out, count) if self.hist
@@ -302,15 +358,18 @@ class StepGraph:
               f"{self.k1_calls[0][0]} forward, {self.k1_calls[0][1]} "
               f"backward); {tr.cfg.scan_steps} steps a chunk")
 
-    def run(self, rows: np.ndarray) -> torch.Tensor:
+    def run(self, rows: np.ndarray, tick=None) -> torch.Tensor:
         """The steps of one chunk, one per row of ``rows`` (kc, width)
-        int64; returns their losses, (kc, 2) on the device.  On the card
-        the graph is captured first when it has none, or when a tensor of
-        the state has moved since its capture."""
+        int64; returns their losses, (kc, 2) on the device.  Where it
+        ``captures`` (one process on the card) the graph is captured first
+        when it has none, or when a tensor of the state has moved since
+        its capture; else ``tick`` (a profiler window's) is called after
+        each eager step."""
         dev = self.rows.device
         table = torch.from_numpy(rows)
         if dev.type == "cuda":  # pinned, so the copy does not sync the host
             table = table.pin_memory().to(dev, non_blocking=True)
+        if self.captures:
             key = cuda_graph.storage_key(state_tensors(self.tr.state)
                                          .values())
             if self.graph is None or key != self._key:
@@ -324,6 +383,8 @@ class StepGraph:
                 out[r].copy_(self.losses)
             else:
                 out[r].copy_(self._step())
+                if tick is not None:
+                    tick()
         return out
 
 
@@ -332,26 +393,27 @@ def _k1_counts() -> tuple:
             dict(cuda_in.route_launches))
 
 
-def run_chunk(tr, graph: StepGraph, ix) -> torch.Tensor:
+def run_chunk(tr, graph: StepGraph, ix, tick=None) -> torch.Tensor:
     """The ``kc`` steps of one chunk through ``graph``, each split's batch
     rows ``ix`` (kc, batch_size) int64 on the host: the pool's host draws
-    (drawn as an eager step draws them, whether the step pools or not) and
-    its rows or the history's, planned for the chunk.  Advances
+    (drawn as an eager step draws them, whether the step pools or not:
+    this rank's or its data row's, ``own_pool_draws``) and its rows or the
+    history's, planned for the chunk over this rank's slots.  Advances
     ``tr.state``'s step and pool count; returns the losses (kc, 2) on the
-    device."""
+    device.  ``tick``: ``StepGraph.run``'s."""
     cfg = tr.cfg
     kc, b_eff = len(ix[0]), effective_batch(cfg)
     slots = next(iter(tr.state.pool.buffer.values())).shape[0]
-    draws = [pool_draws(tr.pool_gen, b_eff, cfg.max_size) for _ in range(kc)]
+    draws = [own_pool_draws(tr) for _ in range(kc)]
     count = tr.state.pool.count
     if pools(cfg):
         out_rows, buf_rows, count = plan_steps(slots, count, draws)
     elif graph.hist:
         out_rows, buf_rows, count = plan_hist_steps(slots, count, b_eff, kc)
     else:  # rows the step does not read
-        out_rows = np.zeros((kc, b_eff), np.int64)
+        out_rows = np.zeros((kc, b_eff // tr.n_rows), np.int64)
         buf_rows = np.zeros((kc, slots), np.int64)
-    m = graph.run(np.concatenate([*ix, out_rows, buf_rows], axis=1))
+    m = graph.run(np.concatenate([*ix, out_rows, buf_rows], axis=1), tick)
     tr.state = tr.state._replace(step=tr.state.step + kc,
                                  pool=tr.state.pool._replace(count=count))
     return m
@@ -367,17 +429,21 @@ def run_epoch_chunked(tr, epoch: int, graph: StepGraph, g_losses: list,
     b, b_eff, pf = cfg.batch_size, effective_batch(cfg), cfg.print_freq
     orders = epoch_orders(cfg, graph.splits, epoch)
     nb = min(len(ds) for ds in graph.splits) // b
+    # a profiler window counts replayed chunks, or eager steps
+    tick = tr._prof.tick if tr._prof is not None else None
     done = 0
     while done < nb:
         kc = min(cfg.scan_steps, nb - done)
         m = run_chunk(tr, graph, [o[done * b:(done + kc) * b].reshape(kc, b)
-                                  for o in orders])
+                                  for o in orders],
+                      None if graph.captures else tick)
         g_losses.extend(m[:, 0].unbind())
         d_losses.extend(m[:, 1].unbind())
         tr._timer.mark(kc * b_eff)
-        if tr._prof is not None:
-            tr._prof.tick()
-        if done == 0 or (done - 1) // pf != (done + kc - 1) // pf:
+        if tick is not None and graph.captures:
+            tick()
+        if tr.is_coord and (done == 0 or
+                            (done - 1) // pf != (done + kc - 1) // pf):
             print("Epoch: [%2d] [%4d] time: %4.4f "
                   "Gen_Loss: %f Disc_Loss: %f" % (
                       epoch, done + kc - 1, time.time() - start_time,

@@ -12,9 +12,10 @@ scalars; saves every ``--save_freq`` steps, at the end (in ``finally``)
 and on KeyboardInterrupt (model.py:272-275).
 
 ``--scan_steps K`` runs the resident split in chunks of K steps, each a
-replay of one CUDA graph of the whole step, as the JAX package's lax.scan
-chunks run it (``train/fused.py``); the graph is captured at the first
-chunk of training, after a ``--continue_train`` load.  ``--scan_steps 1``
+replay of one CUDA graph of the whole step (eager steps under several
+ranks), as the JAX package's lax.scan chunks run it
+(``train/fused.py``); the graph is captured at the first chunk of
+training, after a ``--continue_train`` load.  ``--scan_steps 1``
 and the host iterator run the eager step, as the JAX package runs its
 per-step path.  The learning rate is a device scalar (``lr``) that each
 epoch writes, so a captured step reads each epoch's.
@@ -44,37 +45,60 @@ reference's fake history (``train/step.py``), in the step's graph too;
 
 ``--mesh_data N`` trains on N ranks, one card each, in a process group
 that the caller has joined (``parallel/distributed.py``; ``main`` does it
-from ``torchrun``'s environment), as the JAX trainer trains with one
-device a process (trainer.py:49-77): each rank feeds ``batch_size / N``
-of each global batch from the host iterator (its rows of the shared
-shuffle, ``process_index``/``process_count``), preprocesses them with the
-draws of the global batch at its rows (``global_b``, ``sample_rows``), and
-runs the data-parallel step (``parallel/dp.py``).  The resident split and
-``--scan_steps`` are not used then (trainer.py:159), so no CUDA graph holds
-a collective.  Only the coordinator (rank 0) prints, evaluates, samples
-and writes TensorBoard, while the other ranks wait at a barrier with a
-timeout of its own (``dp.wait_group``: an eval may outlast the
-collectives' timeout); every rank takes part in a save, in which rank 0
-writes the checkpoint with every rank's pool rows in the JAX package's
-global layout; on ``--continue_train`` every rank reads it and takes its
-own rows.
+from ``torchrun``'s environment), and runs the data-parallel step
+(``parallel/dp.py``).  A rank's rows of each global batch of B' rows
+(``batch_size``, doubled by augmentation) come from one of two paths,
+each as its JAX counterpart takes them:
+
+* the split resident on every rank's card (``_maybe_device_dataset``,
+  the default), as one JAX process keeps it replicated over its mesh
+  (trainer.py:178-182): each rank assembles its block ``[r B'/N, (r + 1)
+  B'/N)`` of the batch that one process would assemble, the rows
+  ``with_sharding_constraint(batch, P(data))`` gives device r
+  (fused.py:99-111; ``fused.make_batch_fn``'s ``rows``), so with
+  augmentation the first ranks get plain rows and the last their
+  augmented copies; B' must divide by N (the JAX mesh's ``shard_batch``,
+  dp.py:56), so ``--mesh_data 2 --batch_size 1`` with augmentation
+  trains.  ``--scan_steps K`` runs the JAX scan's chunk loop, its prints
+  and saves on chunk boundaries, each step of a chunk eager: no CUDA
+  graph holds a gloo collective;
+* the host iterator, where the split is not resident (an empty budget,
+  a split that does not fit, or a rank that cannot build it: the ranks
+  agree first, ``dp.agree``), as the JAX trainer feeds several processes
+  (trainer.py:49-77, :159): each rank decodes ``batch_size / N`` files
+  of each global batch (its rows of the shared shuffle,
+  ``process_index``/``process_count``) with their augmented copies, so
+  ``batch_size`` must divide by N; eager steps.
+
+On both paths each rank preprocesses its rows with the draws of the
+global batch at those rows (``global_b``, ``sample_rows``), so the global
+batch is the one-process batch; the paths differ in which rows reach
+which rank's pool and batch-norm moments.  Only the coordinator (rank
+0) prints, evaluates, samples and writes TensorBoard, while the other
+ranks wait at a barrier with a timeout of its own (``dp.wait_group``: an
+eval may outlast the collectives' timeout); every rank takes part in a
+save, in which rank 0 writes the checkpoint with every rank's pool rows
+in the JAX package's global layout; on ``--continue_train`` every rank
+reads it and takes its own rows.
 
 ``--mesh_space S`` (and ``--mesh_space_w W``) trains the semantic nets
 (sggan, cycle) or the pix2pix pair (p2p) spatially sharded
 (``parallel/spatial_step.py``) on ``D x S x W`` ranks
-(``--mesh_data D``), laid out as ``mesh.grid`` says: each rank feeds its
-data row's ``batch_size / D`` of each global batch from the host
-iterator (as a rank of a data-parallel job of D ranks), preprocesses the
-full-resolution rows, then keeps its block of the plane
-(``spatial_step.shard_batch``), as the JAX trainer's
-``shard_sp_batch`` splits a host's rows (trainer.py:79-105).  The pool's
-draws are the data row's, the dropout masks the shard's.  As under
-``--mesh_data``, the steps run eagerly from the host iterator; the
-coordinator evaluates with the replicated generator on the whole plane
-while the others wait; a checkpoint holds the pool in the JAX package's
-global layout (slots over data, H over space, W over wspace), and the
-pix2pix nets' BN states, equal on every rank.  ``--phase test`` of a
-spatial run's checkpoint runs in one process on the whole plane.
+(``--mesh_data D``), laid out as ``mesh.grid`` says.  Each rank takes
+its data row's rows of each global batch as a rank of a data-parallel
+job of D ranks does (the resident block ``[d B'/D, (d + 1) B'/D)``, or
+the host iterator's ``batch_size / D`` files), preprocesses them at full
+resolution, then keeps its block of the plane
+(``spatial_step.shard_batch``), as ``_batch_spec`` places a resident
+batch and the JAX trainer's ``shard_sp_batch`` splits a host's rows
+(trainer.py:79-105).  The pool's draws are the data row's, the dropout
+masks the shard's.  As under ``--mesh_data``, the steps run eagerly, in
+``--scan_steps`` chunks on the resident path; the coordinator evaluates
+with the replicated generator on the whole plane while the others wait;
+a checkpoint holds the pool in the JAX package's global layout (slots
+over data, H over space, W over wspace), and the pix2pix nets' BN
+states, equal on every rank.  ``--phase test`` of a spatial run's
+checkpoint runs in one process on the whole plane.
 """
 
 from __future__ import annotations
@@ -136,16 +160,14 @@ class Trainer:
             distributed.world_size(self.group)
         self.rank = 0 if self.group is None else distributed.rank(self.group)
         self.is_coord = self.rank == 0
-        # the host iterator's shards: the data rows
+        # the batch's shards: the data rows (the effective batch divides
+        # by them, Config.validate; the host iterator's check waits for
+        # the path, in train)
         self.n_rows, self.row = ((self.grid.data, self.grid.d)
                                  if self.grid is not None
                                  else (self.world, self.rank))
-        if cfg.batch_size % self.n_rows:
-            raise ValueError(
-                f"batch_size={cfg.batch_size} must divide by the "
-                f"{self.n_rows} data rows (each feeds its slice of the "
-                "batch)")
         self.local_bs = cfg.batch_size // self.n_rows
+        self.host_why = None  # why the split is not resident, once decided
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
@@ -197,41 +219,64 @@ class Trainer:
         (trainer.py:152-197); under ``--loss_mode cycle`` the pair
         (trainA, trainB), both resident or neither, their sum against the
         budget.  None keeps the host iterator, for an empty budget, a split
-        smaller than a batch, or splits that do not fit."""
-        cfg = self.cfg
-        if not cfg.device_dataset_mb or self.world > 1:
-            # each rank decodes its slice of the global batch on the host
-            # (trainer.py:159)
+        smaller than a batch, or splits that do not fit; ``host_why`` then
+        says which.
+
+        Under a world of several ranks each rank holds the whole split on
+        its card (the JAX mesh's replica, trainer.py:178-182), the budget
+        counted a card, and the ranks agree (``dp.agree``) before any
+        step: where one rank cannot build it (sources of several shapes,
+        a card that is full: ranks sharing a card meet it one at a time),
+        every rank takes the host iterator."""
+        dss, why = self._device_splits()
+        if self.world > 1 and not dp.agree(dss is not None, self.group):
+            if dss is not None:
+                dss = None
+                why = "another rank could not hold it"
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+        self.host_why = why
+        if dss is None:
             return None
+        on = f" on rank {self.rank}" if self.world > 1 else ""
+        print(f" [*] training split{'s' if self.cycle else ''} resident on "
+              f"device{on} ({sum(d.nbytes for d in dss) >> 20} MB, "
+              f"{'+'.join(str(len(d)) for d in dss)} triplets)")
+        return dss if self.cycle else dss[0]
+
+    def _device_splits(self):
+        """(the resident splits, None), or (None, why not)."""
+        cfg = self.cfg
+        if not cfg.device_dataset_mb:
+            return None, "--device_dataset_mb 0"
         splits = ("trainA", "trainB") if self.cycle else ("trainA",)
         est = 0
         for split in splits:
             files = Dataset(self.root, split).files()
             n = min(len(files), int(cfg.train_size))
             if n < cfg.batch_size:
-                return None
+                return None, (f"{split} has {n} triplets, fewer than a "
+                              f"batch of {cfg.batch_size}")
             probe = _load_triplet(files[0], split,
                                   cache_bytes=cfg.decode_cache_mb << 20,
                                   max_hw=self.max_src_hw)
             est += sum(a.nbytes for a in probe) * n
         if est > cfg.device_dataset_mb << 20:
-            return None
+            return None, (f"{est >> 20} MB a card, over --device_dataset_mb "
+                          f"{cfg.device_dataset_mb}")
         try:
-            dss = tuple(DeviceDataset(self.root, split,
-                                      max_hw=self.max_src_hw,
-                                      cache_mb=cfg.decode_cache_mb,
-                                      train_size=cfg.train_size,
-                                      device=self.device)
-                        for split in splits)
+            return tuple(DeviceDataset(self.root, split,
+                                       max_hw=self.max_src_hw,
+                                       cache_mb=cfg.decode_cache_mb,
+                                       train_size=cfg.train_size,
+                                       device=self.device)
+                         for split in splits), None
         except (ValueError, torch.cuda.OutOfMemoryError) as e:
             # sources of several shapes do not stack; the card may be full
-            print(f" [!] device dataset cache disabled: "
+            on = f" on rank {self.rank}" if self.world > 1 else ""
+            print(f" [!] device dataset cache disabled{on}: "
                   f"{type(e).__name__}: {e}")
-            return None
-        print(f" [*] training split{'s' if self.cycle else ''} resident on "
-              f"device ({sum(d.nbytes for d in dss) >> 20} MB, "
-              f"{'+'.join(str(len(d)) for d in dss)} triplets)")
-        return dss if self.cycle else dss[0]
+            return None, f"{type(e).__name__}{on}"
 
     def _save(self, epoch: int):
         ckpt.save(self.state, self.cfg.checkpoint_dir, self.cfg.dataset_dir,
@@ -293,8 +338,41 @@ class Trainer:
                 g_losses, d_losses, global_step, start_time)
         return global_step
 
+    def _path_line(self, resident: bool) -> str:
+        """The coordinator's line on where a rank's rows come from and how
+        its steps run."""
+        cfg = self.cfg
+        b_eff = fused.effective_batch(cfg)
+        unit, i = ("data row", "d") if self.grid is not None \
+            else ("rank", "r")
+        if resident:
+            n = b_eff // self.n_rows
+            return (f"{unit} {i} takes rows [{n}{i}, {n}({i} + 1)) of each "
+                    f"batch of {b_eff} (the JAX mesh's blocks), from the "
+                    "split resident on each rank's card; "
+                    + (f"--scan_steps {cfg.scan_steps}: chunks of "
+                       f"{cfg.scan_steps} eager steps"
+                       if cfg.scan_steps > 1 else "eager steps")
+                    + " (no CUDA graph holds a collective)")
+        copies = ", with their augmented copies," if cfg.use_augmentation \
+            else ""
+        return (f"{self.local_bs} of each batch of {cfg.batch_size} a "
+                f"{unit}{copies} from the host iterator "
+                f"(the split is not resident: {self.host_why}); eager steps "
+                "(no CUDA graph holds a collective)")
+
     def train(self) -> dict:
         cfg = self.cfg
+        dev_ds = self._maybe_device_dataset()
+        if dev_ds is None and cfg.batch_size % self.n_rows:
+            # the host iterator's condition, the JAX multi-process
+            # trainer's (trainer.py:70-75); the resident split needs only
+            # the effective batch to divide (its mesh's, dp.py:56)
+            raise ValueError(
+                f"batch_size={cfg.batch_size} must divide by the "
+                f"{self.n_rows} data rows on the host iterator (each "
+                "decodes its slice of the batch's files); the training "
+                f"split is not resident: {self.host_why}")
         logdir = os.path.join(
             cfg.log_dir,
             datetime.datetime.now().strftime("%Y%m%d-%H%M%S"), "train")
@@ -324,18 +402,12 @@ class Trainer:
                   f"({torch.distributed.get_backend(self.group)}): data "
                   f"{g.data} x space {g.space} x wspace {g.wspace}, a block "
                   f"of {cfg.image_height // g.space} x "
-                  f"{cfg.image_width // g.wspace} a rank, {self.local_bs} of "
-                  f"each batch of {cfg.batch_size} a data row, from the "
-                  "host iterator; --device_dataset_mb and --scan_steps have "
-                  "no effect: the steps run eagerly, no CUDA graph holds a "
-                  "collective")
+                  f"{cfg.image_width // g.wspace} a rank, "
+                  + self._path_line(dev_ds is not None))
         elif self.world > 1 and self.is_coord:
             print(f" [*] data parallel over {self.world} ranks "
                   f"({torch.distributed.get_backend(self.group)}): "
-                  f"{self.local_bs} of each batch of {cfg.batch_size} a "
-                  "rank, from the host iterator; --device_dataset_mb and "
-                  "--scan_steps have no effect: the steps run eagerly, no "
-                  "CUDA graph holds a collective")
+                  + self._path_line(dev_ds is not None))
 
         epoch = 0
         last = {}
@@ -343,8 +415,8 @@ class Trainer:
         images = 0
         self._prof = TraceWindow(cfg.profile_dir) if cfg.profile_dir \
             else None
-        dev_ds = self._maybe_device_dataset()
-        make_batch = fused.make_batch_fn(cfg) if dev_ds is not None else None
+        make_batch = (fused.make_batch_fn(cfg, fused.own_rows(self))
+                      if dev_ds is not None else None)
         # K steps a chunk through one CUDA graph, captured at the first
         graph = (fused.StepGraph(self, dev_ds, make_batch)
                  if dev_ds is not None and cfg.scan_steps > 1 else None)

@@ -12,8 +12,17 @@ never JAX.
         state with every rank's pool rows
         (``bridge.train_state_to_jax(state, group)``)
     python tests/_torch_dp_worker.py trainer <dataset> <work_dir>
-        ``main.main`` trains over 2 ranks (the p2p ResNet), then resumes;
+        ``main.main`` trains over 2 ranks (the p2p ResNet, on the host
+        iterator: ``--device_dataset_mb 0``), then resumes;
         the global-row preprocess of a host batch; the world-size checks
+    python tests/_torch_dp_worker.py resident <dataset> <work_dir>
+        ``main.main`` over 2 ranks on the split resident on each rank:
+        the p2p ResNet, then the same on the host iterator; the ResNet
+        sggan at a batch of 1 doubled, with its pool, in ``--scan_steps``
+        chunks of 2 and of 1, each step's losses, the pool and the saves
+        recorded, then a resume of the chunked run; the same batch on the
+        host iterator (refused); the p2p ResNet where rank 1 cannot build
+        the split.  A line ``== <run>`` opens each run's output
     python tests/_torch_dp_worker.py slow_eval <dataset> <work_dir>
             <timeout_s> <eval_s>
         the process group joined with a collectives' timeout of
@@ -129,7 +138,8 @@ def trainer(dataset: str, work: str) -> None:
         print(f"OK {what} rank {rank} step {tr.state.step} gen_loss "
               f"{last['gen_loss']!r} digest {digest}", flush=True)
 
-    argv = _argv(dataset, work, rank)
+    # the host iterator (the resident split is the ``resident`` job's)
+    argv = [*_argv(dataset, work, rank), "--device_dataset_mb", "0"]
     tmain.main(["--phase", "train", *argv], device="cpu")
     report("trainer")
     print(f"OK group still joined {dist.is_initialized()}", flush=True)
@@ -184,6 +194,83 @@ def trainer(dataset: str, work: str) -> None:
     distributed.shutdown()
 
 
+def resident(dataset: str, work: str) -> None:
+    import hashlib
+
+    import torch.distributed as dist
+
+    from sggan_tpu_torch import main as tmain
+    from sggan_tpu_torch.parallel import distributed
+    from sggan_tpu_torch.train import trainer as ttrainer
+    from sggan_tpu_torch.train.step import state_tensors
+
+    distributed.initialize(device_kind="cpu")
+    rank = dist.get_rank()
+    Trainer = ttrainer.Trainer
+    train, runs = Trainer.train, []
+
+    def kept(self):
+        rec = {"losses": [], "saves": []}
+        step_fn, save = self.step_fn, self._save
+
+        def recording(*args):
+            state, m = step_fn(*args)
+            rec["losses"].append((m["gen_loss"].item(),
+                                  m["disc_loss"].item()))
+            return state, m
+
+        def saving(epoch):
+            rec["saves"].append(self.state.step)
+            save(epoch)
+        self.step_fn, self._save = recording, saving
+        runs.append((self, rec))
+        rec["last"] = train(self)
+        return rec["last"]
+    Trainer.train = kept
+
+    def run(name: str, argv: list) -> None:
+        print(f"== {name}", flush=True)
+        tmain.main(["--phase", "train", *argv], device="cpu")
+        tr, rec = runs[-1]
+        digest = hashlib.sha256(b"".join(
+            t.detach().numpy().tobytes() for k, t in sorted(
+                state_tensors(tr.state).items())
+            if not k.startswith("pool."))).hexdigest()
+        with open(os.path.join(work, f"{name}{rank}.pkl"), "wb") as f:
+            pickle.dump({"losses": rec["losses"], "saves": rec["saves"],
+                         "step": tr.state.step,
+                         "count": tr.state.pool.count,
+                         "pool": {k: v.numpy().copy() for k, v in
+                                  tr.state.pool.buffer.items()}}, f)
+        print(f"OK {name} rank {rank} step {tr.state.step} gen_loss "
+              f"{rec['last']['gen_loss']!r} digest {digest}", flush=True)
+
+    def argv(name: str, *extra: str) -> list:
+        return [*_argv(dataset, os.path.join(work, name), rank), *extra]
+
+    run("p2p", argv("p2p"))
+    run("p2p_host", argv("p2p_host", "--device_dataset_mb", "0"))
+    b1 = ["--loss_mode", "sggan", "--batch_size", "1", "--max_size", "2",
+          "--train_size", "4", "--print_freq", "2", "--save_freq", "3"]
+    for k in ("2", "1"):
+        run(f"scan{k}", argv(f"scan{k}", *b1, "--scan_steps", k))
+    run("resume", argv("scan2", *b1, "--scan_steps", "2",
+                       "--continue_train"))
+    print("== b1_host", flush=True)
+    try:
+        tmain.main(["--phase", "train", *argv("b1_host", *b1,
+                                              "--device_dataset_mb", "0")],
+                   device="cpu")
+    except ValueError as e:
+        print(f"OK refused rank {rank}: {e}", flush=True)
+    if rank == 1:  # a rank whose split does not stack
+        def mixed(*args, **kw):
+            raise ValueError("sources of several shapes")
+        ttrainer.DeviceDataset = mixed
+    run("disagree", argv("disagree"))
+    distributed.shutdown()
+
+
 def slow_eval(dataset: str, work: str, timeout_s: str, eval_s: str) -> None:
     import time
 
@@ -221,6 +308,8 @@ def main() -> None:
             dist.destroy_process_group()
     elif job == "trainer":
         trainer(*args)
+    elif job == "resident":
+        resident(*args)
     else:
         slow_eval(*args)
     banned = [m for m in sys.modules if m == "jax" or m.startswith(

@@ -237,9 +237,11 @@ def p2p(cases_path: str, out_dir: str) -> None:
 
 
 def _argv(dataset: str, work: str, rank: int, nets: str = "") -> list:
-    """The CLI of the 2-rank run, one epoch: the ResNet sggan, or with
-    ``nets`` "p2p" the pix2pix pair in the p2p mode."""
-    mode = ["--use_pix2pix", "--loss_mode", "p2p"] if nets == "p2p" else \
+    """The CLI of the 2-rank run, one epoch: the ResNet sggan on the split
+    resident on each rank, or with ``nets`` "p2p" the pix2pix pair in the
+    p2p mode on the host iterator (``--device_dataset_mb 0``)."""
+    mode = ["--use_pix2pix", "--loss_mode", "p2p", "--device_dataset_mb",
+            "0"] if nets == "p2p" else \
         ["--use_resnet", "--loss_mode", "sggan", "--max_size", "4"]
     return ["--dataset_dir", dataset, "--img_height", "32", "--img_width",
             "32", "--ngf", "4", "--ndf", "4", "--segment_class", "8",

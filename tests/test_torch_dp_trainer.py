@@ -3,7 +3,9 @@ with ``--mesh_data 2`` in two gloo ranks (``tests/_torch_dp_worker.py
 trainer``, launched once for the module), as ``tests/test_distributed.py:
 70-160`` runs the JAX trainer over two processes.  The p2p ResNet at
 32x32, ngf and ndf 4, a global batch of 4 doubled by augmentation (2
-files a rank), one epoch of 2 steps over 8 triplets, then a resume.
+files a rank), one epoch of 2 steps over 8 triplets, then a resume, on
+the host iterator (``--device_dataset_mb 0``; the split resident on each
+rank is ``tests/test_torch_dp_resident.py``'s).
 
 Held: the epoch's generator loss equals the one-process trainer's over
 the same global batches (rel 1e-4: the mean of two shards' means is the

@@ -6,7 +6,8 @@ against the JAX package's ``make_sp_train_step`` (its body,
 ``make_sp_step_body``, jitted and compiled as ``tests/test_torch_step.py``
 compiles) on 2 or 4 of ``conftest.py``'s 8 CPU devices, and against the
 port's one-process step on the whole plane of each data row; then the
-trainer over 2 ranks and the bridge.
+trainer over 2 ranks on the host iterator (``--device_dataset_mb 0``)
+and the bridge.
 
 Cases: space 2 with dropout (``--dropout_mode intended``), data 2 x space
 2 with dropout and the EMA, space 2 x wspace 2 under ``keras_quirk`` (no
@@ -382,6 +383,8 @@ def test_trainer_epoch_resume_and_test(job, tmp_path, monkeypatch):
         a, b = (_line(o, what) for o in outs)
         assert a == b and a["step"] == step and np.isfinite(a["loss"]), what
     assert " [*] spatially sharded over 2 ranks (gloo)" in outs[0]
+    assert "from the host iterator (the split is not resident: " \
+        "--device_dataset_mb 0)" in outs[0]
     assert " [*] Load SUCCESS" in outs[0] and "Epoch:" not in outs[1]
     gen = torch.load(work / "ckpt" / "city" / "gen" / "cp-0001.pt",
                      weights_only=True)

@@ -4,7 +4,8 @@ trainer``, launched once for the module), as the JAX trainer trains on a
 (data x space) mesh (``sggan_tpu/train/trainer.py:79-105``).  The ResNet
 sggan at 32x32, ngf and ndf 4, pool 4, a batch of 2 doubled by
 augmentation, one epoch of 4 steps over 8 triplets of
-``write_dataset``'s PNGs, then a resume.
+``write_dataset``'s PNGs on the split resident on each rank (the CLI's
+default), then a resume.
 
 Held: both ranks end each run with the same losses and the same state
 bit for bit (the pool blocks their own); only the coordinator prints,
@@ -76,7 +77,13 @@ def test_ranks_end_with_the_same_losses_and_state(job):
 def test_only_the_coordinator_prints_evaluates_and_writes(job):
     _, work, outs = job
     assert " [*] spatially sharded over 2 ranks (gloo): data 1 x space 2 " \
-        "x wspace 1, a block of 16 x 32 a rank" in outs[0]
+        "x wspace 1, a block of 16 x 32 a rank, data row d takes rows " \
+        "[4d, 4(d + 1)) of each batch of 4 (the JAX mesh's blocks), from " \
+        "the split resident on each rank's card; --scan_steps 8: chunks " \
+        "of 8 eager steps" in outs[0]
+    for r in range(2):
+        assert f" [*] training split resident on device on rank {r}" \
+            in outs[r]
     assert "Epoch: [ 0]" in outs[0] and "Epoch:" not in outs[1]
     assert sorted(os.listdir(work / "test0")) == ["v0.png", "v1.png"]
     assert not (work / "test1").exists() or not os.listdir(work / "test1")
