@@ -291,8 +291,8 @@ Phases, each of which raises on failure:
      iterator's.  The ranks import no JAX module.
      Alone: ``python -c "import chip_smoke; chip_smoke.dp_alone()"``.
   37. Spatial sharding, ``--mesh_space`` (gloo ranks sharing the card;
-     NCCL over 2 cards where the machine has them, else "nccl: not run, 1
-     card").  Part 2 (main path, timed, after phase 36's): ``python -m
+     NCCL over 2 cards is phase 39's part 2).  Part 2 (main path, timed,
+     after phase 36's): ``python -m
      sggan_tpu_torch.main --mesh_space 2`` (ResNet sggan, 256x512 bf16,
      ngf and ndf 64, 34 classes, b=8 doubled to 16, one epoch of 4
      steps, on the split resident on each rank, its line printed) with
@@ -345,13 +345,36 @@ Phases, each of which raises on failure:
      fixtures' frames repeated to 200 MB of output, with the host CPU
      and the card.  Alone: ``python -c "import chip_smoke;
      chip_smoke.orbax_alone()"``.
+  39. the multi-rank step as a CUDA graph (main path).  Part 1, in phase
+     29's fresh process after its step cells: a process group of one NCCL
+     rank on the card, and over it the data-parallel step (built with
+     ``keep_one``, which the trainer never passes, so that its buckets'
+     all-reduces are NCCL calls) in phase 29's ResNet sggan cell (256x512
+     bf16 b=8 doubled to 16) and pix2pix cell (128x128 b=1 doubled to 2,
+     the bucket with the batch norms' stats): 8 eager steps and the same
+     8 through ``StepGraph`` in chunks of 8 and of 3, cuDNN deterministic,
+     losses and every state tensor bitwise equal; K1's 37 + 37 calls
+     recorded at the ResNet's capture and named by a profiler window of
+     replays; the collectives recorded at the capture an eager step's (2
+     all-reduces, the ResNet's 90,165,916 bytes); eager beside graph step
+     ms, idle share, peak memory and the NCCL kernels of a window of
+     replays (or none).  Part 2, where two cards are visible: the ResNet
+     sggan CLI with ``--mesh_data 2 --scan_steps 4`` and with
+     ``--mesh_space 2 --scan_steps 4`` on phase 16's PNGs over two NCCL
+     ranks, a card each, then over two gloo ranks on the same cards, cuDNN
+     deterministic: each NCCL rank's captured line, the coordinator's
+     path lines, the NCCL ranks' states bitwise equal, the epoch loss
+     within rel 1e-6 of gloo's; on one card it prints "nccl graph: not
+     run, 1 card".  Part 1 alone: ``chip_smoke.nccl_graph_phase(card,
+     device)``.
 
 Prints a JSON line of the trainer's and the preprocess's rates, one of
 the default nets' numbers, one of the cycle mode's, one of the inference
 cell's, one of the CUDA graphs', one of phases 30-32, one of phases
-33-35, one of phase 36, one of phase 37, one of phase 38, a JSON line of
-the kernels
-(K1's entries with ``launches_dp``, and K1's split entries
+33-35, one of phase 36, one of phase 37, one of phase 38, one of phase
+39, a JSON line of the kernels
+(K1's entries with ``launches_dp`` and ``launches_dp_graph``, and K1's
+split entries
 ``instance_norm_sp_fwd`` / ``_bwd``), then as the last line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing neither,
 when no CUDA device is visible or any phase fails.
@@ -3441,15 +3464,24 @@ def step_graph_gate(card: str, label: str, tr, ds, sites) -> dict:
     deterministic): from one snapshot, ``GRAPH_STEPS`` eager steps, then
     the same steps through the graph in chunks of each of
     ``GRAPH_CHUNKS``; losses and every state tensor bitwise equal; K1's
-    calls recorded at the capture as planned; a profiler window of an
-    epoch's replays names K1's kernels for those calls each."""
+    calls recorded at the capture as planned; the collectives' counts
+    recorded at the capture an eager step's (none for one process); a
+    profiler window of an epoch's replays names K1's kernels for those
+    calls each."""
     from sggan_tpu_torch.train import fused
     snap = train_snapshot(tr)
+    c0 = fused.comm_counts()
     eager = loop_epoch(tr, ds, 0).cpu()
+    comm = {k: (v - c0[k]) // GRAPH_STEPS
+            for k, v in fused.comm_counts().items()}
+    need(all(v - c0[k] == GRAPH_STEPS * comm[k]
+             for k, v in fused.comm_counts().items()),
+         f"{label}: the eager steps' collectives differ from step to step")
     ref = train_snapshot(tr)
     want = {d: planned(sites[d] if isinstance(sites, dict) else sites, d)
             for d in ("fwd", "bwd")}
-    res = {"eager_losses": eager.tolist()}
+    res = {"eager_losses": eager.tolist(),
+           "collectives_per_eager_step": comm}
     for k in GRAPH_CHUNKS:
         train_restore(tr, snap)
         tr.cfg = tr.cfg.replace(scan_steps=k)
@@ -3472,7 +3504,10 @@ def step_graph_gate(card: str, label: str, tr, ds, sites) -> dict:
         need(same, f"{label}: the graph's steps are not the eager steps")
         need(routes == want, f"{label}: K1's calls at the capture left "
              "their count or routes")
-        res[f"k{k}"] = {"bitwise": same, "k1_at_capture": routes}
+        need(graph.comm_calls == comm, f"{label}: the collectives recorded "
+             f"at the capture {graph.comm_calls}, an eager step's {comm}")
+        res[f"k{k}"] = {"bitwise": same, "k1_at_capture": routes,
+                        "collectives_at_capture": graph.comm_calls}
         if k == GRAPH_CHUNKS[0]:
             # a window of one more epoch's replays: K1's own kernels, a
             # step's calls each
@@ -3522,11 +3557,15 @@ def loop_timing(card: str, label: str, tr, ds) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             loop_epoch(tr, ds, 1 + GRAPH_TIMED_EPOCHS, graph)
             torch.cuda.synchronize()
-        busy = sum(k[0] for k in kernel_times(prof, GRAPH_STEPS))
+        kern = kernel_times(prof, GRAPH_STEPS)
+        busy = sum(k[0] for k in kern)
         out[name] = {"step_ms": ms, "busy_ms": busy,
                      "idle_share": 1 - busy / ms, "peak_gib": peak[0],
                      "peak_reserved_gib": peak[1],
-                     "img_per_s": 1e3 * b_eff / ms}
+                     "img_per_s": 1e3 * b_eff / ms,
+                     # (ms, launches) a step of each NCCL kernel, by name
+                     "nccl_kernels": {n: [t, c] for t, c, n in kern
+                                      if "nccl" in n.lower()}}
         print(f"  [{card}] {label} {name}: {ms:.3f} ms a step of the loop, "
               f"{1e3 * b_eff / ms:.2f} {'pairs' if tr.cycle else 'img'}/s, "
               f"busy {busy:.3f} ms ({100 * (1 - busy / ms):.1f}% idle), "
@@ -3664,17 +3703,97 @@ def graphs_phase(card: str, dev) -> dict:
     return out
 
 
+# the ResNet sggan step's two buckets at 256x512, ngf and ndf 64, 34
+# classes: its gradients and loss (no batch norm), f32 (phase 36, PR 14)
+DP_BUCKET_BYTES = 90165916
+NCCL_CELLS = ("sggan_resnet_b16", "pix2pix_b2")
+
+
+def one_rank_nccl():
+    """The default process group of this process alone, over NCCL on the
+    current card (``tcp://localhost`` on a free port)."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    return dist.group.WORLD
+
+
+def nccl_graph_phase(card: str, dev) -> dict:
+    """Phase 39, part 1, in phase 29's process after its cells: the
+    data-parallel step over a group of one NCCL rank on the card (built
+    with ``keep_one``, which the trainer never passes, so that its
+    buckets' all-reduces are NCCL calls), in the ResNet sggan cell and the
+    pix2pix cell of phase 29 (whose bucket carries the batch norms'
+    stats): ``step_graph_gate`` (8 eager steps and the same through the
+    graph in chunks of 8 and of 3, bitwise; K1's calls at the capture and
+    in a window of replays; the collectives recorded at the capture an
+    eager step's: 2 all-reduces, and the ResNet's bytes), then
+    ``loop_timing`` with the NCCL kernels of a window of replays."""
+    import torch.distributed as dist
+
+    from sggan_tpu_torch.train.step import build_step_fn
+    phase("39 the multi-rank step as a CUDA graph, part 1 (main path): the "
+          "data-parallel step over a group of one NCCL rank on the card, "
+          "its collectives in the step's graph")
+    group = one_rank_nccl()
+    out = {"backend": dist.get_backend(group),
+           "nccl": str(torch.cuda.nccl.version()),
+           "steps": {}, "timing": {}}
+    cases = graph_cases()
+    try:
+        for label in NCCL_CELLS:
+            cfg, sites = cases[label]
+            tr, ds = graph_trainer(cfg, dev, GRAPH_STEPS)
+            tr.group = group
+            tr.step_fn = build_step_fn(cfg, group, keep_one=True)
+            det = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                res = step_graph_gate(card, f"nccl {label}", tr, ds, sites)
+            finally:
+                torch.backends.cudnn.deterministic = det
+            comm = res["collectives_per_eager_step"]
+            print(f"  [{card}] nccl {label}: a step's collectives, eager "
+                  f"and at the capture: {comm}")
+            need(comm["dp.all_reduce_calls"] == 2 and (
+                label != "sggan_resnet_b16"
+                or comm["dp.all_reduce_bytes"] == DP_BUCKET_BYTES),
+                 f"nccl {label}: a step's all-reduces {comm}, not 2 buckets"
+                 f" (the ResNet's {DP_BUCKET_BYTES} bytes)")
+            out["steps"][label] = res
+            t = out["timing"][label] = loop_timing(card, f"nccl {label}",
+                                                   tr, ds)
+            for name in ("eager", "graph"):
+                kern = t[name]["nccl_kernels"]
+                print(f"  [{card}] nccl {label} {name}: NCCL kernels a step "
+                      + (", ".join(f"{n[:70]} {ms:.4f} ms x{c}"
+                                   for n, (ms, c) in kern.items())
+                         if kern else "none in the trace"))
+            del tr, ds
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def graphs_hist_phases(card: str, dev) -> dict:
-    """Phase 29's step cells (``graphs_phase``), then its forward graphs
+    """Phase 29's step cells (``graphs_phase``), then phase 39's part 1
+    (``nccl_graph_phase``), then phase 29's forward graphs
     (``forward_graph_gate``), then phase 33 (``hist_phase``), then phase
     38 (``orbax_phase``, beside phase 28's host work), in one fresh
     process: the profiler windows that count K1's kernels come in its
     first minutes, each taken again when a trace drops one
     (``k1_window``)."""
     graphs = graphs_phase(card, dev)
+    nccl = nccl_graph_phase(card, dev)
     graphs["forward"] = forward_graph_gate(card, dev)
-    return {"graphs": graphs, "hist": hist_phase(card, dev),
-            "orbax": orbax_phase(card, dev)}
+    return {"graphs": graphs, "nccl_graph": nccl,
+            "hist": hist_phase(card, dev), "orbax": orbax_phase(card, dev)}
 
 
 # ----------------------------------------------------------------------
@@ -6239,23 +6358,119 @@ def sp_follow_check(card: str, dev, work: str, procs: dict) -> dict:
             "wide": {"ranks": wres, "one_process_peak_gib": one}}
 
 
-def sp_nccl(card: str, work: str) -> dict:
-    """Part 2's CLI on NCCL over 2 cards where the machine has them."""
+# phase 39, part 2: the ResNet sggan CLI of phases 36 and 37 with
+# --scan_steps 4 (its 4 steps one chunk) over two ranks, a card each
+NCCL_K = 4
+NCCL_LOSS_REL = 1e-6
+NCCL_CHILD_GRAPH = ("import sys, chip_smoke; "
+                    "sys.exit(chip_smoke.nccl_graph_rank(*sys.argv[1:]))")
+
+
+def nccl_graph_rank(kind: str, work: str, backend: str) -> int:
+    """One rank of phase 39's part 2, on the card ``LOCAL_RANK``: joins
+    the group over ``backend``, trains the ResNet sggan CLI under
+    ``--mesh_data 2`` (``kind`` "dp") or ``--mesh_space 2`` ("sp") with
+    ``--scan_steps 4`` and cuDNN deterministic, and prints as its last
+    line its epoch loss and a digest of its state (the pool aside)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from sggan_tpu_torch import main as tmain
+    from sggan_tpu_torch.parallel import distributed
+    from sggan_tpu_torch.train.step import state_tensors
+    from sggan_tpu_torch.train.trainer import Trainer
+
+    distributed.initialize(backend=backend)
+    r = dist.get_rank()
+    run = os.path.join(work, f"nccl_graph_{kind}_{backend}")
+    args = [*DP_CLI_ARGS, "--mesh_data", str(DP_N)] if kind == "dp" \
+        else SP_CLI_ARGS
+    argv = ["--phase", "train", *args, "--scan_steps", str(NCCL_K),
+            "--dataset_dir", os.path.join(work, "datasets", "city"),
+            "--checkpoint_dir", os.path.join(run, "checkpoint"),
+            *(x for d in ("test", "sample", "log")
+              for x in (f"--{d}_dir", os.path.join(run, f"{d}{r}")))]
+    runs, train = [], Trainer.train
+
+    def kept(self):
+        runs.append((self, train(self)))
+        return runs[-1][1]
+    Trainer.train = kept
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    try:
+        tmain.main(argv)
+        wall = time.perf_counter() - t0
+        tr, last = runs[-1]
+        digest = hashlib.sha256(b"".join(
+            t.detach().float().cpu().numpy().tobytes()
+            for k, t in sorted(state_tensors(tr.state).items())
+            if not k.startswith("pool."))).hexdigest()
+    finally:
+        Trainer.train = train
+        dist.barrier()
+        distributed.shutdown()
+    print(json.dumps({"rank": r, "step": tr.state.step,
+                      "gen_loss": last["gen_loss"], "digest": digest,
+                      "seconds": wall}), flush=True)
+    return 0
+
+
+def nccl_graph_cli(card: str, work: str) -> dict:
+    """Phase 39, part 2, where the machine has two cards: the ResNet sggan
+    CLI at full width with ``--mesh_data 2 --scan_steps 4`` and with
+    ``--mesh_space 2 --scan_steps 4`` on phase 16's PNGs, over two NCCL
+    ranks, a card each (the step captured with its collectives), then the
+    same over two gloo ranks on the same cards (eager steps): each NCCL
+    rank prints its captured line and the coordinator the path line; the
+    NCCL ranks' states bitwise equal; the NCCL run's epoch loss within
+    rel 1e-6 of the gloo run's."""
     n = torch.cuda.device_count()
     if n < 2:
-        print(f"  nccl: not run, {n} card")
-        return {"nccl": f"not run, {n} card"}
-    outs = dp_wait(dp_start("cli", work, "1", "resnet", child=SP_CHILD,
-                            nccl=True,
-                            env_extra={"SP_BACKEND": "nccl"}),
-                   "--continue_train over 2 NCCL ranks, a card each", 600)
-    res = [json.loads(o[1].strip().splitlines()[-1])["resnet"]
-           for o in outs]
-    for x in res:
-        print(f"  [{card}] NCCL rank {x['rank']}: step "
-              f"{x.get('step_ms')} ms, idle {x.get('idle_share')}, halo "
-              f"{x.get('halo_ms')} ms, moments {x.get('moments_ms')} ms")
-    return {"nccl": res}
+        print(f"  nccl graph: not run, {n} card")
+        return {"nccl_graph": f"not run, {n} card"}
+    out = {}
+    for kind in ("dp", "sp"):
+        got = {}
+        for backend in ("nccl", "gloo"):
+            outs = dp_wait(dp_start(kind, work, backend,
+                                    child=NCCL_CHILD_GRAPH, nccl=True),
+                           f"the ResNet sggan CLI with --mesh_"
+                           f"{'data' if kind == 'dp' else 'space'} 2 "
+                           f"--scan_steps {NCCL_K} over 2 {backend} ranks, "
+                           "a card each", 900)
+            got[backend] = [json.loads(o[1].strip().splitlines()[-1])
+                            for o in outs]
+            captured = [[ln for ln in o[1].splitlines()
+                         if "train step captured as a CUDA graph" in ln]
+                        for o in outs]
+            for r, lines in enumerate(captured):
+                print(f"  [{card}] {kind} {backend} rank {r}: "
+                      f"{lines or 'no capture'}")
+            if backend == "nccl":
+                need(all(any(f" on rank {r} " in ln for ln in lines)
+                         for r, lines in enumerate(captured)),
+                     f"{kind}: an NCCL rank did not capture its step")
+                need(f"--scan_steps {NCCL_K}: one CUDA graph a step, its "
+                     "NCCL collectives captured" in outs[0][1],
+                     f"{kind}: the coordinator's NCCL path line")
+                need(len({x["digest"] for x in got[backend]}) == 1,
+                     f"{kind}: the NCCL ranks' states differ")
+            else:
+                need(not any(captured) and "gloo's collectives cannot be "
+                     "captured" in outs[0][1],
+                     f"{kind}: the gloo run captured, or its path line")
+        a, b = got["nccl"][0]["gen_loss"], got["gloo"][0]["gen_loss"]
+        rel = abs(a - b) / abs(b)
+        secs = {k: [x["seconds"] for x in v] for k, v in got.items()}
+        print(f"  [{card}] {kind}: epoch generator loss {a!r} over NCCL "
+              f"(the graph), {b!r} over gloo (eager), rel {rel:.3g} (limit "
+              f"{NCCL_LOSS_REL:g}); the ranks' seconds {secs}")
+        need(math.isfinite(a) and rel <= NCCL_LOSS_REL,
+             f"{kind}: the NCCL run's loss is off the gloo run's")
+        out[kind] = {**got, "rel": rel}
+    return {"nccl_graph": out}
 
 
 def sp_alone() -> int:
@@ -6275,7 +6490,7 @@ def sp_alone() -> int:
     res["k1_times"] = sp_k1_times(card, dev)
     res["p2p"] = sp_p2p_train(card, dev, work, job)
     res.update(sp_follow_check(card, dev, work, sp_follow_start(work)))
-    res.update(sp_nccl(card, work))
+    res.update(nccl_graph_cli(card, work))
     shutil.rmtree(work)
     print(f"  phase 37 took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"sp": res}))
@@ -7131,7 +7346,6 @@ def main() -> int:
               "grid; NCCL")
         t = time.perf_counter()
         sp_res.update(sp_follow_check(card, dev, work, started["sp"]))
-        sp_res.update(sp_nccl(card, work))
         t37 += time.perf_counter() - t
         print(f"  phase 37: {t37:.1f} s in its own sections (part 1, the "
               "resume and the 512x1024 step ran beside phase 26)")
@@ -7151,9 +7365,14 @@ def main() -> int:
         procs += [tf_job, selftest, crf_big]
         phase("29 CUDA graphs (main path): --scan_steps K in every loss "
               "mode, eager beside the graph; the forward graphs")
-        fresh = run_fresh(card, "graphs_hist_phases", 960)
+        fresh = run_fresh(card, "graphs_hist_phases", 1060)
         graphs, hist, orbax_res = fresh["graphs"], fresh["hist"], \
             fresh["orbax"]
+        nccl_res = fresh["nccl_graph"]
+        phase("39 the multi-rank step as a CUDA graph, part 2 (main path): "
+              "python -m sggan_tpu_torch.main --mesh_data 2 and --mesh_space "
+              f"2 --scan_steps {NCCL_K} over two NCCL ranks, a card each")
+        nccl_res.update(nccl_graph_cli(card, work))
         for d, e in (("fwd", errs), ("bwd", bwd_errs)):
             for dt in (torch.float32, torch.bfloat16):
                 e[dt] = max(e[dt], hist["k1_max_abs_err"][d][str(dt)[6:]])
@@ -7331,6 +7550,12 @@ def main() -> int:
             f"sggan CLI (b={DP_CLI_B} doubled to {2 * DP_CLI_B}, "
             f"{DP_CLI_B} a rank; the non-coordinator rank's calls over "
             "the epoch's steps) and part 1's modes at 32x64")
+        ent["launches_dp_graph"] = nccl_res["steps"]["sggan_resnet_b16"][
+            f"k{GRAPH_CHUNKS[0]}"]["k1_at_capture"][d]
+        ent["launches_dp_graph_is"] = (
+            "K1 calls by route recorded at the capture of the data-parallel "
+            "ResNet sggan step over a group of one NCCL rank (phase 39, "
+            f"256x512 b={B_TRAIN}), launched by every replay")
     print(card)
     print(json.dumps({"e2e": {
         "config": "perf_epoch_e2e fused-aug: 96 PNG triplets 512x1024, "
@@ -7439,6 +7664,16 @@ def main() -> int:
                   "one-process --phase test; one step at "
                   f"{SP_WIDE[0]}x{SP_WIDE[1]} b={SP_WIDE[2]} on a 2 x 2 grid",
         **sp_res}}))
+    print(card)
+    print(json.dumps({"nccl_graph": {
+        "config": "phase 39: part 1 the data-parallel step over a group of "
+                  "one NCCL rank on the card, phase 29's ResNet sggan cell "
+                  f"(256x512 b={B_TRAIN}) and pix2pix cell (128x128 b=2), "
+                  f"{GRAPH_STEPS} eager steps against the step's graph; part "
+                  "2 (two cards) the ResNet sggan CLI with --mesh_data 2 and "
+                  f"--mesh_space 2, --scan_steps {NCCL_K}, NCCL against "
+                  "gloo",
+        **nccl_res}}))
     print(card)
     print(json.dumps({"orbax": {
         "config": "phase 38: the committed fixtures of tests/golden/orbax "

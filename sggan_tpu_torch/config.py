@@ -176,8 +176,9 @@ class Config:
     # CUDA graph and replays it `scan_steps` times a chunk, the analog of
     # the JAX package's lax.scan of K steps (train/fused.py).  The draws
     # are an eager step's, so every value trains the same steps.  Saves
-    # and prints happen at chunk granularity.  Under several ranks the
-    # steps of a chunk run eagerly (a gloo collective is not captured).
+    # and prints happen at chunk granularity.  Under several ranks over
+    # NCCL the graph holds the step's collectives; over gloo the steps of
+    # a chunk run eagerly (a gloo collective is not captured).
     # 1 = the eager step, one dispatch per op.
     scan_steps: int = 8
     # EMA decay for a shadow copy of the generator params (0 disables).
@@ -382,7 +383,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan_steps", type=int, default=d.scan_steps,
                    help="train steps per chunk over the device-resident "
                         "split, replays of one CUDA graph of the step "
-                        "(eager steps under several ranks); 1 = "
+                        "(eager steps over gloo's ranks); 1 = "
                         "the eager step.  NOTE: with K>1, --print_freq output "
                         "and --save_freq checkpoints land on K-step chunk "
                         "boundaries rather than exact steps")

@@ -146,7 +146,8 @@ class _InstanceNorm(torch.autograd.Function):
 
 # bytes and calls of the moments' all-reduces, for a reader who measures
 # them (chip_smoke.py, beside its profiler range "sp.moments"); never read
-# by the program
+# by the program.  A CUDA graph's replays pass no counter: StepGraph
+# records a step's at its capture (``fused.comm_counts``)
 moments_bytes = 0
 moments_calls = 0
 

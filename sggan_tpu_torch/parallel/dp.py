@@ -14,9 +14,11 @@ port keeps those semantics with one process per card:
   port never does);
 * ``mean_`` replaces tensors by their mean over the ranks, through one
   flat f32 bucket (one all-reduce of the sum, then a division: gloo has
-  no average), so the step makes two collectives, one per net, each
-  holding that net's gradients, its batch norms' moving stats and its
-  loss;
+  no average, and NCCL's would round otherwise), so the step makes two
+  collectives, one per net, each holding that net's gradients, its batch
+  norms' moving stats and its loss; over NCCL they are captured in the
+  step's CUDA graph with the rest of the step (``train/fused.py``), the
+  bucket allocated from the graph's pool;
 * each rank keeps ``max_size`` pool slots, rows ``[r * max_size, (r + 1)
   * max_size)`` of the JAX package's global buffer (``gather_pool`` puts
   them back together for a checkpoint; ``gather_blocks`` any layout of
@@ -28,7 +30,8 @@ port keeps those semantics with one process per card:
   rank (the resident split's, ``train/fused.py``), the rows that
   ``with_sharding_constraint(batch, P(data))`` gives device r of the JAX
   mesh; ``agree`` makes one decision of every rank's (the resident
-  split: all ranks take it or none);
+  split: all ranks take it or none; the step's graph: all ranks capture
+  it again or none);
 * ``broadcast_state`` copies rank 0's replicated state to every rank
   after an init or a load, as DDP does;
 * ``wait_group`` and ``barrier``: while the coordinator evaluates, the
@@ -60,25 +63,34 @@ WAIT_TIMEOUT_S = 24 * 3600
 
 # bytes and calls of the all-reduces ``mean_`` makes, for a reader who
 # measures them (chip_smoke.py, beside its profiler range
-# "dp.all_reduce"); never read by the program
+# "dp.all_reduce"); never read by the program.  A CUDA graph's replays
+# pass no counter: StepGraph records a step's at its capture
 bytes_reduced = 0
 reductions = 0
 
 
-def data_group(cfg, group=None):
+def data_group(cfg, group=None, keep_one: bool = False):
     """The process group over which ``cfg``'s steps average: None for
     one process; else ``group`` (the default group when None), whose
     size must be ``--mesh_data`` (a spatial job's groups are
-    ``mesh.grid``'s)."""
+    ``mesh.grid``'s).  ``keep_one``: a group of one rank is kept, so that
+    a step over it makes its collectives (a measurement of a one-rank
+    NCCL group; the trainer never asks for it)."""
     n = world_size(group)
     if n != cfg.mesh_data:
         raise ValueError(
             f"--mesh_data {cfg.mesh_data} must equal the world size, {n}: "
             "the port runs one rank a card (torchrun --nproc_per_node "
             f"{cfg.mesh_data} ... --mesh_data {cfg.mesh_data})")
-    if n == 1:
+    if n == 1 and not (keep_one and dist.is_initialized()):
         return None
     return dist.group.WORLD if group is None else group
+
+
+def backend(group) -> Optional[str]:
+    """The backend of ``group``'s collectives ("nccl", "gloo"); None for
+    no group (one process)."""
+    return None if group is None else dist.get_backend(group)
 
 
 @torch.no_grad()

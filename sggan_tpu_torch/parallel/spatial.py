@@ -9,9 +9,10 @@ the ``wspace`` ranks (``parallel/mesh.py``), one rank per card.
   conv's padding) or nothing, and the caller reflects locally (a REFLECT
   pad, spatial.py:251-265).  Its backward sends the gradient of each
   received row back to the rank that sent it, which adds it into its
-  edge rows.  NCCL moves device tensors (``dist.batch_isend_irecv``);
-  gloo's point-to-point takes CPU tensors only, so on a gloo group the
-  rows go through host buffers, by the group's backend.
+  edge rows.  The rows move as the tensors they are, in one
+  ``dist.batch_isend_irecv`` (NCCL's on the card, inside the step's CUDA
+  graph; gloo's on the CPU); gloo takes no CUDA tensor, so on a gloo
+  group a card's rows go through host buffers (``_via_host``).
 * H is exchanged before W, so the columns a rank sends carry the halo
   rows it received from its H neighbours: the corners (spatial.py:26-31).
 * ``instance_norm_sp`` (``ops/norm.py``): the moments summed over the
@@ -42,7 +43,10 @@ dtype, the norms' moments in f32, the derivative filters in f32.
 ``halo_bytes`` and ``halo_calls`` count the exchanges (forward and
 backward), ``gather_bytes`` and ``gather_calls`` the gathers and their
 backwards' reductions, for a reader who measures them; the program never
-reads them.
+reads them.  A CUDA graph's replays pass neither the counters nor the
+profiler ranges: ``train/fused.py``'s ``StepGraph`` records a step's
+counts at its capture, and under a graph the collectives' time is NCCL's
+kernels' in a trace.
 """
 
 from __future__ import annotations
@@ -71,22 +75,30 @@ gather_calls = 0
 
 # ------------------------------------------------------------ halo exchange
 
+def _via_host(group, like: torch.Tensor) -> bool:
+    """Whether a collective over ``group`` of tensors like ``like`` goes
+    through host buffers: gloo takes no CUDA tensor, so a card's tensors
+    on a gloo group do; NCCL's, and the CPU's on gloo, run the
+    device-tensor code."""
+    return like.device.type == "cuda" and \
+        dist.get_backend(group) == dist.Backend.GLOO
+
+
 def _p2p(axis: Axis, sends, recvs, like: torch.Tensor):
     """Point-to-point over ``axis.group``: ``sends`` [(tensor, peer)] and
     ``recvs`` [(shape, peer)] (global ranks), all posted, then waited;
-    returns the received tensors on ``like``'s device, in its dtype.  A
-    gloo group's point-to-point takes CPU tensors only, so on a card the
-    rows go through the host there; NCCL's moves the device tensors in
-    one ``batch_isend_irecv``."""
+    returns the received tensors on ``like``'s device, in its dtype.  The
+    tensors move in one ``batch_isend_irecv``, but through the host one by
+    one where ``_via_host``."""
     global halo_bytes, halo_calls
     if not sends and not recvs:
         return []
-    gloo = dist.get_backend(axis.group) == dist.Backend.GLOO
-    dev = torch.device("cpu") if gloo else like.device
+    host = _via_host(axis.group, like)
+    dev = torch.device("cpu") if host else like.device
     out = [t.to(dev).contiguous() for t, _ in sends]  # alive until waited
     bufs = [torch.empty(s, dtype=like.dtype, device=dev) for s, _ in recvs]
     with torch.profiler.record_function("sp.halo"):
-        if gloo:
+        if host:
             works = [dist.isend(t, peer, axis.group)
                      for t, (_, peer) in zip(out, sends)]
             works += [dist.irecv(b, peer, axis.group)
@@ -350,7 +362,7 @@ def batch_norm_sp(params, state, x: torch.Tensor, grid: Grid,
 
 class _Gather(torch.autograd.Function):
     """Every rank's block of ``axis`` put together along ``dim`` (a tiled
-    all-gather, through the host on a gloo group); the backward gives
+    all-gather, through the host where ``_via_host``); the backward gives
     this rank (``index`` in the axis) the sum of every rank's cotangent of
     its block."""
 
@@ -358,8 +370,7 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, x, axis, dim, index):
         global gather_bytes, gather_calls
         group = axis.group
-        gloo = dist.get_backend(group) == dist.Backend.GLOO
-        xs = x.to("cpu" if gloo else x.device).contiguous()
+        xs = (x.cpu() if _via_host(group, x) else x).contiguous()
         parts = [torch.empty_like(xs)
                  for _ in range(dist.get_world_size(group))]
         with torch.profiler.record_function("sp.gather"):

@@ -188,7 +188,7 @@ def losses_and_grads(cfg, state: TrainState, batch: Dict[str, torch.Tensor],
     return metrics, g_grads, d_grads, new_pool
 
 
-def build_cycle_step_fn(cfg, group=None):
+def build_cycle_step_fn(cfg, group=None, keep_one: bool = False):
     """The cycle step: ``(state, batch, lr, pool_draws, drop_masks=None)
     -> (state, metrics)``.
 
@@ -200,9 +200,9 @@ def build_cycle_step_fn(cfg, group=None):
     ``drop_masks`` from ``cycle_dropout_masks`` (None for the ResNet or
     under ``--dropout_mode keras_quirk``).  Every tensor of the state is
     updated in place, as the sggan step does it; metrics are device
-    scalars.  ``group``: the ranks of ``--mesh_data``, as the sggan
-    step's (``step.build_step_fn``)."""
-    group = dp.data_group(cfg, group)
+    scalars.  ``group`` and ``keep_one``: the ranks of ``--mesh_data``,
+    as the sggan step's (``step.build_step_fn``)."""
+    group = dp.data_group(cfg, group, keep_one)
 
     def step_fn(state: TrainState, batch, lr: Union[float, torch.Tensor],
                 pool_draws: Union[PoolDraws, PoolPlan, None],

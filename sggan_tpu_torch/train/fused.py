@@ -32,7 +32,8 @@ coordinator's, the save every rank's, as at a step (``end_step``).
 ``--scan_steps 1`` and the host iterator run the eager step, one
 dispatch per op, step by step.  Not
 ported: the JAX fallback to the per-step path when the scan program runs
-out of memory (``is_hbm_failure``); a capture that fails raises.
+out of memory (``is_hbm_failure``); a capture that fails raises, under
+NCCL too: nothing falls back to eager steps.
 
 Each step uploads nothing: the epoch's order goes to the device once (a
 chunk's rows, once a chunk, under ``--scan_steps`` K), the data draws and
@@ -52,10 +53,17 @@ rank's block of the plane (``assemble``, ``_batch_spec``'s layout).  The
 host iterator lays a global batch out otherwise (a rank's files and their
 augmented copies, the JAX multi-process layout, ``trainer.py``).  Under
 several ranks the chunk loop runs as on one, its pool draws and plans
-each rank's own (``own_pool_draws``), but each step of a chunk runs eagerly
-(``StepGraph.captures`` is false): a gloo collective cannot be captured
-in a CUDA graph.  A profiler window then counts steps, as the per-step
-loop's does, where it counts a replayed chunk as one.
+each rank's own (``own_pool_draws``).  Over NCCL each rank captures the
+step with its collectives (the gradients' buckets, the halos, the
+moments' and batch norms' all-reduces, the gathers) in its graph, as the
+JAX scan holds its ``psum``s and ``ppermute``s in one program; the warm-up
+steps before the capture make every communicator the step's collectives
+need.  Whether a state tensor has moved, so that the graph is captured
+again, is agreed by every rank (``dp.agree``) before a chunk: a rank that
+captured alone would leave the others' collectives unmatched.  Over gloo,
+whose collectives run on the host and cannot be captured, each step of a
+chunk runs eagerly (``captures``); a profiler window then counts steps,
+as the per-step loop's does, where it counts a replayed chunk as one.
 
 Under ``--loss_mode cycle`` the epoch runs over two resident splits,
 trainA and trainB (fused.py:90-104, :197-212): B's order is the shuffle
@@ -78,8 +86,8 @@ import torch
 from ..data.loader import epoch_order
 from ..data.preprocess import (PreprocessDraws, draw_preprocess,
                                preprocess_train)
-from ..ops import cuda_in
-from ..parallel import dp
+from ..ops import cuda_in, norm
+from ..parallel import dp, spatial
 from ..parallel.spatial_step import shard_batch
 from ..utils import cuda_graph
 from .pool import (HistPlan, PoolPlan, plan_hist_steps, plan_steps,
@@ -283,15 +291,44 @@ def epoch_orders(cfg, splits, epoch: int) -> list:
 WARMUP_STEPS = 2  # eager steps on the capture's stream before a capture
 
 
+def captures(device, backend: Optional[str]) -> bool:
+    """Whether a step on ``device`` whose collectives go over a group of
+    ``backend`` (None: one process, no group) is captured as a CUDA graph:
+    on a CUDA device with no group or an NCCL group, whose collectives
+    are kernels on the card.  Gloo's run on the host, so a gloo step stays
+    eager, as every step does on the CPU."""
+    return torch.device(device).type == "cuda" and backend in (None, "nccl")
+
+
+def comm_counts() -> dict:
+    """The collectives' counters, calls and bytes: the gradients' buckets
+    (``dp.mean_``), the halos, the gathers and the moments'
+    all-reduces."""
+    return {"dp.all_reduce_calls": dp.reductions,
+            "dp.all_reduce_bytes": dp.bytes_reduced,
+            "sp.halo_calls": spatial.halo_calls,
+            "sp.halo_bytes": spatial.halo_bytes,
+            "sp.gather_calls": spatial.gather_calls,
+            "sp.gather_bytes": spatial.gather_bytes,
+            "sp.moments_calls": norm.moments_calls,
+            "sp.moments_bytes": norm.moments_bytes}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before[k] for k, v in after.items()}
+
+
 class StepGraph:
     """One train step over the resident split (a (trainA, trainB) pair
     under ``--loss_mode cycle``) from static inputs, captured as a CUDA
-    graph on the card at the first chunk and replayed once a step; on the
-    CPU, and under a world of several ranks (a gloo collective cannot be
-    captured), the same function runs eagerly once a step.  ``k1_calls``:
-    K1's wrapper calls recorded at the capture, a step's worth ((forward,
-    backward) totals and calls by (direction, route)), since the replays
-    do not pass through the wrapper."""
+    graph on the card at the first chunk and replayed once a step, its
+    NCCL collectives inside; on the CPU, and over a gloo group
+    (``captures``), the same function runs eagerly once a step.  The
+    replays pass through no wrapper and no counter, so a step's counts
+    are recorded at the capture: ``k1_calls``, K1's calls ((forward,
+    backward) totals, and calls by (direction, route) and by ("sp", split
+    pass)), and ``comm_calls``, the collectives' counters (``comm_counts``;
+    on the eager path around its first step)."""
 
     def __init__(self, tr, dev_ds, make_batch):
         cfg = tr.cfg
@@ -308,9 +345,9 @@ class StepGraph:
         self.cuts += [self.cuts[-1] + out_w, self.cuts[-1] + out_w + slots]
         self.rows = torch.zeros(self.cuts[-1], dtype=torch.int64,
                                 device=self.splits[0].img.device)
-        self.graph = self.losses = self.k1_calls = None
+        self.graph = self.losses = self.k1_calls = self.comm_calls = None
         self._key = None
-        self.captures = self.rows.device.type == "cuda" and tr.world == 1
+        self.captures = captures(self.rows.device, dp.backend(tr.group))
 
     def _step(self) -> torch.Tensor:
         """One step from ``rows``: the state updated in place, the
@@ -335,36 +372,44 @@ class StepGraph:
         with torch.no_grad():
             saved = [t.clone() for t in tensors]
         gen_state = tr.data_gen.get_state()
-        counts = []  # K1's counters before and after the capture
+        counts = []  # the counters before and after the capture
 
         def restore():
             with torch.no_grad():
                 for t, v in zip(tensors, saved):
                     t.copy_(v)
             tr.data_gen.set_state(gen_state)
-            counts.append(_k1_counts())
+            counts.append((_k1_counts(), comm_counts()))
 
         t0 = time.perf_counter()
         self.graph, self.losses = cuda_graph.capture(
             self._step, WARMUP_STEPS, (tr.data_gen,), restore)
         tr.data_gen.set_state(gen_state)  # where the first replay draws
-        counts.append(_k1_counts())
-        (f0, b0, r0), (f1, b1, r1) = counts
+        counts.append((_k1_counts(), comm_counts()))
+        ((f0, b0, r0), c0), ((f1, b1, r1), c1) = counts
         self.k1_calls = ((f1 - f0, b1 - b0),
                          {k: v - r0[k] for k, v in r1.items() if v != r0[k]})
+        self.comm_calls = _delta(c1, c0)
         self._key = cuda_graph.storage_key(tensors)
-        print(f" [*] train step captured as a CUDA graph in "
+        on = f" on rank {tr.rank}" if tr.group is not None else ""
+        split = {p: n for (d, p), n in self.k1_calls[1].items() if d == "sp"}
+        extra = (f"; K1's split passes a step: {split}" if split else "") + (
+            "; collectives a step: {} ({} bytes)".format(*(
+                sum(v for k, v in self.comm_calls.items() if k.endswith(e))
+                for e in ("_calls", "_bytes")))
+            if tr.group is not None else "")
+        print(f" [*] train step captured as a CUDA graph{on} in "
               f"{time.perf_counter() - t0:.2f} s (K1 calls a step: "
               f"{self.k1_calls[0][0]} forward, {self.k1_calls[0][1]} "
-              f"backward); {tr.cfg.scan_steps} steps a chunk")
+              f"backward); {tr.cfg.scan_steps} steps a chunk{extra}")
 
     def run(self, rows: np.ndarray, tick=None) -> torch.Tensor:
         """The steps of one chunk, one per row of ``rows`` (kc, width)
         int64; returns their losses, (kc, 2) on the device.  Where it
-        ``captures`` (one process on the card) the graph is captured first
-        when it has none, or when a tensor of the state has moved since
-        its capture; else ``tick`` (a profiler window's) is called after
-        each eager step."""
+        ``captures`` the graph is captured first when it has none, or when
+        a tensor of the state has moved since its capture on any rank of
+        the step's group; else ``tick`` (a profiler window's) is called
+        after each eager step."""
         dev = self.rows.device
         table = torch.from_numpy(rows)
         if dev.type == "cuda":  # pinned, so the copy does not sync the host
@@ -372,7 +417,9 @@ class StepGraph:
         if self.captures:
             key = cuda_graph.storage_key(state_tensors(self.tr.state)
                                          .values())
-            if self.graph is None or key != self._key:
+            # the ranks capture together, or their collectives part
+            if not dp.agree(self.graph is not None and key == self._key,
+                            self.tr.group):
                 self.rows.copy_(table[0])
                 self._capture()
         out = torch.empty((len(rows), 2), device=dev)
@@ -382,7 +429,10 @@ class StepGraph:
                 self.graph.replay()
                 out[r].copy_(self.losses)
             else:
+                before = comm_counts() if self.comm_calls is None else None
                 out[r].copy_(self._step())
+                if before is not None:
+                    self.comm_calls = _delta(comm_counts(), before)
                 if tick is not None:
                     tick()
         return out
@@ -390,7 +440,8 @@ class StepGraph:
 
 def _k1_counts() -> tuple:
     return (cuda_in.launches, cuda_in.bwd_launches,
-            dict(cuda_in.route_launches))
+            {**cuda_in.route_launches,
+             **{("sp", p): n for p, n in cuda_in.sp_launches.items()}})
 
 
 def run_chunk(tr, graph: StepGraph, ix, tick=None) -> torch.Tensor:

@@ -512,7 +512,7 @@ def mean_over_ranks(group, grads: Dict[str, torch.Tensor], bn: dict,
         dp.mean_([*grads.values(), *dp.bn_leaves(bn), loss], group)
 
 
-def build_step_fn(cfg, group=None):
+def build_step_fn(cfg, group=None, keep_one: bool = False):
     """The step: ``(state, batch, lr, pool_draws, drop_masks=None) ->
     (state, metrics)``.
 
@@ -532,18 +532,18 @@ def build_step_fn(cfg, group=None):
     (``cycle.build_cycle_step_fn``).
 
     ``group``: under ``--mesh_data N``, the process group of the N ranks
-    (the default group when None; ``parallel.dp.data_group``).  The step
-    then takes this rank's shard of the batch, its pool draws and its
-    masks, and every rank returns the same losses and makes the same
-    update.  Under ``--mesh_space``, the spatial step
+    (the default group when None; ``parallel.dp.data_group``, with its
+    ``keep_one``).  The step then takes this rank's shard of the batch,
+    its pool draws and its masks, and every rank returns the same losses
+    and makes the same update.  Under ``--mesh_space``, the spatial step
     (``spatial_step.build_sp_step_fn``) on this rank's block."""
     if mesh.is_spatial(cfg):
         from ..parallel import spatial_step
         return spatial_step.build_sp_step_fn(cfg, mesh.grid(cfg, group))
     if cfg.loss_mode == "cycle":
         from .cycle import build_cycle_step_fn
-        return build_cycle_step_fn(cfg, group)
-    group = dp.data_group(cfg, group)
+        return build_cycle_step_fn(cfg, group, keep_one)
+    group = dp.data_group(cfg, group, keep_one)
 
     def step_fn(state: TrainState, batch, lr: Union[float, torch.Tensor],
                 pool_draws: Union[PoolDraws, PoolPlan, None],

@@ -12,8 +12,9 @@ scalars; saves every ``--save_freq`` steps, at the end (in ``finally``)
 and on KeyboardInterrupt (model.py:272-275).
 
 ``--scan_steps K`` runs the resident split in chunks of K steps, each a
-replay of one CUDA graph of the whole step (eager steps under several
-ranks), as the JAX package's lax.scan chunks run it
+replay of one CUDA graph of the whole step, its NCCL collectives inside
+under several ranks (eager steps over gloo, whose collectives cannot be
+captured), as the JAX package's lax.scan chunks run it
 (``train/fused.py``); the graph is captured at the first chunk of
 training, after a ``--continue_train`` load.  ``--scan_steps 1``
 and the host iterator run the eager step, as the JAX package runs its
@@ -60,8 +61,9 @@ each as its JAX counterpart takes them:
   augmented copies; B' must divide by N (the JAX mesh's ``shard_batch``,
   dp.py:56), so ``--mesh_data 2 --batch_size 1`` with augmentation
   trains.  ``--scan_steps K`` runs the JAX scan's chunk loop, its prints
-  and saves on chunk boundaries, each step of a chunk eager: no CUDA
-  graph holds a gloo collective;
+  and saves on chunk boundaries, each step a replay of the step's CUDA
+  graph over NCCL (every rank captures it, its collectives inside), an
+  eager step over gloo (its collectives run on the host);
 * the host iterator, where the split is not resident (an empty budget,
   a split that does not fit, or a rank that cannot build it: the ranks
   agree first, ``dp.agree``), as the JAX trainer feeds several processes
@@ -92,9 +94,11 @@ resolution, then keeps its block of the plane
 (``spatial_step.shard_batch``), as ``_batch_spec`` places a resident
 batch and the JAX trainer's ``shard_sp_batch`` splits a host's rows
 (trainer.py:79-105).  The pool's draws are the data row's, the dropout
-masks the shard's.  As under ``--mesh_data``, the steps run eagerly, in
-``--scan_steps`` chunks on the resident path; the coordinator evaluates
-with the replicated generator on the whole plane while the others wait;
+masks the shard's.  As under ``--mesh_data``, the resident path runs
+``--scan_steps`` chunks of graph replays over NCCL (the halos, gathers
+and moments' all-reduces captured too) or of eager steps over gloo; the
+coordinator evaluates with the replicated generator on the whole plane
+while the others wait;
 a checkpoint holds the pool in the JAX package's global layout (slots
 over data, H over space, W over wspace), and the pix2pix nets' BN
 states, equal on every rank.  ``--phase test`` of a spatial run's
@@ -340,26 +344,35 @@ class Trainer:
 
     def _path_line(self, resident: bool) -> str:
         """The coordinator's line on where a rank's rows come from and how
-        its steps run."""
+        its steps run: under ``--scan_steps`` on the resident split, one
+        CUDA graph a step where ``fused.captures`` (NCCL), else chunks of
+        eager steps, and why."""
         cfg = self.cfg
         b_eff = fused.effective_batch(cfg)
         unit, i = ("data row", "d") if self.grid is not None \
             else ("rank", "r")
-        if resident:
-            n = b_eff // self.n_rows
-            return (f"{unit} {i} takes rows [{n}{i}, {n}({i} + 1)) of each "
-                    f"batch of {b_eff} (the JAX mesh's blocks), from the "
-                    "split resident on each rank's card; "
-                    + (f"--scan_steps {cfg.scan_steps}: chunks of "
-                       f"{cfg.scan_steps} eager steps"
-                       if cfg.scan_steps > 1 else "eager steps")
-                    + " (no CUDA graph holds a collective)")
-        copies = ", with their augmented copies," if cfg.use_augmentation \
-            else ""
-        return (f"{self.local_bs} of each batch of {cfg.batch_size} a "
-                f"{unit}{copies} from the host iterator "
-                f"(the split is not resident: {self.host_why}); eager steps "
-                "(no CUDA graph holds a collective)")
+        if not resident:
+            copies = ", with their augmented copies," \
+                if cfg.use_augmentation else ""
+            return (f"{self.local_bs} of each batch of {cfg.batch_size} a "
+                    f"{unit}{copies} from the host iterator (the split is "
+                    f"not resident: {self.host_why}); eager steps (the host "
+                    "iterator's steps are not captured)")
+        n, k = b_eff // self.n_rows, cfg.scan_steps
+        backend = dp.backend(self.group)
+        if k == 1:
+            steps = "eager steps"
+        elif fused.captures(self.device, backend):
+            steps = (f"--scan_steps {k}: one CUDA graph a step, its "
+                     f"{backend.upper()} collectives captured, {k} replays "
+                     "a chunk")
+        else:
+            steps = (f"--scan_steps {k}: chunks of {k} eager steps ("
+                     + ("gloo's collectives cannot be captured)"
+                        if backend == "gloo" else "no CUDA graph here)"))
+        return (f"{unit} {i} takes rows [{n}{i}, {n}({i} + 1)) of each "
+                f"batch of {b_eff} (the JAX mesh's blocks), from the split "
+                f"resident on each rank's card; {steps}")
 
     def train(self) -> dict:
         cfg = self.cfg

@@ -15,7 +15,9 @@ each replay as an eager call would advance them.
 after ``cuda_in.prepare_capture``; ``ForwardGraphs`` keeps one captured
 forward per input shape and captures again when a weight it reads has
 changed its storage.  Graphs exist on CUDA only; their callers run the
-same function eagerly on the CPU.
+same function eagerly on the CPU.  A function with NCCL collectives is
+captured too (``train/fused.py``): its warm-up makes the communicators
+its collectives need, and the capture records their kernels.
 """
 
 from __future__ import annotations
@@ -41,7 +43,10 @@ def capture(fn: Callable[[], object], warmup: int = 1,
     it fills), then ``after_warmup()``, then ``fn()`` captured on that
     stream with ``generators`` registered, so that each replay draws from
     them what the next eager call would.  The output's tensors are the
-    graph's static outputs, overwritten by each replay."""
+    graph's static outputs, overwritten by each replay.  Only this
+    thread's CUDA calls are held to the capture's rules: another thread
+    (NCCL's watchdog, which queries its collectives' events) may make
+    CUDA calls while it runs."""
     stream = torch.cuda.Stream()
     cuda_in.prepare_capture(stream)
     stream.wait_stream(torch.cuda.current_stream())
@@ -54,7 +59,8 @@ def capture(fn: Callable[[], object], warmup: int = 1,
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
-    with torch.cuda.graph(graph, stream=stream):
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
         out = fn()
     return graph, out
 

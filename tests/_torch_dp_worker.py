@@ -28,8 +28,17 @@ never JAX.
         the process group joined with a collectives' timeout of
         ``timeout_s``, then ``main.main`` trains one epoch over 2 ranks
         while the coordinator's eval takes ``eval_s`` longer
+    python tests/_torch_dp_worker.py graph <cases.pkl> <out_dir>
+        each case's trainer over a resident split made from a seed, one
+        epoch in ``--scan_steps`` chunks through ``fused.StepGraph``
+        (eager on the CPU): every collective of each step logged (kind,
+        group, peer, shape, dtype), each step run where reading a
+        tensor's value on the host raises, ``spatial._via_host``'s
+        answers, and the collectives' counters recorded a step beside
+        their deltas over the epoch
 """
 
+import contextlib
 import os
 import pickle
 import sys
@@ -297,13 +306,164 @@ def slow_eval(dataset: str, work: str, timeout_s: str, eval_s: str) -> None:
     distributed.shutdown()
 
 
+# what a CUDA graph's capture forbids, raised inside the step
+HOST_READS = ("item", "__bool__", "__float__", "__int__", "tolist", "numpy")
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """A context in which reading a tensor's value on the host raises,
+    but for a tensor that ``torch.tensor`` made there from host values
+    (a constant rounded to a dtype: on the card too it never leaves the
+    host, so no sync)."""
+    saved = {n: getattr(torch.Tensor, n) for n in HOST_READS}
+    make = torch.tensor
+    host_made = {}  # id -> tensor, kept alive while the context lasts
+
+    def tensor(data, *a, **k):
+        t = make(data, *a, **k)
+        if t.device.type == "cpu" and not isinstance(data, torch.Tensor):
+            host_made[id(t)] = t
+        return t
+
+    def refuse(name):
+        def read(self, *a, **k):
+            if id(self) in host_made:
+                return saved[name](self, *a, **k)
+            raise RuntimeError(f"Tensor.{name} inside the step")
+        return read
+    torch.tensor = tensor
+    for n in HOST_READS:
+        setattr(torch.Tensor, n, refuse(n))
+    try:
+        yield
+    finally:
+        torch.tensor = make
+        for n, f in saved.items():
+            setattr(torch.Tensor, n, f)
+
+
+@contextlib.contextmanager
+def logged_collectives(log: list):
+    """A context in which every collective the port makes is appended to
+    ``log`` as (kind, group's ranks, peer, shape, dtype, detail), a
+    ``batch_isend_irecv`` as one entry of its ops; the collectives a step
+    never makes raise."""
+    import torch.distributed as dist
+
+    def ranks(group):
+        return tuple(dist.get_process_group_ranks(
+            dist.group.WORLD if group is None else group))
+
+    def entry(kind, t, group, peer=None, detail=None):
+        return (kind, ranks(group), peer, tuple(t.shape), str(t.dtype),
+                detail)
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, **kw):
+        log.append(entry("all_reduce", t, group, detail=str(op)))
+        return saved["all_reduce"](t, op=op, group=group, **kw)
+
+    def all_gather(parts, t, group=None, **kw):
+        log.append(entry("all_gather", t, group, detail=len(parts)))
+        return saved["all_gather"](parts, t, group=group, **kw)
+
+    def batch_isend_irecv(ops):
+        log.append(("batch_isend_irecv", tuple(
+            entry(op.op.__name__, op.tensor, op.group, op.peer)
+            for op in ops)))
+        return saved["batch_isend_irecv"](ops)
+
+    def refused(name):
+        def call(*_a, **_k):
+            raise RuntimeError(f"dist.{name} inside the step")
+        return call
+    wrapped = {"all_reduce": all_reduce, "all_gather": all_gather,
+               "batch_isend_irecv": batch_isend_irecv,
+               **{n: refused(n) for n in ("broadcast", "barrier",
+                                          "all_gather_into_tensor",
+                                          "reduce_scatter_tensor")}}
+    saved = {n: getattr(dist, n) for n in wrapped}
+    for n, f in wrapped.items():
+        setattr(dist, n, f)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+
+
+def graph(cases_path: str, out_dir: str) -> None:
+    import time
+
+    import torch.distributed as dist
+
+    from sggan_tpu_torch.config import Config
+    from sggan_tpu_torch.parallel import spatial
+    from sggan_tpu_torch.train import fused
+    from sggan_tpu_torch.train.trainer import Trainer
+    from sggan_tpu_torch.utils.hbm import SyntheticSplit
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    via_host = spatial._via_host
+    out = {}
+    for name, kw in cases.items():
+        cfg = Config(**kw)
+        tr = Trainer(cfg, device="cpu")
+        tr.lr.fill_(1e-3)
+        tr._timer.start()
+        n = cfg.scan_steps * cfg.batch_size  # one chunk
+        splits = [SyntheticSplit(n, cfg.image_size, cfg.segment_class,
+                                 "cpu", seed) for seed in
+                  range(2 if tr.cycle else 1)]
+        sg = fused.StepGraph(tr, tuple(splits) if tr.cycle else splits[0],
+                             fused.make_batch_fn(cfg, fused.own_rows(tr)))
+        step, steps, answers = sg._step, [], []
+
+        def guarded():
+            log = []
+            with logged_collectives(log), no_host_reads():
+                try:
+                    torch.ones(1).item()
+                except RuntimeError:
+                    pass  # the guard holds
+                else:
+                    raise AssertionError("Tensor.item read a value")
+                m = step()
+            steps.append(log)
+            return m
+
+        def answered(group, like):
+            answers.append(via_host(group, like))
+            return answers[-1]
+        sg._step = guarded
+        spatial._via_host = answered
+        before = fused.comm_counts()
+        error = None
+        try:
+            fused.run_epoch_chunked(tr, 0, sg, [], [], 0, time.time())
+        except RuntimeError as e:
+            error = str(e)
+        finally:
+            spatial._via_host = via_host
+        out[name] = {"steps": steps, "error": error,
+                     "per_step": sg.comm_calls, "via_host": answers,
+                     "delta": {k: v - before[k] for k, v in
+                               fused.comm_counts().items()},
+                     "step": tr.state.step}
+    with open(os.path.join(out_dir, f"rank{dist.get_rank()}.pkl"),
+              "wb") as f:
+        pickle.dump(out, f)
+    print(f"OK graph rank {dist.get_rank()}", flush=True)
+
+
 def main() -> None:
     job, *args = sys.argv[1:]
-    if job == "steps":
+    if job in ("steps", "graph"):
         import torch.distributed as dist
         dist.init_process_group("gloo")
         try:
-            steps(*args)
+            {"steps": steps, "graph": graph}[job](*args)
         finally:
             dist.destroy_process_group()
     elif job == "trainer":

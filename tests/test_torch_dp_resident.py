@@ -236,7 +236,7 @@ def test_two_rank_resident_epoch_equals_one_process(job, tmp_path):
     assert " [*] data parallel over 2 ranks (gloo): rank r takes rows " \
         "[4r, 4(r + 1)) of each batch of 8 (the JAX mesh's blocks), from " \
         "the split resident on each rank's card; --scan_steps 8: chunks " \
-        "of 8 eager steps (no CUDA graph holds a collective)" in res[0]
+        "of 8 eager steps (gloo's collectives cannot be captured)" in res[0]
     host = _section(outs[0], "p2p_host")
     assert "from the host iterator (the split is not resident: " \
         "--device_dataset_mb 0)" in host and "resident on" not in host
